@@ -1,0 +1,106 @@
+"""The user-facing MDP builder, ELL subset.
+
+Counterpart of :class:`repro.api.MDP`: an MDP plus its solve semantics
+(``mode="mincost"`` solves ``min_a``; ``"maxreward"`` reads ``cost`` as a
+reward and solves ``max_a``).  This slice ports
+
+* :meth:`MDP.from_arrays` with ELL tables (``idx`` + ``val`` + ``cost``);
+* :meth:`MDP.from_generator` over the host generator families.
+
+Dense tables, files and function-backed MDPs are not ported yet.  The
+tables are built on the host; :meth:`MDP.build` returns them on a device,
+cached per device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.generators import REGISTRY as GENERATORS
+from repro_torch.core.ipi import MODES
+from repro_torch.core.mdp import EllMDP
+from repro_torch.device import resolve_device
+
+__all__ = ["MDP"]
+
+
+class MDP:
+    """A built MDP plus its solve semantics (``mode``)."""
+
+    def __init__(self, core: EllMDP, *, mode: str = "mincost"):
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; pick one of {MODES}")
+        if not isinstance(core, EllMDP):
+            raise TypeError(f"MDP wraps an EllMDP, got {type(core).__name__}")
+        self._core = core
+        self.mode = mode
+        self._device_cache: dict[torch.device, EllMDP] = {}
+
+    # ---- constructors ------------------------------------------------------
+    @classmethod
+    def from_arrays(cls, *, idx=None, val=None, cost=None, p=None,
+                    gamma: float = 0.99, mode: str = "mincost",
+                    validate: bool = True) -> "MDP":
+        """ELL tables: ``idx`` (n, m, K) + ``val`` (n, m, K) + ``cost``
+        (n, m).  Dense ``p`` is not ported yet."""
+        if cost is None:
+            raise ValueError("from_arrays requires cost (the stage "
+                             "cost/reward table g(s, a))")
+        if p is not None:
+            raise NotImplementedError("dense MDPs (p=...) are not yet "
+                                      "ported; pass ELL idx/val")
+        if idx is None or val is None:
+            raise ValueError("from_arrays requires idx+val (ELL)")
+        idx, val = _host(idx), _host(val)
+        core = EllMDP.from_numpy(idx, val, _host(cost), gamma,
+                                 n_global=idx.shape[0],
+                                 m_global=idx.shape[1], device="cpu")
+        if validate:
+            core.validate()
+        return cls(core, mode=mode)
+
+    @classmethod
+    def from_generator(cls, name: str, *, mode: str = "mincost",
+                       **kw) -> "MDP":
+        """One of the built-in instance families
+        (``garnet``/``maze2d``/``sis``/``chain_walk``)."""
+        if name not in GENERATORS:
+            raise ValueError(f"unknown generator {name!r}; pick one of "
+                             f"{sorted(GENERATORS)}")
+        return cls(GENERATORS[name](**kw), mode=mode)
+
+    # ---- introspection -----------------------------------------------------
+    @property
+    def n(self) -> int:
+        return self._core.n_global
+
+    @property
+    def m(self) -> int:
+        return self._core.m_global
+
+    @property
+    def gamma(self) -> float:
+        return self._core.gamma
+
+    def __repr__(self) -> str:
+        return (f"MDP(EllMDP, n={self.n}, m={self.m}, gamma={self.gamma}, "
+                f"mode={self.mode!r})")
+
+    # ---- placement ---------------------------------------------------------
+    def build(self, device: str | torch.device = "cuda") -> EllMDP:
+        """The core container with its tables on ``device`` (cached)."""
+        dev = resolve_device(device)
+        if dev not in self._device_cache:
+            self._device_cache[dev] = self._core.to(dev)
+        return self._device_cache[dev]
+
+    def evict(self) -> None:
+        """Drop the cached device copies (keeps the host tables)."""
+        self._device_cache.clear()
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -1,0 +1,340 @@
+"""PETSc-style options database, the subset this slice honours.
+
+Counterpart of :mod:`repro.api.options`: a typed registry of ``-key``
+options with the reference's types, defaults, validators and error
+messages; ingestion from ``MADUPITE_OPTIONS`` and ``--option key=value``
+with the reference's precedence (explicit > CLI > environment > default);
+and the mapping onto :class:`repro_torch.core.ipi.IPIOptions`.
+
+Ported keys: the solver keys of ``IPIOptions`` (``-method``, ``-mode``,
+``-ksp_type``, ``-atol``, ``-stop_criterion``, ``-rtol``, ``-max_outer``,
+``-max_inner``, ``-inner_forcing``, ``-restart``, ``-omega``,
+``-mpi_sweeps``, ``-safeguard``, ``-divtol``, ``-dtype``), the driver's
+``-chunk`` and ``-verbose``, the outputs ``-file_policy`` / ``-file_cost``,
+and the port's own ``-device``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import shlex
+from typing import Any, Callable, Mapping
+
+from repro_torch.core import methods as _methods
+from repro_torch.core.ipi import IPIOptions, MODES
+from repro_torch.device import DEVICES
+
+__all__ = ["OptionSpec", "OPTION_SPECS", "Options", "UnknownOptionError",
+           "OptionTypeError"]
+
+ENV_VAR = "MADUPITE_OPTIONS"
+
+# precedence levels (higher wins); `set()` without a source is "user"
+_SOURCES = {"default": 0, "env": 1, "cli": 2, "user": 3}
+
+
+class UnknownOptionError(KeyError):
+    """Raised for a key absent from the registry; names the key and the
+    closest registered spellings."""
+
+
+class OptionTypeError(ValueError):
+    """Raised when a value cannot be coerced to the key's declared type (or
+    violates its choices/validator); names the key."""
+
+
+@dataclasses.dataclass(frozen=True)
+class OptionSpec:
+    """One registered option: its type, default and constraints."""
+
+    name: str                    # "-atol"
+    type: type                   # float / int / bool / str
+    default: Any
+    doc: str
+    choices: tuple | None = None
+    choices_fn: Callable[[], tuple] | None = None
+    nullable: bool = False       # None is a legal value ("unset")
+    validate: Callable[[Any], str | None] | None = None  # -> error or None
+
+    def _choices(self) -> tuple | None:
+        if self.choices_fn is not None:
+            return tuple(self.choices_fn())
+        return self.choices
+
+    def coerce(self, value: Any) -> Any:
+        """Coerce (possibly a string from env/CLI) to the declared type."""
+        choices = self._choices()
+        if value is None:
+            if self.nullable:
+                return None
+            raise OptionTypeError(
+                f"option {self.name!r} does not accept None "
+                f"(expected {self.type.__name__})")
+        if self.nullable and isinstance(value, str) \
+                and value.lower() in ("none", "") \
+                and not (choices and value.lower() in choices):
+            return None
+        try:
+            if self.type is bool:
+                out = _coerce_bool(self.name, value)
+            elif isinstance(value, str) and self.type is not str:
+                out = self.type(value)
+            elif self.type is float and isinstance(value, int) \
+                    and not isinstance(value, bool):
+                out = float(value)
+            elif not isinstance(value, self.type) \
+                    or isinstance(value, bool) is not (self.type is bool):
+                raise TypeError(
+                    f"got {type(value).__name__} {value!r}")
+            else:
+                out = value
+        except OptionTypeError:
+            raise
+        except (TypeError, ValueError) as e:
+            raise OptionTypeError(
+                f"option {self.name!r} expects {self.type.__name__}, "
+                f"{e}") from None
+        if choices is not None and out not in choices:
+            raise OptionTypeError(
+                f"option {self.name!r} must be one of {choices}, "
+                f"got {out!r}{_methods.suggest(out, choices)}")
+        if self.validate is not None:
+            err = self.validate(out)
+            if err:
+                raise OptionTypeError(f"option {self.name!r}: {err}")
+        return out
+
+
+def _coerce_bool(name: str, value: Any) -> bool:
+    if isinstance(value, bool):
+        return value
+    if isinstance(value, int) and value in (0, 1):
+        return bool(value)
+    if isinstance(value, str):
+        low = value.lower()
+        if low in ("1", "true", "yes", "on"):
+            return True
+        if low in ("0", "false", "no", "off"):
+            return False
+    raise OptionTypeError(f"option {name!r} expects a bool "
+                          f"(true/false/1/0), got {value!r}")
+
+
+def _positive(v) -> str | None:
+    return None if v > 0 else f"must be > 0, got {v}"
+
+
+def _non_negative(v) -> str | None:
+    return None if v >= 0 else f"must be >= 0, got {v}"
+
+
+def _open_unit(v) -> str | None:
+    return None if 0.0 < v < 1.0 else f"must lie in (0, 1), got {v}"
+
+
+_SPECS = [
+    # ---- solver (maps onto IPIOptions) -------------------------------------
+    OptionSpec("-method", str, "ipi_gmres", "outer/inner method",
+               choices_fn=_methods.method_names),
+    OptionSpec("-mode", str, "mincost",
+               "argmin (mincost) vs argmax (maxreward) Bellman backup",
+               choices=MODES),
+    OptionSpec("-ksp_type", str, None,
+               "inner linear solver (PETSc-style sugar: picks -method "
+               "ipi_<ksp> unless -method is set explicitly)",
+               choices_fn=lambda: ("none",) + _methods.ksp_names(),
+               nullable=True),
+    OptionSpec("-atol", float, 1e-8, "stop when ||T v - v||_inf <= atol",
+               validate=_positive),
+    OptionSpec("-stop_criterion", str, "atol",
+               "outer stopping predicate: atol | rtol | span",
+               choices_fn=_methods.stop_names),
+    OptionSpec("-rtol", float, 1e-4,
+               "threshold for -stop_criterion rtol (relative to the "
+               "initial residual)", validate=_open_unit),
+    OptionSpec("-max_outer", int, 500, "outer-iteration cap",
+               validate=_positive),
+    OptionSpec("-max_inner", int, 500, "inner-iteration cap per outer step",
+               validate=_non_negative),
+    OptionSpec("-inner_forcing", float, 0.05,
+               "forcing factor eta: inner tol = eta * ||T v - v||_inf",
+               validate=_open_unit),
+    OptionSpec("-restart", int, 32, "GMRES restart length",
+               validate=_positive),
+    OptionSpec("-omega", float, 1.0, "Richardson damping factor"),
+    OptionSpec("-mpi_sweeps", int, 50, "Richardson sweeps for method=mpi",
+               validate=_positive),
+    OptionSpec("-safeguard", bool, True,
+               "monotone (VI-fallback) safeguard for Krylov steps"),
+    OptionSpec("-divtol", float, 1e4,
+               "declare divergence (sticky flag, loop bail-out) when the "
+               "residual exceeds divtol x the initial residual",
+               validate=lambda v: None if v > 1.0
+               else f"must be > 1, got {v}"),
+    OptionSpec("-dtype", str, "float32", "value-vector dtype",
+               choices=("float32", "float64")),
+    # ---- placement and driver ----------------------------------------------
+    OptionSpec("-device", str, "cuda",
+               "device the solve runs on; cuda raises when no GPU is "
+               "visible (nothing falls back to the CPU)", choices=DEVICES),
+    OptionSpec("-chunk", int, 64,
+               "outer iterations per chunk between progress reports",
+               validate=_positive),
+    OptionSpec("-verbose", bool, False, "per-chunk progress lines"),
+    # ---- output -------------------------------------------------------------
+    OptionSpec("-file_policy", str, None,
+               "write the optimal policy (.npy) here", nullable=True),
+    OptionSpec("-file_cost", str, None,
+               "write the optimal value vector (.npy) here", nullable=True),
+]
+
+OPTION_SPECS: dict[str, OptionSpec] = {s.name: s for s in _SPECS}
+
+# the IPIOptions field each solver option maps onto
+_IPI_FIELDS = {
+    "-method": "method", "-mode": "mode", "-atol": "atol",
+    "-stop_criterion": "stop_criterion", "-rtol": "rtol",
+    "-max_outer": "max_outer", "-max_inner": "max_inner",
+    "-inner_forcing": "forcing_eta", "-restart": "restart",
+    "-omega": "omega", "-mpi_sweeps": "mpi_sweeps",
+    "-safeguard": "safeguard", "-divtol": "divtol", "-dtype": "dtype",
+}
+
+
+def _normalize(key: Any) -> str:
+    if not isinstance(key, str) or not key:
+        raise UnknownOptionError(f"option keys are strings like '-atol', "
+                                 f"got {key!r}")
+    name = key if key.startswith("-") else "-" + key
+    if name not in OPTION_SPECS:
+        raise UnknownOptionError(
+            f"unknown option {key!r}{_methods.suggest(name, OPTION_SPECS)} "
+            f"(see repro_torch.api.OPTION_SPECS for the full registry)")
+    return name
+
+
+class Options:
+    """The options database: a validated, precedence-aware flat key store.
+
+    Keys may be given with or without the leading dash.  Reads return the
+    registry default for unset keys.
+    """
+
+    def __init__(self, values: Mapping[str, Any] | None = None):
+        # name -> (coerced value, source priority)
+        self._values: dict[str, tuple[Any, int]] = {}
+        for k, v in (values or {}).items():
+            self.set(k, v)
+
+    # ---- core accessors ----------------------------------------------------
+    def set(self, key: str, value: Any, *, source: str = "user") -> "Options":
+        """Set (and validate) one option.  A lower-precedence ``source``
+        never overrides a higher-precedence value already present."""
+        name = _normalize(key)
+        prio = _SOURCES[source]
+        coerced = OPTION_SPECS[name].coerce(value)
+        if name in self._values and self._values[name][1] > prio:
+            return self
+        self._values[name] = (coerced, prio)
+        return self
+
+    def get(self, key: str) -> Any:
+        name = _normalize(key)
+        if name in self._values:
+            return self._values[name][0]
+        return OPTION_SPECS[name].default
+
+    def is_set(self, key: str) -> bool:
+        """True when the key was explicitly provided (any source)."""
+        return _normalize(key) in self._values
+
+    def __repr__(self) -> str:
+        kv = ", ".join(f"{k}={v[0]!r}"
+                       for k, v in sorted(self._values.items()))
+        return f"Options({kv})"
+
+    def copy(self) -> "Options":
+        out = Options()
+        out._values = dict(self._values)
+        return out
+
+    def as_dict(self, *, explicit_only: bool = False) -> dict[str, Any]:
+        """Flat ``{name: value}`` view (all keys, or only explicitly-set)."""
+        if explicit_only:
+            return {k: v for k, (v, _) in sorted(self._values.items())}
+        return {name: self.get(name) for name in OPTION_SPECS}
+
+    # ---- ingestion ---------------------------------------------------------
+    def ingest_env(self, env: Mapping[str, str] | None = None) -> "Options":
+        """Parse ``MADUPITE_OPTIONS`` (shell-style ``-key value`` pairs, or
+        ``-key=value`` tokens) at "env" precedence."""
+        raw = (env if env is not None else os.environ).get(ENV_VAR, "")
+        for key, value in _parse_pairs(shlex.split(raw), where=ENV_VAR):
+            self.set(key, value, source="env")
+        return self
+
+    def ingest_cli(self, pairs) -> "Options":
+        """Ingest ``--option key=value`` arguments at "cli" precedence."""
+        for item in pairs or ():
+            if "=" not in item:
+                raise OptionTypeError(
+                    f"--option expects key=value, got {item!r}")
+            key, value = item.split("=", 1)
+            self.set(key.strip(), value.strip(), source="cli")
+        return self
+
+    @classmethod
+    def from_sources(cls, values: Mapping[str, Any] | None = None, *,
+                     cli=None, env: Mapping[str, str] | None = None) -> \
+            "Options":
+        """Build a database from every source at once.  Precedence (low to
+        high): registry defaults, environment, CLI, explicit ``values``."""
+        out = cls()
+        out.ingest_env(env)
+        out.ingest_cli(cli)
+        for k, v in (values or {}).items():
+            out.set(k, v)
+        return out
+
+    # ---- IPIOptions mapping ------------------------------------------------
+    def to_ipi(self) -> IPIOptions:
+        """The solver-core view of this database.  ``-ksp_type`` picks the
+        method when ``-method`` is unset."""
+        kw = {field: self.get(name) for name, field in _IPI_FIELDS.items()}
+        ksp = self.get("-ksp_type")
+        if ksp is not None and not self.is_set("-method"):
+            try:
+                kw["method"] = _methods.method_for_ksp(ksp)
+            except ValueError as e:
+                raise OptionTypeError(
+                    f"option '-ksp_type': {e}") from None
+        try:
+            return IPIOptions(**kw)
+        except ValueError as e:
+            raise OptionTypeError(str(e)) from None
+
+    def with_overrides(self, overrides: Mapping[str, Any]) -> "Options":
+        """Copy with ``overrides`` applied at user precedence."""
+        out = self.copy()
+        for k, v in overrides.items():
+            out.set(k, v)
+        return out
+
+
+def _parse_pairs(tokens, where: str):
+    """``["-method", "vi", "-atol=1e-6"]`` -> ``[("-method", "vi"), ...]``."""
+    out = []
+    it = iter(tokens)
+    for tok in it:
+        if "=" in tok:
+            key, value = tok.split("=", 1)
+            out.append((key, value))
+            continue
+        try:
+            out.append((tok, next(it)))
+        except StopIteration:
+            raise OptionTypeError(
+                f"{where}: option {tok!r} is missing a value") from None
+    return out
+

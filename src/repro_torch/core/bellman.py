@@ -1,0 +1,137 @@
+"""Bellman operators, single-device ELL subset.
+
+Counterpart of :mod:`repro.core.bellman`.  Functions take a local MDP
+block plus the :class:`~repro_torch.core.comm.Axes` it is sharded over
+(always ``Axes()`` in this slice: every collective is the identity), so
+the signatures match the reference's and a sharded layout can slot in.
+
+Conventions
+-----------
+* ``v_local``  — (n_local,) owned slice of the value vector.
+* ``v_global`` — (n_global,) gathered value vector.
+* ``pi``       — (n_local,) int32 of **global** action ids.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.comm import Axes
+from repro_torch.core.mdp import EllMDP
+from repro_torch.kernels import ops
+
+
+def gather_v(v_local: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """The column window the local rows reference (the full vector)."""
+    return axes.allgather_state(v_local)
+
+
+# --------------------------------------------------------------------------- #
+# Greedy step (policy improvement)                                            #
+# --------------------------------------------------------------------------- #
+
+def backup(mdp: EllMDP, v_global: torch.Tensor, axes: Axes, *,
+           mode: str = "mincost") -> tuple[torch.Tensor, torch.Tensor]:
+    """One Bellman backup: ``(Tv (n_local,), pi (n_local,) int32)``.
+
+    ``mode="maxreward"`` reads ``cost`` as a reward and takes the argmax
+    backup by negation: the backup runs on ``(-cost, -v)`` and the result
+    is negated, so a maxreward solve is bit-for-bit the negation of the
+    mincost solve on negated costs (IEEE negation is exact).
+    """
+    neg = mode == "maxreward"
+    cost = -mdp.cost if neg else mdp.cost
+    if neg:
+        v_global = -v_global
+    vmin, amin = ops.ell_backup(mdp.idx, mdp.val, cost, mdp.gamma, v_global)
+    a_glob = amin + mdp.m_local * axes.action_index()
+    return (-vmin if neg else vmin), a_glob
+
+
+def gather_backup(mdp: EllMDP, v_local: torch.Tensor, axes: Axes, *,
+                  mode: str = "mincost") -> tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
+    """Gather the value window and run one Bellman backup; returns
+    ``(tv, pi, window)`` (the synchronous path of the reference)."""
+    w = gather_v(v_local, axes)
+    tv, pi = backup(mdp, w, axes, mode=mode)
+    return tv, pi, w
+
+
+def residual_norm(mdp: EllMDP, v_local: torch.Tensor,
+                  v_global: torch.Tensor, axes: Axes, *,
+                  mode: str = "mincost") -> torch.Tensor:
+    """Sup-norm Bellman residual ``||T v - v||_inf`` (the optimality gap
+    certificate: ``||v - v*||_inf <= residual / (1 - gamma)``)."""
+    tv, _ = backup(mdp, v_global, axes, mode=mode)
+    return axes.pmax_state(torch.max(torch.abs(tv - v_local)))
+
+
+# --------------------------------------------------------------------------- #
+# Policy-restricted operators (policy evaluation)                             #
+# --------------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class PolicyRows:
+    """Rows of ``P_pi`` / ``g_pi`` owned by this shard."""
+
+    idx: torch.Tensor   # (n_local, K) int32
+    val: torch.Tensor   # (n_local, K) f32
+    g: torch.Tensor     # (n_local,) f32
+    gamma: float
+
+
+def policy_rows(mdp: EllMDP, pi: torch.Tensor, axes: Axes) -> PolicyRows:
+    """Extract the ``P_pi`` rows for a (global-id) policy ``pi``.
+
+    On one device every row owns its greedy action, so the reference's
+    ownership mask is all ones (multiplying by it is exact) and is left
+    out."""
+    a_sel = torch.clamp(pi - mdp.m_local * axes.action_index(), 0,
+                        mdp.m_local - 1).long()
+    k = mdp.nnz_per_row
+    sel3 = a_sel[:, None, None].expand(-1, 1, k)
+    idx_pi = torch.gather(mdp.idx, 1, sel3)[:, 0].contiguous()
+    val_pi = torch.gather(mdp.val, 1, sel3)[:, 0].contiguous()
+    g_pi = torch.gather(mdp.cost, 1, a_sel[:, None])[:, 0]
+    return PolicyRows(idx=idx_pi, val=val_pi, g=g_pi, gamma=mdp.gamma)
+
+
+def _p_pi_matvec(rows: PolicyRows, x_eff: torch.Tensor,
+                 axes: Axes) -> torch.Tensor:
+    """(P_pi @ x) on local rows, reduced over action shards."""
+    return axes.psum_action(ops.ell_matvec(rows.idx, rows.val, x_eff))
+
+
+def _fma(a: torch.Tensor, y: torch.Tensor, scale: float) -> torch.Tensor:
+    """``a + scale * y`` with one rounding (``torch.addcmul`` with the scale
+    as a tensor): what XLA:CPU computes for the reference's contracted
+    ``a + scale * y``."""
+    s = torch.tensor(scale, dtype=y.dtype, device=y.device)
+    return torch.addcmul(a.to(y.dtype), y, s)
+
+
+def t_pi(rows: PolicyRows, x_local: torch.Tensor,
+         axes: Axes) -> torch.Tensor:
+    """Policy-restricted Bellman operator ``T_pi x = g_pi + gamma P_pi x``."""
+    y = _p_pi_matvec(rows, gather_v(x_local, axes), axes)
+    return _fma(axes.psum_action(rows.g), y, rows.gamma)
+
+
+def a_pi_matvec(rows: PolicyRows, x_local: torch.Tensor,
+                axes: Axes) -> torch.Tensor:
+    """Policy-evaluation system operator ``A_pi x = (I - gamma P_pi) x``.
+
+    The matvec handed to the inner (Krylov) solvers; the value function of
+    ``pi`` solves ``A_pi v = g_pi``.  XLA:CPU contracts the reference's
+    ``x - gamma * y`` into one fused multiply-add, and so does this one.
+    """
+    y = _p_pi_matvec(rows, gather_v(x_local, axes), axes)
+    return _fma(x_local, y.to(x_local.dtype), -rows.gamma)
+
+
+def b_pi(rows: PolicyRows, axes: Axes) -> torch.Tensor:
+    """Right-hand side ``g_pi`` of the policy-evaluation system."""
+    return axes.psum_action(rows.g)

@@ -1,0 +1,43 @@
+"""Collective-axis abstraction, single-device subset.
+
+Counterpart of :mod:`repro.core.comm`.  The solver code calls the same
+collectives as the reference (``psum_state``, ``pmax_state``, ...); on one
+device there is no axis to reduce over and each collective is the identity.  A later
+slice puts ``torch.distributed`` behind the same interface.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class Axes:
+    """The mesh axes the solver is sharded over: none, on one device."""
+
+    # ---- state-axis collectives -------------------------------------------
+    def allgather_state(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def psum_state(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def pmax_state(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def state_index(self) -> int:
+        return 0
+
+    # ---- action-axis collectives ------------------------------------------
+    def psum_action(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def action_index(self) -> int:
+        return 0
+
+    # ---- derived linear-algebra helpers -----------------------------------
+    def dot(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """<x, y> over state shards (MPI_Allreduce analogue)."""
+        return self.psum_state(torch.dot(x, y))
+
+    def norm2(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sqrt(torch.clamp_min(self.dot(x, x), 0.0))

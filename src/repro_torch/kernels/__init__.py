@@ -1,0 +1,3 @@
+"""Kernels of the torch port: CUDA C++ sources in ``csrc/``, their ctypes
+wrappers, plain PyTorch versions (:mod:`.ref`) and device dispatch
+(:mod:`.ops`)."""

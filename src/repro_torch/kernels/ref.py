@@ -1,0 +1,78 @@
+"""Plain PyTorch versions of the kernels — the semantic ground truth.
+
+Counterpart of :mod:`repro.kernels.ref`.  The CPU path runs these, and on
+the card each CUDA kernel must equal its plain version bit for bit, so the
+rounding is pinned exactly as the reference's ``pin_rounding`` pins it:
+
+* ``val * v[idx]`` is rounded (one multiply, one rounding) before the
+  K-sum;
+* the K-sum runs in explicit order ``k = 0 .. K-1`` from a ``+0``
+  accumulator — the order XLA:CPU's ``jnp.sum`` takes for ``K <= 12``
+  (every built-in family has ``K <= 8``);
+* ``gamma * pv`` is rounded before ``+ cost``.
+
+Products and adds are separate tensor ops, so no fused multiply-add can
+merge two roundings.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def acc_dtype(*tensors: torch.Tensor) -> torch.dtype:
+    """Accumulation dtype: at least f32, f64 if any operand is f64."""
+    if any(t.dtype == torch.float64 for t in tensors):
+        return torch.float64
+    return torch.float32
+
+
+def ell_gather_dot(idx: torch.Tensor, val: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """``sum_k val[..., k] * v[idx[..., k]]`` — the ELL row-gather dot.
+
+    idx: (..., K) int32 global column ids; val: (..., K); v: (n_cols,).
+    Returns (...,) accumulated in >= f32 (f64 when v is f64).
+    """
+    dt = acc_dtype(val, v)
+    vv = v.to(dt)
+    shape = idx.shape[:-1]
+    acc = torch.zeros(shape, dtype=dt, device=v.device)
+    for k in range(idx.shape[-1]):
+        gathered = vv.index_select(0, idx[..., k].reshape(-1)).reshape(shape)
+        acc = acc + val[..., k].to(dt) * gathered
+    return acc
+
+
+def ell_qvalues(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
+                gamma: float, v: torch.Tensor) -> torch.Tensor:
+    """Q(s, a) = g(s, a) + gamma * sum_{s'} P(s, a, s') v(s')."""
+    pv = ell_gather_dot(idx, val, v)
+    return cost.to(pv.dtype) + gamma * pv
+
+
+def rowmin_argmin(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(min, int32 argmin) over the trailing axis by a running strict-``<``
+    minimum: the first minimum (smallest index) wins ties."""
+    best = q[..., 0]
+    arg = torch.zeros(q.shape[:-1], dtype=torch.int32, device=q.device)
+    for a in range(1, q.shape[-1]):
+        qa = q[..., a]
+        hit = qa < best
+        best = torch.where(hit, qa, best)
+        arg = torch.where(hit, torch.full_like(arg, a), arg)
+    return best, arg
+
+
+def ell_backup(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
+               gamma: float, v: torch.Tensor) \
+        -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused Bellman backup: (min_a Q, argmin_a Q) with smallest-index
+    tie-break."""
+    return rowmin_argmin(ell_qvalues(idx, val, cost, gamma, v))
+
+
+def ell_matvec(idx: torch.Tensor, val: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """y(s) = sum_{s'} P_pi(s, s') x(s') on policy-restricted ELL rows (n, K)."""
+    return ell_gather_dot(idx, val, x)
