@@ -1,15 +1,16 @@
-"""The user-facing MDP builder, ELL subset.
+"""The user-facing MDP builder, materialized subset.
 
 Counterpart of :class:`repro.api.MDP`: an MDP plus its solve semantics
 (``mode="mincost"`` solves ``min_a``; ``"maxreward"`` reads ``cost`` as a
-reward and solves ``max_a``).  This slice ports
+reward and solves ``max_a``).  Ported so far:
 
-* :meth:`MDP.from_arrays` with ELL tables (``idx`` + ``val`` + ``cost``);
+* :meth:`MDP.from_arrays` with ELL tables (``idx`` + ``val`` + ``cost``)
+  or a dense transition tensor (``p`` + ``cost``);
 * :meth:`MDP.from_generator` over the host generator families.
 
-Dense tables, files and function-backed MDPs are not ported yet.  The
-tables are built on the host; :meth:`MDP.build` returns them on a device,
-cached per device.
+Files and function-backed MDPs are not ported yet.  The tables are built
+on the host; :meth:`MDP.build` returns them on a device, cached per
+device.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from repro_torch.core.generators import REGISTRY as GENERATORS
 from repro_torch.core.ipi import MODES
-from repro_torch.core.mdp import EllMDP
+from repro_torch.core.mdp import MDP as CoreMDP, DenseMDP, EllMDP
 from repro_torch.device import resolve_device
 
 __all__ = ["MDP"]
@@ -28,34 +29,43 @@ __all__ = ["MDP"]
 class MDP:
     """A built MDP plus its solve semantics (``mode``)."""
 
-    def __init__(self, core: EllMDP, *, mode: str = "mincost"):
+    def __init__(self, core: CoreMDP, *, mode: str = "mincost"):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; pick one of {MODES}")
-        if not isinstance(core, EllMDP):
-            raise TypeError(f"MDP wraps an EllMDP, got {type(core).__name__}")
+        if not isinstance(core, (EllMDP, DenseMDP)):
+            raise TypeError(f"MDP wraps an EllMDP or a DenseMDP, got "
+                            f"{type(core).__name__}")
         self._core = core
         self.mode = mode
-        self._device_cache: dict[torch.device, EllMDP] = {}
+        self._device_cache: dict[torch.device, CoreMDP] = {}
 
     # ---- constructors ------------------------------------------------------
     @classmethod
     def from_arrays(cls, *, idx=None, val=None, cost=None, p=None,
                     gamma: float = 0.99, mode: str = "mincost",
                     validate: bool = True) -> "MDP":
-        """ELL tables: ``idx`` (n, m, K) + ``val`` (n, m, K) + ``cost``
-        (n, m).  Dense ``p`` is not ported yet."""
+        """ELL (``idx`` (n, m, K) + ``val`` (n, m, K) + ``cost`` (n, m))
+        or dense (``p`` (n, m, n) + ``cost``), stored as the reference
+        stores them (int32 ids, float32 values)."""
         if cost is None:
             raise ValueError("from_arrays requires cost (the stage "
                              "cost/reward table g(s, a))")
         if p is not None:
-            raise NotImplementedError("dense MDPs (p=...) are not yet "
-                                      "ported; pass ELL idx/val")
-        if idx is None or val is None:
-            raise ValueError("from_arrays requires idx+val (ELL)")
-        idx, val = _host(idx), _host(val)
-        core = EllMDP.from_numpy(idx, val, _host(cost), gamma,
-                                 n_global=idx.shape[0],
-                                 m_global=idx.shape[1], device="cpu")
+            if idx is not None or val is not None:
+                raise ValueError("pass either dense p or ELL idx/val, "
+                                 "not both")
+            p = _host(p)
+            core = DenseMDP.from_numpy(p, _host(cost), gamma,
+                                       n_global=p.shape[0],
+                                       m_global=p.shape[1], device="cpu")
+        elif idx is None or val is None:
+            raise ValueError("from_arrays requires idx+val (ELL) or p "
+                             "(dense)")
+        else:
+            idx, val = _host(idx), _host(val)
+            core = EllMDP.from_numpy(idx, val, _host(cost), gamma,
+                                     n_global=idx.shape[0],
+                                     m_global=idx.shape[1], device="cpu")
         if validate:
             core.validate()
         return cls(core, mode=mode)
@@ -84,11 +94,11 @@ class MDP:
         return self._core.gamma
 
     def __repr__(self) -> str:
-        return (f"MDP(EllMDP, n={self.n}, m={self.m}, gamma={self.gamma}, "
-                f"mode={self.mode!r})")
+        return (f"MDP({type(self._core).__name__}, n={self.n}, m={self.m}, "
+                f"gamma={self.gamma}, mode={self.mode!r})")
 
     # ---- placement ---------------------------------------------------------
-    def build(self, device: str | torch.device = "cuda") -> EllMDP:
+    def build(self, device: str | torch.device = "cuda") -> CoreMDP:
         """The core container with its tables on ``device`` (cached)."""
         dev = resolve_device(device)
         if dev not in self._device_cache:

@@ -29,7 +29,7 @@ from repro_torch.api.mdp import MDP
 from repro_torch.api.options import Options
 from repro_torch.core import driver
 from repro_torch.core.driver import SolveResult
-from repro_torch.core.mdp import EllMDP
+from repro_torch.core.mdp import MDP as CoreMDP, DenseMDP, EllMDP
 from repro_torch.device import resolve_device
 
 __all__ = ["Session", "madupite_session"]
@@ -77,7 +77,7 @@ class Session:
         return list(self._stats)
 
     # ---- solving -----------------------------------------------------------
-    def solve(self, mdp: MDP | EllMDP, **overrides) -> SolveResult:
+    def solve(self, mdp: MDP | CoreMDP, **overrides) -> SolveResult:
         """Solve one MDP through the session's options and device.
 
         ``overrides`` are per-call option overrides (keys with or without
@@ -103,13 +103,13 @@ class Session:
         return r
 
     # ---- internals ---------------------------------------------------------
-    def _wrap(self, mdp: MDP | EllMDP, opts: Options) -> MDP:
+    def _wrap(self, mdp: MDP | CoreMDP, opts: Options) -> MDP:
         if isinstance(mdp, MDP):
             return mdp
-        if isinstance(mdp, EllMDP):
+        if isinstance(mdp, (EllMDP, DenseMDP)):
             return MDP(mdp, mode=opts.get("-mode"))
         raise TypeError(f"solve wants a repro_torch.api.MDP (or a core "
-                        f"EllMDP), got {type(mdp).__name__}")
+                        f"EllMDP/DenseMDP), got {type(mdp).__name__}")
 
     def _record(self, r: SolveResult, mdp: MDP, ipi, opts: Options,
                 device: str, wall: float) -> None:

@@ -1,4 +1,4 @@
-"""Bellman operators, single-device ELL subset.
+"""Bellman operators, single-device ELL and dense subset.
 
 Counterpart of :mod:`repro.core.bellman`.  Functions take a local MDP
 block plus the :class:`~repro_torch.core.comm.Axes` it is sharded over
@@ -19,7 +19,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.comm import Axes
-from repro_torch.core.mdp import EllMDP
+from repro_torch.core.mdp import MDP, DenseMDP, EllMDP
 from repro_torch.kernels import ops
 
 
@@ -32,7 +32,7 @@ def gather_v(v_local: torch.Tensor, axes: Axes) -> torch.Tensor:
 # Greedy step (policy improvement)                                            #
 # --------------------------------------------------------------------------- #
 
-def backup(mdp: EllMDP, v_global: torch.Tensor, axes: Axes, *,
+def backup(mdp: MDP, v_global: torch.Tensor, axes: Axes, *,
            mode: str = "mincost") -> tuple[torch.Tensor, torch.Tensor]:
     """One Bellman backup: ``(Tv (n_local,), pi (n_local,) int32)``.
 
@@ -45,12 +45,16 @@ def backup(mdp: EllMDP, v_global: torch.Tensor, axes: Axes, *,
     cost = -mdp.cost if neg else mdp.cost
     if neg:
         v_global = -v_global
-    vmin, amin = ops.ell_backup(mdp.idx, mdp.val, cost, mdp.gamma, v_global)
+    if isinstance(mdp, EllMDP):
+        vmin, amin = ops.ell_backup(mdp.idx, mdp.val, cost, mdp.gamma,
+                                    v_global)
+    else:
+        vmin, amin = ops.dense_backup(mdp.p, cost, mdp.gamma, v_global)
     a_glob = amin + mdp.m_local * axes.action_index()
     return (-vmin if neg else vmin), a_glob
 
 
-def gather_backup(mdp: EllMDP, v_local: torch.Tensor, axes: Axes, *,
+def gather_backup(mdp: MDP, v_local: torch.Tensor, axes: Axes, *,
                   mode: str = "mincost") -> tuple[torch.Tensor, torch.Tensor,
                                                   torch.Tensor]:
     """Gather the value window and run one Bellman backup; returns
@@ -60,7 +64,7 @@ def gather_backup(mdp: EllMDP, v_local: torch.Tensor, axes: Axes, *,
     return tv, pi, w
 
 
-def residual_norm(mdp: EllMDP, v_local: torch.Tensor,
+def residual_norm(mdp: MDP, v_local: torch.Tensor,
                   v_global: torch.Tensor, axes: Axes, *,
                   mode: str = "mincost") -> torch.Tensor:
     """Sup-norm Bellman residual ``||T v - v||_inf`` (the optimality gap
@@ -75,34 +79,63 @@ def residual_norm(mdp: EllMDP, v_local: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class PolicyRows:
-    """Rows of ``P_pi`` / ``g_pi`` owned by this shard."""
+    """Rows of ``P_pi`` / ``g_pi`` owned by this shard: ELL rows
+    (``idx``/``val``) or dense rows (``p``), the other left ``None``."""
 
-    idx: torch.Tensor   # (n_local, K) int32
-    val: torch.Tensor   # (n_local, K) f32
-    g: torch.Tensor     # (n_local,) f32
+    idx: torch.Tensor | None   # (n_local, K) int32
+    val: torch.Tensor | None   # (n_local, K) f32
+    p: torch.Tensor | None     # (n_local, n_global), accumulation dtype
+    g: torch.Tensor            # (n_local,) f32
     gamma: float
 
 
-def policy_rows(mdp: EllMDP, pi: torch.Tensor, axes: Axes) -> PolicyRows:
+def policy_rows(mdp: MDP, pi: torch.Tensor, axes: Axes, *,
+                dtype: torch.dtype = torch.float32) -> PolicyRows:
     """Extract the ``P_pi`` rows for a (global-id) policy ``pi``.
 
     On one device every row owns its greedy action, so the reference's
     ownership mask is all ones (multiplying by it is exact) and is left
-    out."""
+    out.  ``dtype`` is the value vector's: dense rows are cast once here to
+    the accumulation dtype (exact), where the reference casts them in
+    every matvec — at n = 16,384 a float64 ``P_pi`` is 2.1 GB."""
     a_sel = torch.clamp(pi - mdp.m_local * axes.action_index(), 0,
                         mdp.m_local - 1).long()
+    g_pi = torch.gather(mdp.cost, 1, a_sel[:, None])[:, 0]
+    if isinstance(mdp, DenseMDP):
+        rows = torch.arange(mdp.n_local, device=a_sel.device)
+        p_pi = mdp.p[rows, a_sel]
+        dt = torch.promote_types(p_pi.dtype, dtype)
+        return PolicyRows(idx=None, val=None, p=p_pi.to(dt), g=g_pi,
+                          gamma=mdp.gamma)
     k = mdp.nnz_per_row
     sel3 = a_sel[:, None, None].expand(-1, 1, k)
     idx_pi = torch.gather(mdp.idx, 1, sel3)[:, 0].contiguous()
     val_pi = torch.gather(mdp.val, 1, sel3)[:, 0].contiguous()
-    g_pi = torch.gather(mdp.cost, 1, a_sel[:, None])[:, 0]
-    return PolicyRows(idx=idx_pi, val=val_pi, g=g_pi, gamma=mdp.gamma)
+    return PolicyRows(idx=idx_pi, val=val_pi, p=None, g=g_pi,
+                      gamma=mdp.gamma)
 
 
 def _p_pi_matvec(rows: PolicyRows, x_eff: torch.Tensor,
                  axes: Axes) -> torch.Tensor:
-    """(P_pi @ x) on local rows, reduced over action shards."""
-    return axes.psum_action(ops.ell_matvec(rows.idx, rows.val, x_eff))
+    """(P_pi @ x) on local rows, reduced over action shards.
+
+    Dense rows take a plain product (the reference's ``jnp.dot`` at
+    ``Precision.HIGHEST``, outside any kernel), in the accumulation dtype
+    and never in TF32."""
+    if rows.p is None:
+        return axes.psum_action(ops.ell_matvec(rows.idx, rows.val, x_eff))
+    dt = torch.promote_types(rows.p.dtype, x_eff.dtype)
+    p, x = rows.p.to(dt), x_eff.to(dt)
+    if p.is_cuda and dt == torch.float32 \
+            and torch.backends.cuda.matmul.allow_tf32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            y = torch.mv(p, x)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = True
+    else:
+        y = torch.mv(p, x)
+    return axes.psum_action(y)
 
 
 def _fma(a: torch.Tensor, y: torch.Tensor, scale: float) -> torch.Tensor:

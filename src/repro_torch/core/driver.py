@@ -19,7 +19,7 @@ import torch
 from repro_torch.core import ipi
 from repro_torch.core.comm import Axes
 from repro_torch.core.ipi import IPIOptions, SolveState
-from repro_torch.core.mdp import EllMDP
+from repro_torch.core.mdp import MDP, DenseMDP, EllMDP
 from repro_torch.device import resolve_device
 
 
@@ -80,7 +80,7 @@ def _result(state: SolveState, opts: IPIOptions, gamma: float) \
         span=float(state.span))
 
 
-def solve(mdp: EllMDP, opts: IPIOptions = IPIOptions(), *, v0=None,
+def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, v0=None,
           chunk: int = 64, verbose: bool = False,
           device: str | torch.device = "cuda") -> SolveResult:
     """Solve an MDP until ``opts.stop_criterion`` is satisfied (default:
@@ -89,9 +89,9 @@ def solve(mdp: EllMDP, opts: IPIOptions = IPIOptions(), *, v0=None,
     The MDP's tables move to ``device`` if they are elsewhere; ``device``
     defaults to ``"cuda"`` and raises when no GPU is visible.
     """
-    if not isinstance(mdp, EllMDP):
-        raise TypeError(f"solve() takes an EllMDP (dense, batched and "
-                        f"matrix-free MDPs are not yet ported), got "
+    if not isinstance(mdp, (EllMDP, DenseMDP)):
+        raise TypeError(f"solve() takes an EllMDP or a DenseMDP (batched "
+                        f"and matrix-free MDPs are not yet ported), got "
                         f"{type(mdp).__name__}")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core import bellman, methods
 from repro_torch.core.comm import Axes
-from repro_torch.core.mdp import EllMDP
+from repro_torch.core.mdp import MDP
 
 MODES = ("mincost", "maxreward")
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -114,7 +114,7 @@ def _span_of(d: torch.Tensor, opts: IPIOptions) -> torch.Tensor:
     return torch.max(d) - torch.min(d)
 
 
-def init_state(mdp: EllMDP, axes: Axes, opts: IPIOptions,
+def init_state(mdp: MDP, axes: Axes, opts: IPIOptions,
                v0: torch.Tensor | None = None) -> SolveState:
     dt = DTYPES[opts.dtype]
     dev = mdp.device
@@ -137,12 +137,12 @@ def init_state(mdp: EllMDP, axes: Axes, opts: IPIOptions,
         res0=res, span=span, done=done, diverged=torch.isnan(res))
 
 
-def _outer_core(mdp: EllMDP, state: SolveState, opts: IPIOptions,
+def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions,
                 axes: Axes):
     """One outer iteration minus the k/trace bookkeeping.  Returns
     ``(v1, tv1, pi1, res1, span1, inner_iters)``."""
     spec = methods.get_method(opts.method)
-    rows = bellman.policy_rows(mdp, state.pi, axes)
+    rows = bellman.policy_rows(mdp, state.pi, axes, dtype=state.tv.dtype)
     b = bellman.b_pi(rows, axes).to(state.tv.dtype)
     matvec = lambda x: bellman.a_pi_matvec(rows, x, axes)
     tol = torch.maximum(opts.forcing_eta * state.res,
@@ -167,7 +167,7 @@ def _outer_core(mdp: EllMDP, state: SolveState, opts: IPIOptions,
     return v1, tv1, pi1, res1, span1, inner_iters
 
 
-def outer_step(mdp: EllMDP, state: SolveState, opts: IPIOptions,
+def outer_step(mdp: MDP, state: SolveState, opts: IPIOptions,
                axes: Axes) -> SolveState:
     """One outer iPI iteration (greedy policy is already in ``state``).
     Writes this step's entries of the trace tensors in place."""
@@ -187,7 +187,7 @@ def outer_step(mdp: EllMDP, state: SolveState, opts: IPIOptions,
         res0=state.res0, span=span1, done=done, diverged=div1)
 
 
-def solve_chunk(mdp: EllMDP, state: SolveState, k_hi: int,
+def solve_chunk(mdp: MDP, state: SolveState, k_hi: int,
                 opts: IPIOptions, axes: Axes) -> SolveState:
     """Run outer iterations until convergence, a NaN residual, divergence
     or ``k == k_hi``: one device read of the stop flags per step."""

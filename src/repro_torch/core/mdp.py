@@ -1,12 +1,13 @@
-"""MDP container: padded ELLPACK tables as torch tensors.
+"""MDP containers: padded ELLPACK and dense tables as torch tensors.
 
-Counterpart of :mod:`repro.core.mdp` (the unbatched :class:`EllMDP`).
-Every (state, action) row keeps exactly ``K`` (index, value) slots;
-padding slots carry ``val == 0`` and an in-range index, so gathers stay in
-bounds and the arithmetic is exact.  Successor indices are global state
-ids.
+Counterpart of :mod:`repro.core.mdp` (the unbatched :class:`EllMDP` and
+:class:`DenseMDP`).  In an :class:`EllMDP` every (state, action) row keeps
+exactly ``K`` (index, value) slots; padding slots carry ``val == 0`` and an
+in-range index, so gathers stay in bounds and the arithmetic is exact.
+Successor indices are global state ids.  A :class:`DenseMDP` stores the
+full ``(n, m, n_cols)`` transition tensor.
 
-Dense, batched and matrix-free containers are not ported yet.
+Batched and matrix-free containers are not ported yet.
 """
 
 from __future__ import annotations
@@ -59,13 +60,9 @@ class EllMDP:
         to the reference's storage types (int32 / float32) and placed on
         ``device``."""
         dev = resolve_device(device)
-
-        def put(x, dtype):   # always a private copy, like jnp.asarray
-            return torch.from_numpy(np.array(x, dtype=dtype, order="C",
-                                             copy=True)).to(dev)
-
-        return cls(idx=put(idx, np.int32), val=put(val, np.float32),
-                   cost=put(cost, np.float32), gamma=float(gamma),
+        return cls(idx=_put(idx, np.int32, dev),
+                   val=_put(val, np.float32, dev),
+                   cost=_put(cost, np.float32, dev), gamma=float(gamma),
                    n_global=int(n_global), m_global=int(m_global))
 
     def to(self, device: str | torch.device) -> "EllMDP":
@@ -99,6 +96,108 @@ class EllMDP:
                              f"sums to {rowsum[bad]}, not 1")
         if not (val >= -1e-7).all():
             raise ValueError("transition probabilities must be >= 0")
-        if not 0.0 < self.gamma < 1.0:
-            raise ValueError(f"gamma must lie in (0, 1), got {self.gamma}")
+        _check_gamma(self.gamma)
+
+    def as_dense(self) -> "DenseMDP":
+        """Materialize the dense tensor on the tables' device (small
+        instances, oracles, and the dense path's tests).
+
+        Duplicate successor ids of a row accumulate in the reference's
+        order, ``k = 0 .. K-1`` from ``+0``: one ``index_put_`` per ``k``,
+        within which no two writes share a ``(s, a)`` row, so the bits are
+        the same on every device."""
+        n, m, k = self.idx.shape
+        dev = self.device
+        p = torch.zeros((n, m, self.n_global), dtype=self.val.dtype,
+                        device=dev)
+        s = torch.arange(n, device=dev)[:, None]
+        a = torch.arange(m, device=dev)[None, :]
+        idx = self.idx.long()
+        for j in range(k):
+            p.index_put_((s, a, idx[..., j]), self.val[..., j],
+                         accumulate=True)
+        return DenseMDP(p=p, cost=self.cost, gamma=self.gamma,
+                        n_global=self.n_global, m_global=self.m_global)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseMDP:
+    """Dense MDP block.
+
+    p:    (n, m, n_cols) f32 — transition probabilities P(s, a, s')
+    cost: (n, m)         f32 — stage costs g(s, a)
+    """
+
+    p: torch.Tensor
+    cost: torch.Tensor
+    gamma: float
+    n_global: int
+    m_global: int
+
+    @property
+    def n_local(self) -> int:
+        return self.p.shape[-3]
+
+    @property
+    def m_local(self) -> int:
+        return self.p.shape[-2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.p.device
+
+    @classmethod
+    def from_numpy(cls, p, cost, gamma: float, n_global: int, m_global: int,
+                   *, device: str | torch.device = "cpu") -> "DenseMDP":
+        """Build from host arrays (e.g. ``np.asarray(jax_mdp.p)``), cast to
+        the reference's storage type (float32) and placed on ``device``."""
+        dev = resolve_device(device)
+        return cls(p=_put(p, np.float32, dev),
+                   cost=_put(cost, np.float32, dev), gamma=float(gamma),
+                   n_global=int(n_global), m_global=int(m_global))
+
+    def to(self, device: str | torch.device) -> "DenseMDP":
+        """The same MDP with its tables on ``device`` (no copy if there)."""
+        dev = resolve_device(device)
+        if self.device == dev:
+            return self
+        return dataclasses.replace(self, p=self.p.to(dev),
+                                   cost=self.cost.to(dev))
+
+    def validate(self) -> None:
+        """Sanity checks (probability rows, shapes), run by torch on the
+        tables' own device: a table that fills the card is never copied to
+        the host to be checked."""
+        p = self.p
+        if p.dim() != 3 or tuple(self.cost.shape) != tuple(p.shape[:2]):
+            raise ValueError(f"p must be (n, m, n_cols) and cost (n, m); got "
+                             f"{tuple(p.shape)} and {tuple(self.cost.shape)}")
+        if p.shape[-1] != self.n_global:
+            raise ValueError(f"p has {p.shape[-1]} columns, not n_global = "
+                             f"{self.n_global}")
+        if p.numel():
+            rowsum = p.sum(-1)
+            err = torch.abs(rowsum - 1.0)
+            if not float(err.max()) <= 1e-5:
+                bad = np.unravel_index(int(torch.argmax(err)), err.shape)
+                raise ValueError(f"transition row {tuple(int(i) for i in bad)}"
+                                 f" sums to {float(rowsum[bad])}, not 1")
+            if not float(p.min()) >= -1e-7:
+                raise ValueError("transition probabilities must be >= 0")
+        _check_gamma(self.gamma)
+
+
+MDP = EllMDP | DenseMDP   # a materialized MDP block
+
+
+def _put(x, dtype, dev: torch.device) -> torch.Tensor:
+    """A private host copy of ``x`` as ``dtype`` (like ``jnp.asarray``),
+    placed on ``dev``."""
+    return torch.from_numpy(np.array(x, dtype=dtype, order="C",
+                                     copy=True)).to(dev)
+
+
+def _check_gamma(gamma: float) -> None:
+    if not 0.0 < gamma < 1.0:
+        raise ValueError(f"gamma must lie in (0, 1), got {gamma}")
 

@@ -6,7 +6,8 @@ tensors live:
 
 * CPU tensors run the plain PyTorch versions (:mod:`.ref`);
 * CUDA tensors launch the hand-written kernels (:mod:`.bellman_ell`,
-  :mod:`.spmv_ell`), which raise if they cannot build or launch.
+  :mod:`.spmv_ell`, :mod:`.dense_backup`), which raise if they cannot
+  build or launch.
 
 Nothing catches a kernel failure and falls back.
 """
@@ -15,9 +16,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import bellman_ell, ref, spmv_ell
+from repro_torch.kernels import bellman_ell, dense_backup as dense_kernel
+from repro_torch.kernels import ref, spmv_ell
 
-KERNELS = {"ell_backup": bellman_ell, "ell_matvec": spmv_ell}
+KERNELS = {"ell_backup": bellman_ell, "ell_matvec": spmv_ell,
+           "dense_backup": dense_kernel}
 
 
 def ell_backup(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
@@ -35,6 +38,15 @@ def ell_matvec(idx: torch.Tensor, val: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ell_matvec(idx, val, x)
     return spmv_ell.ell_matvec(idx, val, x)
+
+
+def dense_backup(p: torch.Tensor, cost: torch.Tensor, gamma: float,
+                 v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused Bellman backup on a dense block -> (v_new (n,), argmin (n,)
+    int32)."""
+    if v.device.type == "cpu":
+        return ref.dense_backup(p, cost, gamma, v)
+    return dense_kernel.dense_backup(p, cost, gamma, v)
 
 
 def launch_counts() -> dict[str, int]:

@@ -11,6 +11,14 @@ rounding is pinned exactly as the reference's ``pin_rounding`` pins it:
   (every built-in family has ``K <= 8``);
 * ``gamma * pv`` is rounded before ``+ cost``.
 
+The dense backup (:func:`dense_backup`) fixes its own summation order,
+the CUDA kernel's: lane ``l`` of 32 sums the columns ``c = l (mod 32)`` in
+increasing order from ``+0``, each product rounded on its own; then a fixed
+halving tree adds lane ``l + w`` into lane ``l`` for ``w = 16, 8, 4, 2,
+1``.  ``gamma * pv`` is again rounded before ``+ cost``.  The reference's
+``dense_qvalues`` leaves its dot product to XLA, whose order this cannot
+reproduce, so the dense versions agree with it to a tolerance.
+
 Products and adds are separate tensor ops, so no fused multiply-add can
 merge two roundings.
 """
@@ -18,6 +26,8 @@ merge two roundings.
 from __future__ import annotations
 
 import torch
+
+LANES = 32   # one warp: the dense dot's lane count
 
 
 def acc_dtype(*tensors: torch.Tensor) -> torch.dtype:
@@ -76,3 +86,39 @@ def ell_matvec(idx: torch.Tensor, val: torch.Tensor,
                x: torch.Tensor) -> torch.Tensor:
     """y(s) = sum_{s'} P_pi(s, s') x(s') on policy-restricted ELL rows (n, K)."""
     return ell_gather_dot(idx, val, x)
+
+
+def dense_dot(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``sum_c p[..., c] * v[c]`` in the dense kernel's order (module
+    docstring): column chunks of :data:`LANES` accumulate into one partial
+    sum per lane, which a halving tree then reduces.
+
+    p: (..., n_cols) f32; v: (n_cols,).  Returns (...,) accumulated in
+    >= f32 (f64 when v is f64).
+    """
+    dt = acc_dtype(p, v)
+    vv = v.to(dt)
+    n_cols = p.shape[-1]
+    acc = torch.zeros((*p.shape[:-1], LANES), dtype=dt, device=v.device)
+    for c0 in range(0, n_cols, LANES):
+        w = min(LANES, n_cols - c0)
+        acc[..., :w] += p[..., c0:c0 + w].to(dt) * vv[c0:c0 + w]
+    width = LANES
+    while width > 1:
+        width //= 2
+        acc = acc[..., :width] + acc[..., width:2 * width]
+    return acc[..., 0]
+
+
+def dense_qvalues(p: torch.Tensor, cost: torch.Tensor, gamma: float,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Dense-P Q table: ``cost + gamma * P @ v``, >= f32 accumulation."""
+    pv = dense_dot(p, v)
+    return cost.to(pv.dtype) + gamma * pv
+
+
+def dense_backup(p: torch.Tensor, cost: torch.Tensor, gamma: float,
+                 v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense Bellman backup: (min_a Q, argmin_a Q) with smallest-index
+    tie-break."""
+    return rowmin_argmin(dense_qvalues(p, cost, gamma, v))

@@ -160,8 +160,11 @@ def test_from_arrays_builds_and_validates():
     with pytest.raises(ValueError, match="sums to"):
         MDP.from_arrays(idx=m.idx.numpy(), val=m.val.numpy() * 2,
                         cost=m.cost.numpy())
-    with pytest.raises(NotImplementedError, match="dense"):
-        MDP.from_arrays(p=np.ones((2, 1, 2)) / 2, cost=np.zeros((2, 1)))
+    dense = MDP.from_arrays(p=np.ones((2, 1, 2)) / 2, cost=np.zeros((2, 1)))
+    assert torch.equal(dense.build("cpu").p, torch.full((2, 1, 2), 0.5))
+    with pytest.raises(ValueError, match="not both"):
+        MDP.from_arrays(p=np.ones((2, 1, 2)) / 2, cost=np.zeros((2, 1)),
+                        idx=np.zeros((2, 1, 1), np.int32))
 
 
 def test_cuda_without_gpu_raises_everywhere(no_gpu):

@@ -23,7 +23,8 @@ from repro.kernels import spmv_ell as j_spmv_ell
 from repro_torch.core import bellman as tbellman
 from repro_torch.core.comm import Axes as TAxes
 from repro_torch.core.mdp import EllMDP as TEll
-from repro_torch.kernels import bellman_ell, build, ops, spmv_ell
+from repro_torch.kernels import bellman_ell, build, dense_backup, ops
+from repro_torch.kernels import spmv_ell
 from repro_torch.kernels import ref as tref
 
 jax.config.update("jax_enable_x64", True)
@@ -170,7 +171,12 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_nothing():
     y = ops.ell_matvec(_t(idx[:, 0]), _t(val[:, 0]), _t(v))
     _assert_bitequal(y.numpy(), tref.ell_matvec(_t(idx[:, 0]),
                                                 _t(val[:, 0]), _t(v)).numpy())
-    assert ops.launch_counts() == {"ell_backup": 0, "ell_matvec": 0}
+    p = torch.rand(50, 3, 50, dtype=torch.float32)
+    got = ops.dense_backup(p, _t(cost), GAMMA, _t(v))
+    want = tref.dense_backup(p, _t(cost), GAMMA, _t(v))
+    _assert_bitequal(got[0].numpy(), want[0].numpy())
+    assert ops.launch_counts() == {"ell_backup": 0, "ell_matvec": 0,
+                                   "dense_backup": 0}
 
 
 def test_kernel_wrappers_refuse_host_tensors():
@@ -180,6 +186,9 @@ def test_kernel_wrappers_refuse_host_tensors():
         bellman_ell.ell_backup(_t(idx), _t(val), _t(cost), GAMMA, _t(v))
     with pytest.raises(ValueError, match="CUDA tensors"):
         spmv_ell.ell_matvec(_t(idx[:, 0]), _t(val[:, 0]), _t(v))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dense_backup.dense_backup(torch.full((20, 2, 20), 0.05), _t(cost),
+                                  GAMMA, _t(v))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -187,7 +196,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(build.KernelBuildError, match="nvcc not found"):
-        build.build_all([bellman_ell.SOURCE, spmv_ell.SOURCE])
+        build.build_all([bellman_ell.SOURCE, spmv_ell.SOURCE,
+                         dense_backup.SOURCE])
 
 
 def test_build_targets_are_keyed_by_source_hash():
