@@ -38,14 +38,42 @@ result) without them.  Phases, each of which raises on failure:
    the ipi_gmres solve profiled as in phase 3b; (4d) GPU vs CPU parity on
    a fully dense random MDP at n=2,048, m=8 for mpi / ipi_gmres x
    mincost / maxreward in float64;
-6. one JSON ``kernels`` line, then the ``ok`` line last.  An ELL kernel's
+6. (2q) ``ops.ell_qvalues`` (the SpMV kernel over the ``(n*m, K)`` rows
+   plus the ``cost + gamma * pv`` epilogue) on the phase-2 garnet in
+   float32 and float64, its launch counts read around those two calls
+   (its only path: no solver calls it), each result bitwise equal to the
+   plain version; timed beside ``torch.sparse_csr_tensor @ v`` plus the
+   same epilogue;
+7. the LM serving path, minitron-8b (32 layers, d_model 4096, 32 query /
+   8 KV heads, d_head 128, vocab 256,000, bf16, random weights from a
+   seed):
+   (2f) ``flash_attention`` against its plain version at ``B=4, T=S=2048``
+   causal in bf16, at minitron-8b's heads and at stablelm-3b's (d=80,
+   MHA) and granite-34b's (MQA) head layouts, within one bf16 ulp; timed
+   beside ``scaled_dot_product_attention(..., enable_gqa=True)`` (timed
+   only: the port never calls it);
+   (3f) the CLI ``repro_torch.launch.serve_lm --arch minitron-8b --batch 4
+   --prompt-len 2048 --gen 16`` must exit 0 with ``flash_attention``
+   launched once per layer (32) and no other kernel; then prefill over
+   2048 tokens (32 launches) plus one decode step (0 launches) must give
+   the logits of a prefill over 2049 tokens within 5% of their largest
+   magnitude (bf16 through 32 layers); then that decode step and the
+   prefill profiled as in phase 3b;
+   (4f) GPU vs CPU parity: minitron-8b at full width but 2 layers, float32,
+   the same weights on both, prompt 256, batch 2, 8 greedy tokens: logits
+   within 1e-4 of their largest magnitude at every step, tokens equal;
+8. one JSON ``kernels`` line, then the ``ok`` line last.  An ELL kernel's
    ``launches`` is its count in the CLI's ipi_gmres solve (a), the
    default method; ``dense_backup``'s is its count in the dense ipi_gmres
-   solve (3d).  ``launches_by_path`` gives each path's counts.
+   solve (3d); ``ell_qvalues``'s its phase-2q count; ``flash_attention``'s
+   its count in the serve_lm CLI run (3f).  ``launches_by_path`` gives
+   each path's counts.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -61,13 +89,23 @@ OUT = ROOT / "build" / "chip_smoke"
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and non-tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12,
+              torch.bfloat16: 989e12}    # bf16: dense tensor-core peak
 
 N, M, K, GAMMA = 1_000_000, 16, 8, 0.99
 DN, DM, DK = 16_384, 16, 8          # the dense phases' garnet
 REPS, WARMUP = 25, 3
 PLAIN_DENSE_REPS = 5                # the dense plain version is slow
 ELL_KERNELS = ("ell_backup", "ell_matvec")
+LM_ARCH = "minitron-8b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 16
+# (name, H, KV, d) at B=4, T=S=2048: minitron-8b, stablelm-3b, granite-34b
+FLASH_CASES = (("minitron-8b", 32, 8, 128), ("stablelm-3b", 32, 32, 80),
+               ("granite-34b", 48, 1, 128))
+PLAIN_FLASH_REPS = 5                # the plain scan is slow
+DECODE_TOL = 0.05    # decode vs prefill logits, of max |logit| (bf16)
+PARITY_TOL = 1e-4    # GPU vs CPU logits, of max |logit| (float32)
+PARITY_BATCH, PARITY_PROMPT, PARITY_GEN = 2, 256, 8
 
 
 def log(msg: str) -> None:
@@ -247,28 +285,24 @@ def main_path(mdp) -> dict:
                 session_inner=r.inner_iterations, cpu_residual=res)
 
 
-def where_time_goes(mdp, phase: str) -> dict:
-    """Phase 3b (and 3e, on the dense path): the ipi_gmres float64 solve
-    of the path's instance again, once plain for its wall time and once
-    under torch.profiler for device time by kernel.  The idle share is
-    1 - busy / wall against the plain run's wall, and against the profiled
-    run's (profiling adds host time, so that one is an upper bound)."""
+def device_profile(fn) -> tuple:
+    """``fn()`` once plain for its wall time and once under torch.profiler
+    for device time by entry; returns the plain run's result and the
+    profile.  The idle share is 1 - busy / wall against the plain run's
+    wall, and against the profiled run's (profiling adds host time, so
+    that one is an upper bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import driver
-    from repro_torch.core.ipi import IPIOptions
 
-    opts = IPIOptions(method="ipi_gmres", dtype="float64", atol=1e-8,
-                      max_outer=2000)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = driver.solve(mdp, opts, device="cuda")
+    result = fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        driver.solve(mdp, opts, device="cuda")
+        fn()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -283,14 +317,24 @@ def where_time_goes(mdp, phase: str) -> dict:
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(ms for ms, _, _ in rows)
-    out = dict(outer=r.outer_iterations, inner=r.inner_iterations,
-               wall_ms=wall_ms, profiled_wall_ms=prof_wall_ms,
-               device_busy_ms=busy_ms, device_entries=len(rows),
-               idle_share=(1.0 - busy_ms / wall_ms) if rows else None,
-               idle_share_profiled=(1.0 - busy_ms / prof_wall_ms)
-               if rows else None,
-               top=[dict(ms=ms, count=c, kernel=k[:90])
-                    for ms, c, k in rows[:8]])
+    return result, dict(
+        wall_ms=wall_ms, profiled_wall_ms=prof_wall_ms,
+        device_busy_ms=busy_ms, device_entries=len(rows),
+        idle_share=(1.0 - busy_ms / wall_ms) if rows else None,
+        idle_share_profiled=(1.0 - busy_ms / prof_wall_ms) if rows else None,
+        top=[dict(ms=ms, count=c, kernel=k[:90]) for ms, c, k in rows[:8]])
+
+
+def where_time_goes(mdp, phase: str) -> dict:
+    """Phase 3b (and 3e, on the dense path): the ipi_gmres float64 solve
+    of the path's instance again, profiled (:func:`device_profile`)."""
+    from repro_torch.core import driver
+    from repro_torch.core.ipi import IPIOptions
+
+    opts = IPIOptions(method="ipi_gmres", dtype="float64", atol=1e-8,
+                      max_outer=2000)
+    r, prof = device_profile(lambda: driver.solve(mdp, opts, device="cuda"))
+    out = dict(outer=r.outer_iterations, inner=r.inner_iterations, **prof)
     log(f"[{phase}] {json.dumps(out)}")
     return out
 
@@ -477,13 +521,258 @@ def dense_parity() -> list:
     return rows
 
 
+def qvalues_checks(mdp, gen: np.random.Generator) -> dict:
+    """Phase 2q: ``ops.ell_qvalues`` (its only path) in float32 and
+    float64 between reset and read launch counts, each result bitwise
+    equal to the plain version; then the wrapper, the plain version and
+    a CSR product plus the same epilogue, timed."""
+    from repro_torch.kernels import bellman_ell, ops, ref
+
+    idx, val, cost = mdp.idx, mdp.val, mdp.cost
+    n, m, k = idx.shape
+    vs = {dt: torch.from_numpy(gen.random(n) * 50.0).to("cuda", dt)
+          for dt in (torch.float32, torch.float64)}
+    ops.reset_launch_counts()
+    got = {dt: ops.ell_qvalues(idx, val, cost, GAMMA, v)
+           for dt, v in vs.items()}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    require_launched("ops.ell_qvalues", launches, ("ell_qvalues",))
+    crow = torch.arange(0, n * m * k + 1, k, dtype=torch.int32,
+                        device="cuda")
+    out = {}
+    for dt, v in vs.items():
+        name = str(dt).replace("torch.", "")
+        want = ref.ell_qvalues(idx, val, cost, GAMMA, v)
+        torch.cuda.synchronize()
+        if not bits_equal(got[dt], want):
+            raise AssertionError(f"ell_qvalues {name}: kernel != plain "
+                                 f"version (max |diff| "
+                                 f"{max_abs_diff(got[dt], want)})")
+        csr = torch.sparse_csr_tensor(crow, idx.reshape(-1),
+                                      val.reshape(-1).to(dt),
+                                      size=(n * m, n), check_invariants=False)
+
+        def library(csr=csr, v=v):
+            return cost.to(v.dtype) + GAMMA * (csr @ v).view(n, m)
+
+        nbytes = idx.nbytes + val.nbytes + cost.nbytes + v.nbytes \
+            + got[dt].nbytes
+        flops = n * m * (2 * k + 2)
+        b_ms, b_by = bound_ms(nbytes, flops, dt)
+        out[name] = dict(
+            max_abs_err=max_abs_diff(got[dt], want),
+            ms=time_ms(lambda: bellman_ell.ell_qvalues(idx, val, cost, GAMMA,
+                                                       v)),
+            plain_ms=time_ms(lambda: ref.ell_qvalues(idx, val, cost, GAMMA,
+                                                     v)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
+            library_max_abs_diff=max_abs_diff(library(), want),
+            bytes=nbytes, flops=flops)
+        del csr
+        log(f"[phase2q] ell_qvalues {name}: {out[name]['ms']:.4f} ms (plain "
+            f"{out[name]['plain_ms']:.4f}, csr+epilogue "
+            f"{out[name]['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}); "
+            f"bitwise equal")
+    out["launches"] = launches
+    return out
+
+
+def flash_within_tolerance(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Worst ratio of |kernel - plain| to the stated bf16 tolerance: one
+    bf16 ulp of the larger value (2^-7 relative: both round an f32 result
+    that differs in its last bits) plus 1e-5.  At most 1 passes."""
+    g, w = got.float(), want.float()
+    tol = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-5
+    return float(((g - w).abs() / tol).max())
+
+
+def flash_checks() -> dict:
+    """Phase 2f: ``flash_attention`` against its plain version at the
+    serving path's prefill shape (B=4, T=S=2048, causal, bf16) for three
+    head layouts, timed beside SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, t = LM_BATCH, LM_PROMPT
+    out = {}
+    for name, h, kv, d in FLASH_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16)
+                   for shape in ((b, t, h, d), (b, t, kv, d), (b, t, kv, d)))
+        got = flash_attention.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ratio = flash_within_tolerance(got, want)
+        if not ratio <= 1.0:
+            raise AssertionError(f"flash_attention {name}: kernel vs plain "
+                                 f"version {ratio:.3f}x the tolerance (max "
+                                 f"|diff| {max_abs_diff(got, want)})")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        nbytes = q.nbytes + k.nbytes + v.nbytes + got.nbytes
+        flops = 4 * b * h * d * (t * (t + 1) // 2)   # QK^T and PV, causal
+        b_ms, b_by = bound_ms(nbytes, flops, torch.bfloat16)
+        out[name] = dict(
+            shape=dict(B=b, T=t, S=t, H=h, KV=kv, d=d), dtype="bfloat16",
+            causal=True, max_abs_err=max_abs_diff(got, want),
+            tolerance_ratio=ratio,
+            ms=time_ms(lambda: flash_attention.flash_attention(
+                q, k, v, causal=True)),
+            plain_ms=time_ms(lambda: ref.flash_attention(q, k, v,
+                                                         causal=True),
+                             reps=PLAIN_FLASH_REPS),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
+            library_max_abs_diff=max_abs_diff(library().transpose(1, 2),
+                                              want),
+            bytes=nbytes, flops=flops)
+        r = out[name]
+        log(f"[phase2f] flash_attention {name} (H={h}, KV={kv}, d={d}): "
+            f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, sdpa "
+            f"{r['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}); max |diff| "
+            f"{r['max_abs_err']:.3e}, {ratio:.3f}x the tolerance")
+    return out
+
+
+def lm_main_path() -> dict:
+    """Phase 3f: the serve_lm CLI at full width with its own launch counts;
+    then the decode-vs-prefill check, each step with its own counts; then
+    the prefill profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = get_config(LM_ARCH)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = serve_lm.main(["--arch", LM_ARCH, "--batch", str(LM_BATCH),
+                        "--prompt-len", str(LM_PROMPT), "--gen",
+                        str(LM_GEN)])
+    t_cli = time.perf_counter() - t0
+    cli_launches = ops.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"serve_lm exited {rc}")
+    require_launched("serve_lm", cli_launches, ("flash_attention",))
+    if cli_launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"serve_lm: flash_attention launched "
+                             f"{cli_launches['flash_attention']} times, not "
+                             f"once per layer ({cfg.n_layers}) of one "
+                             f"prefill")
+    log(f"[phase3f] serve_lm CLI wall={t_cli:.2f}s (weights built "
+        f"included); launches {cli_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model = build_model(cfg, generator=gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1),
+                         generator=gen, device="cuda")
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    ops.reset_launch_counts()
+    _, cache = prefill(toks[:, :LM_PROMPT])
+    torch.cuda.synchronize()
+    prefill_launches = ops.launch_counts()
+    cache = model.extend_cache(cache, 1)
+    ops.reset_launch_counts()
+    _, logits_dec, cache_out = decode(toks[:, LM_PROMPT:], cache)
+    torch.cuda.synchronize()
+    decode_launches = ops.launch_counts()
+    # the same step again (it rewrites the same slot: ``cache`` still says
+    # len = LM_PROMPT), profiled
+    _, decode_prof = device_profile(lambda: decode(toks[:, LM_PROMPT:],
+                                                   cache))
+    log(f"[phase3f] decode step profile: {json.dumps(decode_prof)}")
+    del cache, cache_out
+    logits_full, _ = prefill(toks)
+    if prefill_launches["flash_attention"] != cfg.n_layers or \
+            any(decode_launches.values()):
+        raise AssertionError(f"prefill launches {prefill_launches}, decode "
+                             f"launches {decode_launches}")
+    diff = max_abs_diff(logits_dec, logits_full)
+    scale = float(logits_full.float().abs().max())
+    finite = bool(torch.isfinite(logits_dec.float()).all()
+                  and torch.isfinite(logits_full.float()).all())
+    argmax_equal = float((logits_dec.argmax(-1) == logits_full.argmax(-1))
+                         .float().mean())
+    check = dict(max_abs_diff=diff, max_abs_logit=scale,
+                 rel=diff / scale, tol=DECODE_TOL, argmax_equal=argmax_equal,
+                 shape=list(logits_dec.shape), dtype=str(logits_dec.dtype))
+    log(f"[phase3f] decode vs prefill over {LM_PROMPT + 1} tokens: "
+        f"{json.dumps(check)}")
+    if not (finite and tuple(logits_dec.shape) ==
+            (LM_BATCH, 1, cfg.vocab_size) and diff <= DECODE_TOL * scale):
+        raise AssertionError(f"decode vs prefill check failed: {check}")
+
+    _, prof = device_profile(lambda: prefill(toks[:, :LM_PROMPT]))
+    log(f"[phase3f] prefill profile: {json.dumps(prof)}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches={"serve_lm_cli": cli_launches,
+                          "prefill": prefill_launches,
+                          "decode": decode_launches},
+                cli_wall_s=t_cli, decode_check=check, prefill_profile=prof,
+                decode_profile=decode_prof)
+
+
+def lm_parity() -> dict:
+    """Phase 4f: minitron-8b at full width but 2 layers, float32, the same
+    weights on the card and on the host: prefill and greedy decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM, build_model
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2,
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    card = build_model(cfg, generator=gen, device="cuda")
+    host = DecoderLM(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT),
+                         generator=gen, device="cuda")
+    runs = {}
+    for name, model in (("card", card), ("host", host)):
+        prefill, decode = make_prefill_step(model), make_decode_step(model)
+        logits, cache = prefill(toks.to(model.embed.device))
+        cache = model.extend_cache(cache, PARITY_GEN)
+        tok, out, steps = torch.argmax(logits, -1), [], [logits]
+        for _ in range(PARITY_GEN):
+            out.append(tok)
+            tok, logits, cache = decode(tok, cache)
+            steps.append(logits)
+        runs[name] = (torch.cat(out, 1).cpu(), [x.cpu() for x in steps])
+    rel = max(max_abs_diff(g, w) / float(w.abs().max())
+              for g, w in zip(runs["card"][1], runs["host"][1]))
+    same = bool(torch.equal(runs["card"][0], runs["host"][0]))
+    row = dict(layers=cfg.n_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, prompt=PARITY_PROMPT,
+               batch=PARITY_BATCH, steps=PARITY_GEN + 1,
+               max_rel_logit_diff=rel, tol=PARITY_TOL, tokens_equal=same,
+               tokens=runs["card"][0][0].tolist())
+    log(f"[phase4f] {json.dumps(row)}")
+    if not (same and rel <= PARITY_TOL):
+        raise AssertionError(f"LM GPU vs CPU parity failed: {row}")
+    del card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import generators
-    from repro_torch.kernels import bellman_ell, build, dense_backup, spmv_ell
+    from repro_torch.kernels import bellman_ell, build, dense_backup
+    from repro_torch.kernels import flash_attention, spmv_ell
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -495,7 +784,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.build_all([bellman_ell.SOURCE, spmv_ell.SOURCE,
-                     dense_backup.SOURCE])
+                     dense_backup.SOURCE, flash_attention.SOURCE])
     log(f"[phase2] kernels built in {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
@@ -503,6 +792,7 @@ def main() -> int:
     log(f"[phase2] garnet n={N} m={M} k={K} on the card in "
         f"{time.perf_counter() - t0:.1f}s")
     checks = kernel_checks(mdp, np.random.default_rng(1))
+    qchecks = qvalues_checks(mdp, np.random.default_rng(3))
     path = main_path(mdp)
     where_time_goes(mdp, "phase3b")
     parity()
@@ -522,6 +812,9 @@ def main() -> int:
     del ell, dmdp
     torch.cuda.empty_cache()
     dense_parity()
+    fchecks = flash_checks()
+    lm = lm_main_path()
+    lm_parity()
 
     sources = {"ell_backup": ("src/repro_torch/kernels/csrc/ell_backup.cu",
                               "src/repro/kernels/bellman_ell.py:109"),
@@ -555,6 +848,35 @@ def main() -> int:
         bound_by=f32["bound_by"], library_ms=f32["library_ms"],
         library=f32["library"], dtype="float32", float64=f64,
         shape=dict(n=DN, m=DM, n_cols=DN)))
+    f64, f32 = qchecks["float64"], qchecks["float32"]
+    kernels.append(dict(
+        name="ell_qvalues", route="cuda",
+        source="src/repro_torch/kernels/csrc/ell_spmv.cu",
+        replaces="src/repro/kernels/bellman_ell.py:168",
+        launches=qchecks["launches"]["ell_qvalues"],
+        launches_by_path={"ops_ell_qvalues": qchecks["launches"][
+            "ell_qvalues"]},
+        max_abs_err=max(f64["max_abs_err"], f32["max_abs_err"]),
+        max_abs_diff=max(f64["max_abs_err"], f32["max_abs_err"]),
+        ms=f64["ms"], plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"],
+        bound_by=f64["bound_by"], library_ms=f64["library_ms"],
+        library="torch.sparse_csr_tensor @ v, then cost + gamma * pv",
+        dtype="float64", float32=f32, shape=dict(n=N, m=M, k=K)))
+    main_case = fchecks[FLASH_CASES[0][0]]
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:82",
+        launches=lm["launches"]["serve_lm_cli"]["flash_attention"],
+        launches_by_path={p: c["flash_attention"]
+                          for p, c in lm["launches"].items()},
+        max_abs_err=max(r["max_abs_err"] for r in fchecks.values()),
+        ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+        bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+        library_ms=main_case["library_ms"],
+        library="scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True)",
+        dtype="bfloat16", shape=main_case["shape"], cases=fchecks))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,15 +6,21 @@ counterpart is easy to find:
 
 * :mod:`repro_torch.core` — containers, generators, Bellman operators,
   inner solvers, the outer iPI loop and the host driver;
-* :mod:`repro_torch.kernels` — the two hot-path kernels (fused ELL backup,
-  policy SpMV) as CUDA C++ for ``sm_90a`` beside their plain PyTorch
-  versions, dispatched by the device of the tensors they are given;
+* :mod:`repro_torch.kernels` — the kernels (fused ELL and dense backups,
+  policy SpMV, the ELL Q table, GQA flash attention) as CUDA C++ for
+  ``sm_90a`` beside their plain PyTorch versions, dispatched by the
+  device of the tensors they are given;
 * :mod:`repro_torch.api` — options database, ``MDP`` builder, ``Session``;
-* :mod:`repro_torch.launch.solve` — the solve CLI.
+* :mod:`repro_torch.launch.solve` — the solve CLI;
+* :mod:`repro_torch.configs`, :mod:`repro_torch.models`,
+  :mod:`repro_torch.train.steps`, :mod:`repro_torch.launch.serve_lm` —
+  the LM substrate's dense family, served by batched prefill and greedy
+  decode.
 
-This slice covers the single-device solve of one materialized ELL MDP.
-Every entry point takes a ``device`` (default ``"cuda"``); asking for
-``cuda`` without a visible GPU raises instead of running on the host.
+The port covers the single-device solve of one materialized ELL or dense
+MDP and the serving path of the dense LMs.  Every entry point takes a
+``device`` (default ``"cuda"``); asking for ``cuda`` without a visible GPU
+raises instead of running on the host.
 """
 
 from repro_torch.device import resolve_device

@@ -6,8 +6,8 @@ tensors live:
 
 * CPU tensors run the plain PyTorch versions (:mod:`.ref`);
 * CUDA tensors launch the hand-written kernels (:mod:`.bellman_ell`,
-  :mod:`.spmv_ell`, :mod:`.dense_backup`), which raise if they cannot
-  build or launch.
+  :mod:`.spmv_ell`, :mod:`.dense_backup`, :mod:`.flash_attention`), which
+  raise if they cannot build or launch.
 
 Nothing catches a kernel failure and falls back.
 """
@@ -17,10 +17,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import bellman_ell, dense_backup as dense_kernel
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import ref, spmv_ell
 
-KERNELS = {"ell_backup": bellman_ell, "ell_matvec": spmv_ell,
-           "dense_backup": dense_kernel}
+# kernel name -> (wrapper module, its launch counter)
+KERNELS = {"ell_backup": (bellman_ell, "launches"),
+           "ell_matvec": (spmv_ell, "launches"),
+           "dense_backup": (dense_kernel, "launches"),
+           "ell_qvalues": (bellman_ell, "qvalues_launches"),
+           "flash_attention": (flash_kernel, "launches")}
 
 
 def ell_backup(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
@@ -30,6 +35,14 @@ def ell_backup(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
     if v.device.type == "cpu":
         return ref.ell_backup(idx, val, cost, gamma, v)
     return bellman_ell.ell_backup(idx, val, cost, gamma, v)
+
+
+def ell_qvalues(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
+                gamma: float, v: torch.Tensor) -> torch.Tensor:
+    """Q table ``cost + gamma * P v`` (n, m) on an ELL block."""
+    if v.device.type == "cpu":
+        return ref.ell_qvalues(idx, val, cost, gamma, v)
+    return bellman_ell.ell_qvalues(idx, val, cost, gamma, v)
 
 
 def ell_matvec(idx: torch.Tensor, val: torch.Tensor,
@@ -49,11 +62,20 @@ def dense_backup(p: torch.Tensor, cost: torch.Tensor, gamma: float,
     return dense_kernel.dense_backup(p, cost, gamma, v)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """GQA attention forward: q (B, T, H, d), k/v (B, S, KV, d) -> (B, T, H,
+    d) in q's dtype, scale ``d ** -0.5``, keys ``>= S`` excluded."""
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal)
+    return flash_kernel.flash_attention(q, k, v, causal=causal)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel name."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)

@@ -21,6 +21,11 @@ reproduce, so the dense versions agree with it to a tolerance.
 
 Products and adds are separate tensor ops, so no fused multiply-add can
 merge two roundings.
+
+:func:`flash_attention` is the online-softmax scan over key chunks of the
+reference's ``models.attention.chunked_attention``, in f32 whatever the
+inputs.  Its CUDA kernel sums in another order, so the two agree to a
+tolerance, not bit for bit.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from __future__ import annotations
 import torch
 
 LANES = 32   # one warp: the dense dot's lane count
+NEG_INF = -1e30   # attention mask value, the reference's
 
 
 def acc_dtype(*tensors: torch.Tensor) -> torch.dtype:
@@ -122,3 +128,49 @@ def dense_backup(p: torch.Tensor, cost: torch.Tensor, gamma: float,
     """Dense Bellman backup: (min_a Q, argmin_a Q) with smallest-index
     tie-break."""
     return rowmin_argmin(dense_qvalues(p, cost, gamma, v))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, chunk: int = 128, q_offset: int = 0,
+                    kv_len: int | None = None) -> torch.Tensor:
+    """Online-softmax GQA attention over key chunks, f32 accumulation.
+
+    q: (B, T, H, hd) at absolute positions ``[q_offset, q_offset + T)``;
+    k, v: (B, S, KV, hd) with ``H % KV == 0`` (query head ``h`` reads KV
+    head ``h // (H // KV)``).  Keys ``>= kv_len`` (default ``S``) are
+    excluded, and with ``causal`` so is every key after the query's
+    position.  Scores are ``(q . k) * hd ** -0.5``; masked scores are
+    ``NEG_INF`` and ``l`` is clamped at ``1e-30``, as in the reference.
+    Chunks wholly past the causal frontier are skipped: they would leave
+    ``(m, l, o)`` exactly as they are.  Returns (B, T, H, hd) in q's dtype.
+    """
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    n_keys = s if kv_len is None else min(kv_len, s)
+    if causal:
+        n_keys = min(n_keys, q_offset + t)
+    dev = q.device
+    q32 = q.float().reshape(b, t, kvh, g, hd)
+    qpos = q_offset + torch.arange(t, device=dev)
+    m = torch.full((b, kvh, g, t), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kvh, g, t), dtype=torch.float32, device=dev)
+    o = torch.zeros((b, kvh, g, t, hd), dtype=torch.float32, device=dev)
+    for c0 in range(0, max(n_keys, 0), chunk):
+        kc = k[:, c0:c0 + chunk].float()
+        vc = v[:, c0:c0 + chunk].float()
+        sc = torch.einsum("btkgh,bskh->bkgts", q32, kc) * (hd ** -0.5)
+        kpos = c0 + torch.arange(kc.shape[1], device=dev)
+        mask = (kpos < n_keys)[None, :]
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + torch.einsum("bkgtc,bckh->bkgth", p, vc)
+        m = m_new
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    # (B, KV, G, T, hd) -> (B, T, H, hd)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)

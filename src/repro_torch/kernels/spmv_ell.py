@@ -59,11 +59,11 @@ def _check(idx, val, x) -> torch.dtype:
     return x.dtype
 
 
-def ell_matvec(idx: torch.Tensor, val: torch.Tensor,
-               x: torch.Tensor) -> torch.Tensor:
-    """``y[i] = sum_k val[i, k] * x[idx[i, k]]`` (n,) in x's dtype, on the
-    card."""
-    global launches
+def launch(idx: torch.Tensor, val: torch.Tensor,
+           x: torch.Tensor) -> torch.Tensor:
+    """Check, allocate and launch the kernel without counting the launch:
+    :func:`ell_matvec` and :func:`repro_torch.kernels.bellman_ell.ell_qvalues`
+    each count theirs under their own name."""
     dt = _check(idx, val, x)
     n, k = idx.shape
     y = torch.empty(n, dtype=dt, device=x.device)
@@ -75,5 +75,15 @@ def ell_matvec(idx: torch.Tensor, val: torch.Tensor,
     code = fn(idx.data_ptr(), val.data_ptr(), x.data_ptr(), n, k,
               y.data_ptr(), stream)
     build.check(code, "ell_matvec launch")
-    launches += 1
+    return y
+
+
+def ell_matvec(idx: torch.Tensor, val: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """``y[i] = sum_k val[i, k] * x[idx[i, k]]`` (n,) in x's dtype, on the
+    card."""
+    global launches
+    y = launch(idx, val, x)
+    if y.numel():
+        launches += 1
     return y

@@ -1,0 +1,98 @@
+"""GQA/MQA self-attention with RoPE: prefill and decode.
+
+Counterpart of :mod:`repro.models.attention`.  Prefill self-attention goes
+through :func:`repro_torch.kernels.ops.flash_attention`: on CUDA tensors
+the hand-written flash kernel (which takes the place of the reference's
+chunk scan, as its docstring says the Pallas kernel would on hardware), on
+CPU tensors its plain version.  Decode is plain torch, as the reference's
+is plain ``jnp``: one new token against the cache, softmax in f32.
+
+Cross-attention (``kv_x``, whisper) and the training forward are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops, ref
+from repro_torch.models.layers import init_, rope, weight
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      q_offset: int, chunk: int, causal: bool = True,
+                      kv_len: int | None = None) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (the reference's signature).
+
+    q: (B, T, H, hd) at absolute positions ``[q_offset, q_offset + T)``;
+    k, v: (B, S, KV, hd).  S must be a multiple of ``chunk`` (the caller
+    pads; ``kv_len`` masks padded key positions ``>= kv_len``).  The scan
+    itself is :func:`repro_torch.kernels.ref.flash_attention`.
+    """
+    if k.shape[1] % chunk:
+        raise ValueError(f"S={k.shape[1]} is not a multiple of chunk={chunk}")
+    return ref.flash_attention(q, k, v, causal=causal, chunk=chunk,
+                               q_offset=q_offset, kv_len=kv_len)
+
+
+class Attention(nn.Module):
+    """The projections ``wq (d, H*hd)``, ``wk``/``wv (d, KV*hd)``, ``wo
+    (H*hd, d)`` in the reference's ``x @ W`` layout."""
+
+    def __init__(self, cfg, dtype: torch.dtype, device):
+        super().__init__()
+        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.cfg = cfg
+        self.wq = weight((d, h * hd), dtype, device)
+        self.wk = weight((d, kv * hd), dtype, device)
+        self.wv = weight((d, kv * hd), dtype, device)
+        self.wo = weight((h * hd, d), dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv):
+            init_(w, generator)
+        init_(self.wo, generator, scale=self.wo.shape[0] ** -0.5)
+
+    def forward(self, x, *, positions, cache=None):
+        return apply_attention(self, x, self.cfg, positions=positions,
+                               cache=cache)
+
+
+def apply_attention(p: Attention, x: torch.Tensor, cfg, *,
+                    positions: torch.Tensor, cache=None):
+    """Self-attention of ``x`` (B, T, d).
+
+    * prefill, ``cache=None``: returns ``(y, (k, v))``, the unpadded
+      rotated keys and values (B, T, KV, hd) for the cache;
+    * decode, ``cache=(k_cache, v_cache, length)`` with caches (B, S, KV,
+      hd) and ``T = 1``: writes the new key and value at slot ``length``
+      **in place** (the reference returns updated copies) and returns
+      ``(y, (k_cache, v_cache, length + 1))``.
+    """
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, t, _ = x.shape
+    q = rope((x @ p.wq).view(b, t, h, hd), positions, cfg.rope_theta)
+    k = rope((x @ p.wk).view(b, t, kv, hd), positions, cfg.rope_theta)
+    v = (x @ p.wv).view(b, t, kv, hd)
+
+    if cache is None:
+        y = ops.flash_attention(q, k, v, causal=True)
+        return y.reshape(b, t, h * hd) @ p.wo, (k, v)
+
+    # ---- decode: one new token against the cache ------------------------ #
+    k_cache, v_cache, length = cache
+    if t != 1 or not 0 <= length < k_cache.shape[1]:
+        raise ValueError(f"decode takes one token and a free cache slot; got "
+                         f"T={t}, length={length}, cache of "
+                         f"{k_cache.shape[1]} slots")
+    k_cache[:, length] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, length] = v[:, 0].to(v_cache.dtype)
+    # slots > length are masked in the reference; leaving them out is exact
+    keys = k_cache[:, :length + 1].float()
+    vals = v_cache[:, :length + 1].float()
+    qg = q.float().view(b, 1, kv, h // kv, hd)
+    sc = torch.einsum("btkgh,bskh->bkgts", qg, keys) * (hd ** -0.5)
+    pr = torch.softmax(sc, dim=-1)
+    y = torch.einsum("bkgts,bskh->btkgh", pr, vals).reshape(b, 1, h * hd)
+    return y.to(x.dtype) @ p.wo, (k_cache, v_cache, length + 1)

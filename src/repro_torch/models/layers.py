@@ -1,0 +1,90 @@
+"""Shared primitives: init, norms, rotary embeddings, MLPs.
+
+Counterpart of :mod:`repro.models.layers`.  Weights keep the reference's
+``x @ W`` layout, ``(d_in, d_out)``, so a weight carries over from the JAX
+package unchanged (:mod:`repro_torch.models.convert`).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def init_(w: torch.Tensor, generator: torch.Generator,
+          scale: float | None = None) -> torch.Tensor:
+    """Truncated-normal fan-in init in place: a standard normal cut at
+    +-2, drawn in f32 on ``generator``, times ``scale`` (default
+    ``fan_in ** -0.5``, fan-in the leading dim), then cast to ``w``'s
+    dtype.  The reference's distribution; not its numbers."""
+    fan_in = w.shape[0] if w.dim() > 1 else 1
+    scale = scale if scale is not None else fan_in ** -0.5
+    tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    with torch.no_grad():
+        w.copy_(tmp.mul_(scale))
+    return w
+
+
+def weight(shape, dtype: torch.dtype, device) -> nn.Parameter:
+    """An uninitialised parameter (filled by ``init_`` or a state dict)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def rms_norm(w: torch.Tensor, x: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm in f32, result in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding, split-half convention (the first and second halves
+    of the head dim rotate as pairs).  x: (..., T, n_heads, d_head);
+    positions: broadcastable to (..., T).  In f32, result in x's dtype."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs             # (..., T, d/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().split(half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """Dense FFN: ``swiglu`` (gate, up, down), ``relu2`` (squared ReLU) or
+    ``gelu`` (up, down)."""
+
+    def __init__(self, d_model: int, d_ff: int, mlp_type: str,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        if mlp_type not in ("swiglu", "relu2", "gelu"):
+            raise ValueError(f"unknown mlp_type {mlp_type!r}")
+        self.mlp_type = mlp_type
+        if mlp_type == "swiglu":
+            self.w_gate = weight((d_model, d_ff), dtype, device)
+        self.w_up = weight((d_model, d_ff), dtype, device)
+        self.w_down = weight((d_ff, d_model), dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.mlp_type == "swiglu":
+            init_(self.w_gate, generator)
+        init_(self.w_up, generator)
+        init_(self.w_down, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        up = x @ self.w_up
+        if self.mlp_type == "swiglu":
+            h = torch.nn.functional.silu(x @ self.w_gate) * up
+        elif self.mlp_type == "relu2":
+            h = torch.square(torch.relu(up))
+        else:
+            # jax.nn.gelu defaults to the tanh approximation
+            h = torch.nn.functional.gelu(up, approximate="tanh")
+        return h @ self.w_down

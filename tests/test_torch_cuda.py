@@ -13,10 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import driver, generators
 from repro_torch.core.ipi import IPIOptions
 from repro_torch.kernels import bellman_ell, dense_backup, ops, ref
-from repro_torch.kernels import spmv_ell
+from repro_torch.kernels import flash_attention, spmv_ell
+from repro_torch.models import DecoderLM, build_model
+from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 GAMMA = 0.997
 SHAPES = [(97, 5, 1), (130, 3, 2), (64, 17, 3), (301, 6, 8)]
@@ -159,3 +162,123 @@ def test_gpu_solve_matches_cpu_solve(cuda, method):
     else:
         assert np.abs(rg.v - rc.v).max() <= max(
             1e-10 * np.abs(rc.v).max(), rc.gap_bound)
+
+
+@pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", SHAPES, ids=[str(s) for s in SHAPES])
+def test_ell_qvalues_bitmatches_plain_version(cuda, shape, v_dtype):
+    idx, val, cost, v = _tables(*shape, v_dtype, cuda)
+    before = ops.launch_counts()
+    got = ops.ell_qvalues(idx, val, cost, GAMMA, v)
+    want = ref.ell_qvalues(idx, val, cost, GAMMA, v)
+    torch.cuda.synchronize()
+    assert got.shape == shape[:2] and _bitequal(got, want)
+    after = ops.launch_counts()
+    assert after["ell_qvalues"] == before["ell_qvalues"] + 1
+    assert after["ell_matvec"] == before["ell_matvec"]
+
+
+# (B, T, S, H, KV, d): MHA / GQA / MQA, T and S ragged against the kernel's
+# 64-row tiles, d below, at and between its 16-column steps
+FLASH_SHAPES = [(1, 64, 64, 4, 4, 16), (2, 96, 96, 8, 2, 64),
+                (1, 130, 130, 6, 1, 80), (2, 200, 200, 4, 2, 128),
+                (1, 33, 100, 4, 4, 64), (1, 1, 1, 2, 1, 16),
+                (2, 70, 150, 8, 1, 128)]
+
+
+def flash_within_tolerance(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """f32: 2e-5 abs + rel (the same online softmax in other summation
+    orders).  bf16: one bf16 ulp of the larger value (2^-7 relative; both
+    round an f32 result that differs in its last bits) plus 1e-5."""
+    g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        return bool(((g - w).abs() <= 2e-5 + 2e-5 * w.abs()).all())
+    return bool(((g - w).abs()
+                 <= 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-5).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=[str(s) for s in FLASH_SHAPES])
+def test_flash_kernel_matches_plain_version(cuda, shape, causal, dtype):
+    b, t, s, h, kv, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(t * s + d)
+    q, k, v = (torch.randn(shp, generator=gen, device=cuda).to(dtype)
+               for shp in ((b, t, h, d), (b, s, kv, d), (b, s, kv, d)))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, t, h, d)
+    assert flash_within_tolerance(got, want)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+
+
+def test_flash_kernel_reads_strided_inputs(cuda):
+    """q/k/v as views into fused projections (no contiguous copies)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(2, 90, 4 + 2 + 2, 64, generator=gen, device=cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert flash_within_tolerance(got, want)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.randn(1, 8, 4, 64, device=cuda)
+    kv = torch.randn(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="multiple of"):
+        flash_attention.flash_attention(q, kv[:, :, :1].expand(1, 8, 3, 64),
+                                        kv[:, :, :1].expand(1, 8, 3, 64))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(
+            torch.randn(1, 8, 2, 160, device=cuda),
+            torch.randn(1, 8, 2, 160, device=cuda),
+            torch.randn(1, 8, 2, 160, device=cuda))
+    with pytest.raises(ValueError, match="contiguous in its head dim"):
+        flash_attention.flash_attention(q, kv, kv.transpose(1, 3)
+                                        .contiguous().transpose(1, 3))
+    with pytest.raises(ValueError, match="is on"):
+        flash_attention.flash_attention(q, kv.cpu(), kv)
+
+
+@pytest.mark.parametrize("arch", ["minitron-8b", "granite-34b"])
+def test_smoke_lm_on_the_card_matches_the_host(cuda, arch):
+    """Same weights (drawn on the host) on both devices, float32: prefill
+    and decode logits within 1e-4 of the largest |logit| (cuBLAS and the
+    host BLAS, the flash kernel and its plain version, sum in other
+    orders), greedy tokens equal, one flash launch per layer in prefill
+    and none in decode."""
+    cfg = get_smoke_config(arch)
+    host = build_model(cfg, generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+    card = DecoderLM(cfg, device=cuda)
+    card.load_state_dict(host.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (3, 45),
+                         generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for name, model in (("host", host), ("card", card)):
+        dev = model.embed.device
+        prefill, decode = make_prefill_step(model), make_decode_step(model)
+        ops.reset_launch_counts()
+        logits, cache = prefill(toks.to(dev))
+        n_prefill = ops.launch_counts()["flash_attention"]
+        cache = model.extend_cache(cache, 6)
+        tok, out, steps = torch.argmax(logits, -1), [], [logits]
+        for _ in range(6):
+            out.append(tok)
+            tok, logits, cache = decode(tok, cache)
+            steps.append(logits)
+        n_decode = ops.launch_counts()["flash_attention"] - n_prefill
+        runs[name] = (torch.cat(out, 1).cpu(), [x.cpu() for x in steps],
+                      n_prefill, n_decode)
+    assert runs["host"][2:] == (0, 0)
+    assert runs["card"][2:] == (cfg.n_layers, 0)
+    assert torch.equal(runs["card"][0], runs["host"][0])
+    for got, want in zip(runs["card"][1], runs["host"][1]):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()

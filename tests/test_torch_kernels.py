@@ -18,6 +18,7 @@ from repro.core import bellman as jbellman
 from repro.core.comm import Axes as JAxes
 from repro.core.mdp import EllMDP as JEll
 from repro.kernels import bellman_ell as j_bellman_ell
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import spmv_ell as j_spmv_ell
 from repro_torch.core import bellman as tbellman
@@ -102,6 +103,29 @@ def test_plain_matvec_bitmatches_jax_ref_and_pallas(k, v_dtype):
                                                 tile_n=64, tile_v=50))
 
 
+@pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", SHAPES, ids=[str(s) for s in SHAPES])
+def test_ell_qvalues_bitmatches_reference_op(shape, v_dtype):
+    """``ops.ell_qvalues`` on the CPU is the plain version: bit for bit the
+    reference op's pinned XLA path.  The reference's Pallas path leaves its
+    ``cost + gamma * pv`` epilogue unpinned, and XLA fuses it into one
+    multiply-add, so it skips the rounding of ``gamma * pv``: the two agree
+    within one ulp of that product plus one of the result."""
+    idx, val, cost, v = _tables(*shape, v_dtype, seed=5)
+    got = ops.ell_qvalues(_t(idx), _t(val), _t(cost), GAMMA, _t(v))
+    assert got.shape == shape[:2]
+    want = jops.ell_qvalues(idx, val, cost, GAMMA, v, impl="xla")
+    _assert_bitequal(got.numpy(), want)
+    pallas = np.asarray(jops.ell_qvalues(idx, val, cost, GAMMA, v,
+                                         impl="pallas_interpret"))
+    got = got.numpy()
+    assert pallas.dtype == got.dtype
+    prod = (GAMMA * tref.ell_gather_dot(_t(idx), _t(val), _t(v))).numpy()
+    bound = np.spacing(np.abs(prod)) + np.spacing(np.maximum(np.abs(got),
+                                                             np.abs(pallas)))
+    assert (np.abs(got - pallas) <= bound).all()
+
+
 def test_ties_break_to_the_first_minimum():
     for v_dtype in (np.float32, np.float64):
         idx, val, cost, v = _tables(120, 6, 3, v_dtype, ties=True)
@@ -175,8 +199,12 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_nothing():
     got = ops.dense_backup(p, _t(cost), GAMMA, _t(v))
     want = tref.dense_backup(p, _t(cost), GAMMA, _t(v))
     _assert_bitequal(got[0].numpy(), want[0].numpy())
+    q = ops.ell_qvalues(_t(idx), _t(val), _t(cost), GAMMA, _t(v))
+    _assert_bitequal(q.numpy(), tref.ell_qvalues(_t(idx), _t(val), _t(cost),
+                                                 GAMMA, _t(v)).numpy())
     assert ops.launch_counts() == {"ell_backup": 0, "ell_matvec": 0,
-                                   "dense_backup": 0}
+                                   "dense_backup": 0, "ell_qvalues": 0,
+                                   "flash_attention": 0}
 
 
 def test_kernel_wrappers_refuse_host_tensors():
@@ -189,6 +217,8 @@ def test_kernel_wrappers_refuse_host_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         dense_backup.dense_backup(torch.full((20, 2, 20), 0.05), _t(cost),
                                   GAMMA, _t(v))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bellman_ell.ell_qvalues(_t(idx), _t(val), _t(cost), GAMMA, _t(v))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
