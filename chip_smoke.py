@@ -7,7 +7,7 @@ repository's ``src/`` next to this file, and exits non-zero (printing no
 result) without them.  Phases, each of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once) and hold both ELL kernels against
    their plain PyTorch versions on garnet tables ``n=10^6, m=16, K=8`` in
    float32 and float64: max |diff| must be 0 and the argmin identical.
@@ -51,7 +51,11 @@ result) without them.  Phases, each of which raises on failure:
    causal in bf16, at minitron-8b's heads and at stablelm-3b's (d=80,
    MHA) and granite-34b's (MQA) head layouts, within one bf16 ulp; timed
    beside ``scaled_dot_product_attention(..., enable_gqa=True)`` (timed
-   only: the port never calls it);
+   only: the port never calls it), with the kernel's TFLOP/s and share of
+   its operation bound; then the bf16 kernel's registers, shared memory,
+   spills and SASS tensor-core and copy instructions, read from the
+   library that ran (it fails without a tensor-core instruction, or if
+   ptxas serialized the wgmma products);
    (3f) the CLI ``repro_torch.launch.serve_lm --arch minitron-8b --batch 4
    --prompt-len 2048 --gen 16`` must exit 0 with ``flash_attention``
    launched once per layer (32) and no other kernel; then prefill over
@@ -75,6 +79,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -632,11 +637,70 @@ def flash_checks() -> dict:
                                               want),
             bytes=nbytes, flops=flops)
         r = out[name]
+        r["tflops"] = flops / r["ms"] / 1e9
+        r["bound_share"] = b_ms / r["ms"]
         log(f"[phase2f] flash_attention {name} (H={h}, KV={kv}, d={d}): "
-            f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, sdpa "
-            f"{r['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}); max |diff| "
-            f"{r['max_abs_err']:.3e}, {ratio:.3f}x the tolerance")
+            f"{r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s, "
+            f"{r['bound_share']:.1%} of the bound (plain "
+            f"{r['plain_ms']:.3f}, sdpa {r['library_ms']:.4f}, bound "
+            f"{b_ms:.4f} by {b_by}); max |diff| {r['max_abs_err']:.3e} "
+            f"(sdpa's {r['library_max_abs_diff']:.3e}), {ratio:.3f}x the "
+            f"tolerance")
     return out
+
+
+def flash_report(library: Path) -> dict:
+    """The bf16 kernel at each head dim the serving configs use (d = 128:
+    DC=8, d = 80: DC=5), read from the library that ran phase 2f: its
+    registers, dynamic shared memory and local memory as the runtime holds
+    them (``flash_attention_bf16_attributes``, after the launches), its
+    spills and ptxas's advisories from the library's build log (``-Xptxas
+    -v``), and its tensor-core and copy instructions from ``cuobjdump
+    -sass``.  Raises if a kernel has no tensor-core instruction or ptxas
+    serialized its wgmma products (advisory C7518: still right, slower)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    ptxas = build.build_log(library).read_text()
+    sass = subprocess.run(
+        [str(Path(build.nvcc()).parent / "cuobjdump"), "-sass",
+         str(library)], capture_output=True, text=True, check=True).stdout
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "flash_attention.sass.txt").write_text(sass)
+    funcs = re.split(r"\n\s*Function : ", sass)
+    lib = build.load("flash_attention")
+    report = {}
+    for dc, d in ((8, 128), (5, 80)):
+        tag = f"flash_fwd_bf16ILi{dc}E"
+        attrs = (ctypes.c_int * 4)()
+        build.check(lib.flash_attention_bf16_attributes(d, attrs),
+                    f"flash_attention_bf16_attributes({d})")
+        i = ptxas.find(tag)
+        if i < 0:
+            raise AssertionError(f"ptxas printed nothing for {tag}")
+        spill = [int(x) for x in re.search(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+            ptxas[i:i + 600]).groups()]
+        body = next(f for f in funcs if f.startswith("_Z") and tag in
+                    f.split("\n", 1)[0])
+        ops = {}
+        for op in re.findall(r"\b((?:HMMA|HGMMA|LDSM|LDGSTS|MUFU\.EX2)"
+                             r"[.xA-Z0-9]*)", body):
+            ops[op] = ops.get(op, 0) + 1
+        report[f"DC={dc}"] = dict(
+            registers=attrs[0], dynamic_smem_bytes=attrs[1],
+            local_bytes=attrs[2], static_smem_bytes=attrs[3],
+            spill_store_bytes=spill[0], spill_load_bytes=spill[1], sass=ops)
+        if not any(op.startswith(("HMMA", "HGMMA")) for op in ops):
+            raise AssertionError(f"{tag}: no tensor-core instruction in "
+                                 f"its SASS: {ops}")
+        serialized = [line for line in ptxas.splitlines()
+                      if "serialized" in line and tag in line]
+        if serialized:
+            raise AssertionError(f"{tag}: ptxas serialized its wgmma "
+                                 f"products: {serialized}")
+    log(f"[phase2f] bf16 flash kernel resources: {json.dumps(report)}")
+    return report
 
 
 def lm_main_path() -> dict:
@@ -783,8 +847,8 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    build.build_all([bellman_ell.SOURCE, spmv_ell.SOURCE,
-                     dense_backup.SOURCE, flash_attention.SOURCE])
+    libs = build.build_all([bellman_ell.SOURCE, spmv_ell.SOURCE,
+                            dense_backup.SOURCE, flash_attention.SOURCE])
     log(f"[phase2] kernels built in {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
@@ -813,6 +877,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense_parity()
     fchecks = flash_checks()
+    fresources = flash_report(libs[flash_attention.SOURCE])
     lm = lm_main_path()
     lm_parity()
 
@@ -876,7 +941,8 @@ def main() -> int:
         library_ms=main_case["library_ms"],
         library="scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True)",
-        dtype="bfloat16", shape=main_case["shape"], cases=fchecks))
+        dtype="bfloat16", shape=main_case["shape"], cases=fchecks,
+        resources=fresources))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,14 @@ Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
-         -shared -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <name>.cu
+         -Xptxas -v -shared -Xcompiler -fPIC \\
+         -o build/kernels/<name>-<hash>.so <name>.cu
 
 The library lands in ``build/kernels/`` at the repository root, named by a
 hash of its source and flags, so an edited source rebuilds and an
-unchanged one loads at once.  :func:`build_all` starts one ``nvcc`` per
+unchanged one loads at once.  nvcc's output, ptxas's per-kernel registers,
+spills and advisories among it, is kept beside it as ``<name>-<hash>.log``
+(:func:`build_log`).  :func:`build_all` starts one ``nvcc`` per
 source at the same time.  No PyTorch headers are involved, so a build
 takes seconds.  Every C entry point returns ``cudaGetLastError()`` after
 its launch; :func:`check` turns a non-zero code into an exception.
@@ -27,7 +30,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -81,6 +85,7 @@ def build_all(names) -> dict[str, Path]:
             if proc.returncode != 0:
                 raise KernelBuildError(f"nvcc failed on {name}.cu "
                                        f"(exit {proc.returncode}):\n{out}")
+            build_log(targets[name]).write_text(out)
             os.replace(tmps[name], targets[name])   # atomic publish
     finally:
         for name, proc in procs.items():
@@ -89,6 +94,11 @@ def build_all(names) -> dict[str, Path]:
                 proc.wait()
             tmps[name].unlink(missing_ok=True)
     return targets
+
+
+def build_log(target: Path) -> Path:
+    """nvcc's output for the library ``target``, written by its build."""
+    return target.with_suffix(".log")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,15 +1,27 @@
 """GQA flash-attention forward: the CUDA kernel's wrapper.
 
 Counterpart of :mod:`repro.kernels.flash_attention` (the Pallas TPU
-kernel).  The kernel is ``csrc/flash_attention.cu``: one CTA per (batch x
-head, 64-row query block), K/V tiles staged in shared memory, online
-softmax in f32 registers, the KV head of query head ``h`` read as
-``h // (H // KV)`` in place, key tiles past the causal frontier skipped and
-ragged ``T``/``S`` tails bounds-checked.  Its plain PyTorch version is
-:func:`repro_torch.kernels.ref.flash_attention`; the two sum in different
-orders (the kernel's dots are explicit fused multiply-adds, so the
-library's common ``-fmad=false`` build flags are kept and change nothing
-here), so they agree to a tolerance, not bit for bit.
+kernel).  The kernel is ``csrc/flash_attention.cu``.  Both dtypes read q,
+k, v in place through their strides (the KV head of query head ``h`` is
+``h // (H // KV)``), skip key tiles past the causal frontier and
+bounds-check ragged ``T``/``S`` tails; the online softmax keeps f32
+``m``, ``l`` and accumulators.
+
+* bf16 (the serving path) runs on Hopper's tensor cores (``wgmma``): one
+  CTA of three warpgroups per (batch x head, 192-row query block), 64-key
+  K/V tiles fetched by ``cp.async`` into a 3-slot shared-memory ring, QKᵀ
+  exact in bf16 products with f32 sums, P kept in registers and split into
+  bf16 hi + lo for the P.V product so that it carries ~16 bits (bf16 P
+  alone would miss the one-bf16-ulp tolerance), ``exp`` as ``ex2.approx``.
+  Its bound is the algorithm's operations (137.5 GFLOP at minitron-8b's
+  prefill, 0.14 ms at the bf16 tensor-core peak); the split makes the
+  tensor cores do 1.5x that.
+* float32 (checks) runs on the f32 CUDA cores: 64-row query blocks,
+  explicit fused multiply-adds, ``expf``.
+
+Its plain PyTorch version is :func:`repro_torch.kernels.ref.flash_attention`;
+the two sum in different orders (and bf16 rounds P to ~16 bits), so they
+agree to a tolerance, not bit for bit.
 
 One difference from the Pallas kernel, by design: with ``causal=False``
 and ``S`` not a block multiple, the Pallas kernel pads with zero keys and
@@ -31,7 +43,8 @@ from repro_torch.kernels import build
 
 SOURCE = "flash_attention"
 MAX_HEAD_DIM = 128
-BLOCK_Q = 64           # query rows per CTA (csrc/flash_attention.cu kBQ)
+BLOCK_Q = 64           # query rows per CTA of the f32 kernel (csrc kBQ;
+                       # the bf16 kernel's are 192, so its grid is smaller)
 MAX_Q_BLOCKS = 65535   # the grid's y extent
 
 launches = 0

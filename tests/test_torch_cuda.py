@@ -178,8 +178,9 @@ def test_ell_qvalues_bitmatches_plain_version(cuda, shape, v_dtype):
     assert after["ell_matvec"] == before["ell_matvec"]
 
 
-# (B, T, S, H, KV, d): MHA / GQA / MQA, T and S ragged against the kernel's
-# 64-row tiles, d below, at and between its 16-column steps
+# (B, T, S, H, KV, d): MHA / GQA / MQA, T and S ragged against the kernels'
+# 64-row (f32) and 192-row (bf16) query blocks and 64-key tiles, d below,
+# at and between their 16-column steps
 FLASH_SHAPES = [(1, 64, 64, 4, 4, 16), (2, 96, 96, 8, 2, 64),
                 (1, 130, 130, 6, 1, 80), (2, 200, 200, 4, 2, 128),
                 (1, 33, 100, 4, 4, 64), (1, 1, 1, 2, 1, 16),
@@ -215,15 +216,43 @@ def test_flash_kernel_matches_plain_version(cuda, shape, causal, dtype):
     assert ops.launch_counts()["flash_attention"] == before + 1
 
 
-def test_flash_kernel_reads_strided_inputs(cuda):
-    """q/k/v as views into fused projections (no contiguous copies)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_flash_kernel_reads_strided_inputs(cuda, offset, dtype):
+    """q/k/v as views into fused projections (no contiguous copies).  With
+    ``offset=1`` the views start one element into their buffer and rows
+    are 513 elements apart: no row is 16-byte aligned, so the bf16 kernel
+    stages them with element loads instead of 16-byte copies."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    qkv = torch.randn(2, 90, 4 + 2 + 2, 64, generator=gen, device=cuda)
+    buf = torch.randn(2, 90, (4 + 2 + 2) * 64 + offset, generator=gen,
+                      device=cuda).to(dtype)
+    qkv = buf[:, :, offset:].unflatten(2, (8, 64))
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
     got = flash_attention.flash_attention(q, k, v, causal=True)
     want = ref.flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=True)
     torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert flash_within_tolerance(got, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 300, 300, 8, 2, 80),
+                                   (1, 77, 333, 4, 4, 80),
+                                   (1, 200, 45, 2, 1, 80)],
+                         ids=str)
+def test_flash_kernel_bf16_head_dim_80_ragged(cuda, shape, causal):
+    """stablelm-3b's head dim (five 16-column steps) with T and S no
+    multiple of the bf16 kernel's 192-row query blocks (64 rows a
+    warpgroup) or 64-key tiles, T below, equal to and above S."""
+    b, t, s, h, kv, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(t + s)
+    q, k, v = (torch.randn(shp, generator=gen, device=cuda).bfloat16()
+               for shp in ((b, t, h, d), (b, s, kv, d), (b, s, kv, d)))
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == (b, t, h, d) and got.dtype == torch.bfloat16
     assert flash_within_tolerance(got, want)
 
 

@@ -8,6 +8,17 @@ dim).  Tolerances are those of ``tests/test_flash_kernel.py``: 2e-5 for
 f32 (the same online softmax, summed in other orders), 2e-2 for bf16
 inputs held against the f32 oracle.  The CUDA kernel is held to the plain
 version on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+
+The CUDA kernel's bf16 arithmetic (exact bf16 products summed in f32,
+then ``scale``, online softmax in f32 over 64-key tiles, P split into
+bf16 hi + lo for the P.V product) is emulated in plain torch by
+``_kernel_precision`` below and held to the plain version and to
+``chunked_attention`` under the card's bf16 tolerance: one bf16 ulp of
+the larger value plus 1e-5.  Run as a script, this file prints how far
+the emulation lands from the plain version at minitron-8b's per-head
+shape with P split and with P in bf16 alone::
+
+    PYTHONPATH=src python tests/test_torch_flash.py
 """
 
 import numpy as np
@@ -21,6 +32,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models.attention import chunked_attention
 
 F32 = dict(atol=2e-5, rtol=2e-5)
+# (H, KV, d) of the serving configs: minitron-8b, stablelm-3b, granite-34b
+SERVING_HEADS = [(32, 8, 128), (32, 32, 80), (48, 1, 128)]
 
 
 def _qkv(b, t, s, h, kv, d, seed=0):
@@ -122,3 +135,92 @@ def test_kernel_wrapper_refuses_host_tensors():
     q, k, v = _t(*_qkv(1, 8, 8, 2, 2, 16))
     with pytest.raises(ValueError, match="CUDA tensors"):
         tflash_kernel.flash_attention(q, k, v)
+
+
+def _kernel_precision(q, k, v, *, causal, split=True, block_k=64):
+    """The bf16 CUDA kernel's arithmetic in plain torch.  q (B, T, H, d),
+    k/v (B, S, KV, d) bf16 -> (B, T, H, d) bf16.  Products of bf16 values
+    are exact in f32; scores are scaled after the product; the online
+    softmax runs in f32 over ``block_k``-key tiles and l sums the f32 P;
+    P.V takes P as bf16 hi + lo (``split``) or as bf16 alone, V exact."""
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    n_keys = min(s, t) if causal else s
+    qf = q.float().reshape(b, t, kv, h // kv, d)
+    m = torch.full((b, kv, h // kv, t), ref.NEG_INF)
+    l = torch.zeros((b, kv, h // kv, t))
+    o = torch.zeros((b, kv, h // kv, t, d))
+    qpos = torch.arange(t)
+    for k0 in range(0, n_keys, block_k):
+        kt, vt = k[:, k0:k0 + block_k].float(), v[:, k0:k0 + block_k].float()
+        sc = torch.einsum("btkgh,bskh->bkgts", qf, kt) * d ** -0.5
+        kpos = k0 + torch.arange(kt.shape[1])
+        mask = (kpos < n_keys)[None, :]
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        sc = torch.where(mask, sc, torch.full_like(sc, ref.NEG_INF))
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        pv = torch.einsum("bkgts,bskh->bkgth", hi, vt)
+        if split:
+            lo = (p - hi).bfloat16().float()
+            pv = pv + torch.einsum("bkgts,bskh->bkgth", lo, vt)
+        o = o * alpha[..., None] + pv
+        m = m_new
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, t, h, d).bfloat16()
+
+
+def _bf16_tolerance_ratio(got, want):
+    """Worst |got - want| over the card's bf16 tolerance (one bf16 ulp of
+    the larger value, 2^-7 relative, plus 1e-5); at most 1 passes."""
+    g, w = got.float(), want.float()
+    tol = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-5
+    return float(((g - w).abs() / tol).max())
+
+
+def _bf16_qkv(b, t, s, h, kv, d, seed):
+    return tuple(torch.from_numpy(x).bfloat16()
+                 for x in _qkv(b, t, s, h, kv, d, seed=seed))
+
+
+@pytest.mark.parametrize("h,kv,d", SERVING_HEADS, ids=str)
+def test_kernel_precision_within_bf16_tolerance(h, kv, d):
+    """The emulated kernel against the plain version and the JAX scan at
+    the serving head layouts, causal, T = 256 (four 64-key tiles)."""
+    q, k, v = _bf16_qkv(1, 256, 256, h, kv, d, seed=h + d)
+    got = _kernel_precision(q, k, v, causal=True)
+    want = ref.flash_attention(q, k, v, causal=True)
+    assert _bf16_tolerance_ratio(got, want) <= 1.0
+    scan = jchunked(*(x.float().numpy() for x in (q, k, v)), q_offset=0,
+                    chunk=64, causal=True)
+    scan = torch.from_numpy(np.asarray(scan)).bfloat16()
+    assert _bf16_tolerance_ratio(got, scan) <= 1.0
+
+
+def test_kernel_precision_needs_the_split_p_at_minitron_head_shape():
+    """One minitron-8b head at prefill length (T = S = 2048, d = 128):
+    with P split into bf16 hi + lo the kernel's arithmetic stays within
+    the tolerance; with P in bf16 alone it does not (its error, up to
+    2^-9 of the largest |v|, outgrows 1e-5 where |o| is small)."""
+    q, k, v = _bf16_qkv(1, 2048, 2048, 1, 1, 128, seed=0)
+    want = ref.flash_attention(q, k, v, causal=True)
+    split = _kernel_precision(q, k, v, causal=True)
+    alone = _kernel_precision(q, k, v, causal=True, split=False)
+    assert _bf16_tolerance_ratio(split, want) <= 1.0
+    assert _bf16_tolerance_ratio(alone, want) > 1.0
+
+
+if __name__ == "__main__":
+    for seed in range(3):
+        q, k, v = _bf16_qkv(1, 2048, 2048, 1, 1, 128, seed=seed)
+        want = ref.flash_attention(q, k, v, causal=True)
+        for split in (True, False):
+            got = _kernel_precision(q, k, v, causal=True, split=split)
+            print(f"seed {seed}, P {'hi + lo' if split else 'bf16 alone'}: "
+                  f"{_bf16_tolerance_ratio(got, want):.3f}x the tolerance, "
+                  f"max |diff| "
+                  f"{float((got.float() - want.float()).abs().max()):.3e}")
