@@ -12,7 +12,16 @@ result) without them.  Phases, each of which raises on failure:
    their plain PyTorch versions on garnet tables ``n=10^6, m=16, K=8`` in
    float32 and float64: max |diff| must be 0 and the argmin identical.
    Kernel, plain version and (SpMV only) ``torch.sparse_csr_tensor @ x``
-   are timed with CUDA events (median of 25 after warm-up);
+   are timed with CUDA events (median of 25 after warm-up, each call
+   queued behind a spin on the card so that the host's launch time falls
+   outside the events: :func:`time_ms`).  Each ELL
+   kernel is timed again, and checked bitwise again, on tables of the same
+   shapes with local ``idx`` (``idx[s, a, k] = s``: each warp's gathers hit
+   one cached sector): the local time against the byte bound is the table
+   stream's efficiency, the random time less the local one the cost of the
+   random gather, whose 32-byte L2 sector traffic, modelled as one sector
+   per slot, is logged beside it.  Then each ELL kernel's registers and spills, read
+   from its library's build log (``-Xptxas -v``);
 3. the main path at full width, ``garnet n=10^6, m=16, k=8, gamma=0.99``:
    (a) the CLI ``repro_torch.launch.solve ... --method ipi_gmres --atol
    1e-8`` (float64) must exit 0; (b) ``madupite_session({-method mpi,
@@ -100,6 +109,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12,
 N, M, K, GAMMA = 1_000_000, 16, 8, 0.99
 DN, DM, DK = 16_384, 16, 8          # the dense phases' garnet
 REPS, WARMUP = 25, 3
+SPIN_CYCLES = 1_000_000             # queued ahead of each timed call
 PLAIN_DENSE_REPS = 5                # the dense plain version is slow
 ELL_KERNELS = ("ell_backup", "ell_matvec")
 LM_ARCH = "minitron-8b"
@@ -118,7 +128,11 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = REPS) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+    """Median device time of one call, by CUDA events around each call.
+    Each call is queued behind a spin of about half a millisecond on the
+    card, so that the host's launch time (tens of microseconds through a
+    wrapper) falls outside the events where the call's own work is
+    shorter than the spin."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -126,6 +140,7 @@ def time_ms(fn, reps: int = REPS) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -151,6 +166,18 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.max(torch.abs(a.double() - b.double())))
 
 
+def ell_as_csr(idx: torch.Tensor, val: torch.Tensor, n_cols: int,
+               dt: torch.dtype) -> torch.Tensor:
+    """The (rows, K) ELL rows as a CSR matrix of ``dt`` on the card, for
+    PyTorch's sparse product: the library yardstick of the SpMV."""
+    rows, k = idx.shape
+    crow = torch.arange(0, rows * k + 1, k, dtype=torch.int32,
+                        device="cuda")
+    return torch.sparse_csr_tensor(crow, idx.reshape(-1),
+                                   val.reshape(-1).to(dt),
+                                   size=(rows, n_cols), check_invariants=False)
+
+
 def kernel_checks(mdp, gen: np.random.Generator) -> dict:
     """Phase 2: each kernel against its plain version, timed."""
     from repro_torch.core import bellman
@@ -159,6 +186,8 @@ def kernel_checks(mdp, gen: np.random.Generator) -> dict:
 
     idx, val, cost = mdp.idx, mdp.val, mdp.cost
     n, m, k = idx.shape
+    local_idx = torch.arange(n, dtype=torch.int32, device="cuda") \
+        .view(n, 1, 1).expand(n, m, k).contiguous()
     out = {"ell_backup": {}, "ell_matvec": {}}
     for dt in (torch.float32, torch.float64):
         name = str(dt).replace("torch.", "")
@@ -175,14 +204,16 @@ def kernel_checks(mdp, gen: np.random.Generator) -> dict:
                   + got_v.nbytes + got_pi.nbytes)
         flops = n * m * (2 * k + 3)
         b_ms, b_by = bound_ms(nbytes, flops, dt)
+        ms = time_ms(lambda: bellman_ell.ell_backup(idx, val, cost, GAMMA,
+                                                    v))
         out["ell_backup"][name] = dict(
-            max_abs_err=max_abs_diff(got_v, want_v),
-            ms=time_ms(lambda: bellman_ell.ell_backup(idx, val, cost,
-                                                      GAMMA, v)),
+            max_abs_err=max_abs_diff(got_v, want_v), ms=ms,
             plain_ms=time_ms(lambda: ref.ell_backup(idx, val, cost, GAMMA,
                                                     v)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            bytes=nbytes, flops=flops)
+            bytes=nbytes, flops=flops,
+            **gather_split("ell_backup", name, local_idx, val, cost, v,
+                           ms, b_ms))
 
         rows = bellman.policy_rows(mdp, got_pi, Axes())
         x = torch.from_numpy(gen.random(n) * 50.0).to("cuda", dt)
@@ -193,23 +224,21 @@ def kernel_checks(mdp, gen: np.random.Generator) -> dict:
             raise AssertionError(f"ell_matvec {name}: kernel != plain "
                                  f"version (max |diff| "
                                  f"{max_abs_diff(got_y, want_y)})")
-        crow = torch.arange(0, n * k + 1, k, dtype=torch.int32,
-                            device="cuda")
-        csr = torch.sparse_csr_tensor(crow, rows.idx.reshape(-1),
-                                      rows.val.reshape(-1).to(dt),
-                                      size=(n, n), check_invariants=False)
+        csr = ell_as_csr(rows.idx, rows.val, n, dt)
         lib_y = csr @ x
         nbytes = rows.idx.nbytes + rows.val.nbytes + x.nbytes + got_y.nbytes
         flops = 2 * n * k
         b_ms, b_by = bound_ms(nbytes, flops, dt)
+        ms = time_ms(lambda: spmv_ell.ell_matvec(rows.idx, rows.val, x))
         out["ell_matvec"][name] = dict(
-            max_abs_err=max_abs_diff(got_y, want_y),
-            ms=time_ms(lambda: spmv_ell.ell_matvec(rows.idx, rows.val, x)),
+            max_abs_err=max_abs_diff(got_y, want_y), ms=ms,
             plain_ms=time_ms(lambda: ref.ell_matvec(rows.idx, rows.val, x)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: csr @ x),
             library_max_abs_diff=max_abs_diff(lib_y, want_y),
-            bytes=nbytes, flops=flops)
+            bytes=nbytes, flops=flops,
+            **gather_split("ell_matvec", name, local_idx[:, 0].contiguous(),
+                           rows.val, None, x, ms, b_ms))
         log(f"[phase2] {name}: backup {out['ell_backup'][name]['ms']:.4f} "
             f"ms (plain {out['ell_backup'][name]['plain_ms']:.4f}, bound "
             f"{out['ell_backup'][name]['bound_ms']:.4f}); spmv "
@@ -218,6 +247,80 @@ def kernel_checks(mdp, gen: np.random.Generator) -> dict:
             f"{out['ell_matvec'][name]['library_ms']:.4f}, bound "
             f"{out['ell_matvec'][name]['bound_ms']:.4f}); bitwise equal")
     return out
+
+
+def gather_split(kernel: str, name: str, idx, val, cost, v, ms: float,
+                 bound: float) -> dict:
+    """An ELL kernel on tables of the same shapes with local ``idx``
+    (``idx[s, ...] = s``), checked bitwise against its plain version and
+    timed: the stream alone, without the random gather.  The log gives
+    beside it the random run's gathers per second (``ms`` is its time) and
+    their L2 sector traffic, modelled as one 32-byte sector a gather; only
+    the measured local time is returned."""
+    from repro_torch.kernels import bellman_ell, ref, spmv_ell
+
+    if kernel == "ell_backup":
+        def run():
+            return bellman_ell.ell_backup(idx, val, cost, GAMMA, v)
+        want = ref.ell_backup(idx, val, cost, GAMMA, v)
+    else:
+        def run():
+            return (spmv_ell.ell_matvec(idx, val, v),)
+        want = (ref.ell_matvec(idx, val, v),)
+    got = run()
+    torch.cuda.synchronize()
+    if not all(bits_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{kernel} {name} on local idx: kernel != "
+                             f"plain version")
+    local = time_ms(run)
+    gathers = idx.numel()
+    sectors = gathers * 32          # modelled: one 32-byte sector a gather
+    rate = gathers / (ms / 1e3)
+    log(f"[phase2] {kernel} {name} local idx: {local:.4f} ms, "
+        f"{bound / local:.1%} of the byte bound; random: {ms:.4f} ms, "
+        f"{ms - local:.4f} ms more for {gathers / 1e6:.0f} M gathers "
+        f"({sectors / 1e9:.3f} GB of L2 sectors, modelled), "
+        f"{rate / 1e9:.1f} G gathers/s")
+    return dict(local_ms=local)
+
+
+def ptxas_entries(build_log: str) -> dict:
+    """Registers and spill bytes of each entry function in an ``-Xptxas
+    -v`` build log, by mangled name."""
+    out = {}
+    for block in build_log.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        if not (regs and spill):
+            raise AssertionError(f"ptxas printed no registers or spills "
+                                 f"for {name}")
+        out[name] = dict(registers=int(regs.group(1)),
+                         spill_store_bytes=int(spill.group(1)),
+                         spill_load_bytes=int(spill.group(2)))
+    return out
+
+
+def ell_report(libs: dict) -> dict:
+    """Each ELL kernel instantiation's registers and spills, from its
+    library's build log."""
+    from repro_torch.kernels import bellman_ell, build, spmv_ell
+
+    report = {}
+    for name, source in (("ell_backup", bellman_ell.SOURCE),
+                         ("ell_matvec", spmv_ell.SOURCE)):
+        entries = ptxas_entries(build.build_log(libs[source]).read_text())
+        report[name] = {}
+        for mangled, row in entries.items():
+            acc, vec = re.search(r"_kernelI([fd])Li(\d+)E", mangled).groups()
+            acc = {"f": "float", "d": "double"}[acc]
+            report[name][f"{acc}, vec {vec}"] = row
+        if len(report[name]) != 4:
+            raise AssertionError(f"{name}: expected 4 instantiations in the "
+                                 f"build log, got {sorted(report[name])}")
+    log(f"[phase2] ELL kernel resources: {json.dumps(report)}")
+    return report
 
 
 def require_launched(path: str, launches: dict, names) -> None:
@@ -543,8 +646,6 @@ def qvalues_checks(mdp, gen: np.random.Generator) -> dict:
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     require_launched("ops.ell_qvalues", launches, ("ell_qvalues",))
-    crow = torch.arange(0, n * m * k + 1, k, dtype=torch.int32,
-                        device="cuda")
     out = {}
     for dt, v in vs.items():
         name = str(dt).replace("torch.", "")
@@ -554,9 +655,7 @@ def qvalues_checks(mdp, gen: np.random.Generator) -> dict:
             raise AssertionError(f"ell_qvalues {name}: kernel != plain "
                                  f"version (max |diff| "
                                  f"{max_abs_diff(got[dt], want)})")
-        csr = torch.sparse_csr_tensor(crow, idx.reshape(-1),
-                                      val.reshape(-1).to(dt),
-                                      size=(n * m, n), check_invariants=False)
+        csr = ell_as_csr(idx.view(n * m, k), val.view(n * m, k), n, dt)
 
         def library(csr=csr, v=v):
             return cost.to(v.dtype) + GAMMA * (csr @ v).view(n, m)
@@ -662,6 +761,7 @@ def flash_report(library: Path) -> dict:
 
     from repro_torch.kernels import build
     ptxas = build.build_log(library).read_text()
+    entries = ptxas_entries(ptxas)
     sass = subprocess.run(
         [str(Path(build.nvcc()).parent / "cuobjdump"), "-sass",
          str(library)], capture_output=True, text=True, check=True).stdout
@@ -675,12 +775,10 @@ def flash_report(library: Path) -> dict:
         attrs = (ctypes.c_int * 4)()
         build.check(lib.flash_attention_bf16_attributes(d, attrs),
                     f"flash_attention_bf16_attributes({d})")
-        i = ptxas.find(tag)
-        if i < 0:
+        entry = next((row for name, row in entries.items() if tag in name),
+                     None)
+        if entry is None:
             raise AssertionError(f"ptxas printed nothing for {tag}")
-        spill = [int(x) for x in re.search(
-            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-            ptxas[i:i + 600]).groups()]
         body = next(f for f in funcs if f.startswith("_Z") and tag in
                     f.split("\n", 1)[0])
         ops = {}
@@ -690,7 +788,8 @@ def flash_report(library: Path) -> dict:
         report[f"DC={dc}"] = dict(
             registers=attrs[0], dynamic_smem_bytes=attrs[1],
             local_bytes=attrs[2], static_smem_bytes=attrs[3],
-            spill_store_bytes=spill[0], spill_load_bytes=spill[1], sass=ops)
+            spill_store_bytes=entry["spill_store_bytes"],
+            spill_load_bytes=entry["spill_load_bytes"], sass=ops)
         if not any(op.startswith(("HMMA", "HGMMA")) for op in ops):
             raise AssertionError(f"{tag}: no tensor-core instruction in "
                                  f"its SASS: {ops}")
@@ -856,6 +955,7 @@ def main() -> int:
     log(f"[phase2] garnet n={N} m={M} k={K} on the card in "
         f"{time.perf_counter() - t0:.1f}s")
     checks = kernel_checks(mdp, np.random.default_rng(1))
+    ell_resources = ell_report(libs)
     qchecks = qvalues_checks(mdp, np.random.default_rng(3))
     path = main_path(mdp)
     where_time_goes(mdp, "phase3b")
@@ -898,7 +998,7 @@ def main() -> int:
             ms=f64["ms"], plain_ms=f64["plain_ms"],
             bound_ms=f64["bound_ms"], bound_by=f64["bound_by"],
             library_ms=f64["library_ms"], dtype="float64", float32=f32,
-            shape=dict(n=N, m=M, k=K)))
+            local_ms=f64["local_ms"], resources=ell_resources[name], shape=dict(n=N, m=M, k=K)))
     f32, f64 = dchecks["float32"], dchecks["float64"]
     kernels.append(dict(
         name="dense_backup", route="cuda",

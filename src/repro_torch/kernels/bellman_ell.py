@@ -1,9 +1,12 @@
 """Fused ELL Bellman backup and the ELL Q table: the CUDA kernels' wrappers.
 
 Counterpart of :mod:`repro.kernels.bellman_ell` (the Pallas TPU kernels).
-The backup's kernel is ``csrc/ell_backup.cu`` (one thread per state row,
-pinned roundings, first-minimum argmin); its plain PyTorch version is
-:func:`repro_torch.kernels.ref.ell_backup`, which it equals bit for bit.
+The backup's kernel is ``csrc/ell_backup.cu`` (each (state, action) row's
+slots spread over neighbouring lanes for coalesced loads, pinned
+roundings, a strict-``<`` argmin over the actions in order); its plain
+PyTorch version is :func:`repro_torch.kernels.ref.ell_backup`, which it
+equals bit for bit.  Its launcher picks 16-byte loads a lane where the
+row length and the tables' alignment allow it, else 4-byte ones.
 
 :func:`ell_qvalues` is, as in the reference, the policy SpMV kernel
 (``csrc/ell_spmv.cu``) run over the ``(n*m, K)`` rows, then

@@ -8,9 +8,10 @@ into a shared library with a plain C interface::
          -o build/kernels/<name>-<hash>.so <name>.cu
 
 The library lands in ``build/kernels/`` at the repository root, named by a
-hash of its source and flags, so an edited source rebuilds and an
-unchanged one loads at once.  nvcc's output, ptxas's per-kernel registers,
-spills and advisories among it, is kept beside it as ``<name>-<hash>.log``
+hash of its source, the headers beside it (``csrc/*.cuh``) and the flags,
+so an edited source or header rebuilds and an unchanged one loads at once.
+nvcc's output, ptxas's per-kernel registers, spills and advisories among
+it, is kept beside it as ``<name>-<hash>.log``
 (:func:`build_log`).  :func:`build_all` starts one ``nvcc`` per
 source at the same time.  No PyTorch headers are involved, so a build
 takes seconds.  Every C entry point returns ``cudaGetLastError()`` after
@@ -60,7 +61,8 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -1,9 +1,13 @@
 """Policy-restricted ELL SpMV: the CUDA kernel's wrapper.
 
 Counterpart of :mod:`repro.kernels.spmv_ell` (the Pallas TPU kernel).
-The kernel is ``csrc/ell_spmv.cu`` (one thread per row, pinned
-roundings); its plain PyTorch version is
+The kernel is ``csrc/ell_spmv.cu`` (a row's slots spread over
+neighbouring lanes for coalesced loads, pinned roundings, the K-sum in slot
+order); its plain PyTorch version is
 :func:`repro_torch.kernels.ref.ell_matvec`, which it equals bit for bit.
+Its launcher picks the 16-byte (int4 / float4) load path where the row
+length and the tables' alignment allow it, else the 4-byte one; both are
+hand-written and bit-equal.
 
 :func:`ell_matvec` takes CUDA tensors only, checks them, allocates the
 output, launches on PyTorch's current stream and raises on any launch

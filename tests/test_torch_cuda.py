@@ -23,6 +23,11 @@ from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 GAMMA = 0.997
 SHAPES = [(97, 5, 1), (130, 3, 2), (64, 17, 3), (301, 6, 8)]
+# (n, m, K): K with and without the 16-byte load path (K % 4 == 0), m
+# below, at and above the actions a warp holds at once; n = 301 is no
+# multiple of the states or rows any block takes
+ELL_SHAPES = SHAPES + [(301, m, k) for k in (1, 2, 3, 4, 5, 8, 12)
+                       for m in (1, 5, 16, 17)]
 # (n, m, n_cols): n_cols below, between and above the kernel's 32-lane and
 # 256-column steps, none but 256 a multiple of them; m = 1 and m = 17
 DENSE_SHAPES = [(8, 2, 8), (64, 1, 200), (40, 17, 45), (130, 3, 700),
@@ -50,8 +55,26 @@ def _bitequal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
 
 
+def _bitequal_or_both_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, except that a NaN equals a NaN in the same place (the
+    payload bits of a NaN are not part of the contract)."""
+    ints = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    same = (a.view(ints) == b.view(ints)) | (torch.isnan(a) & torch.isnan(b))
+    return a.dtype == b.dtype and a.shape == b.shape and bool(same.all())
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary: a row-slice view of a larger buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
 @pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("shape", SHAPES, ids=[str(s) for s in SHAPES])
+@pytest.mark.parametrize("shape", ELL_SHAPES, ids=[str(s) for s in ELL_SHAPES])
 def test_kernels_bitmatch_plain_versions(cuda, shape, v_dtype):
     idx, val, cost, v = _tables(*shape, v_dtype, cuda)
     before = ops.launch_counts()
@@ -64,6 +87,88 @@ def test_kernels_bitmatch_plain_versions(cuda, shape, v_dtype):
     after = ops.launch_counts()
     assert after["ell_backup"] == before["ell_backup"] + 1
     assert after["ell_matvec"] == before["ell_matvec"] + 1
+
+
+@pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m, k", [(17, 3), (17, 8), (5, 2)])
+def test_ell_kernels_read_misaligned_views(cuda, m, k, v_dtype):
+    """Tables that start 4 bytes past a 16-byte boundary take the 4-byte
+    load path (the launchers pick it from the pointers); at K = 8 the
+    aligned tables take the 16-byte one.  K = 2 and 3 give a row one
+    lane.  All equal the plain versions bit for bit."""
+    idx, val, cost, v = _tables(301, m, k, v_dtype, cuda)
+    assert (idx.data_ptr() | val.data_ptr()) % 16 == 0
+    mi, mv = _misaligned(idx), _misaligned(val)
+    want = ref.ell_backup(idx, val, cost, GAMMA, v)
+    for i, w in ((idx, val), (mi, val), (idx, mv), (mi, mv)):
+        got = bellman_ell.ell_backup(i, w, cost, GAMMA, v)
+        assert _bitequal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert _bitequal(ops.ell_qvalues(i, w, cost, GAMMA, v),
+                         ref.ell_qvalues(idx, val, cost, GAMMA, v))
+    rows_i, rows_v = _misaligned(idx[:, 0]), _misaligned(val[:, 0])
+    assert _bitequal(spmv_ell.ell_matvec(rows_i, rows_v, v),
+                     ref.ell_matvec(rows_i, rows_v, v))
+
+
+@pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("k", [8, 3, 2])
+def test_ell_kernels_on_ties_and_non_finite_values(cuda, k, aligned,
+                                                   v_dtype):
+    """Duplicated action columns tie exactly: the first action must win.
+    A NaN and an inf in cost and in v: min and argmin as the plain
+    version's strict-< scan in action order gives them (a NaN Q at action
+    0 stays the minimum, a later one is passed over).  K = 8 spreads a
+    row over lanes, K = 3 and 2 give it one lane."""
+    idx, val, cost, v = _tables(301, 6, k, v_dtype, cuda)
+    for dup, src in ((3, 1), (4, 0), (5, 3)):
+        idx[:, dup], val[:, dup], cost[:, dup] = idx[:, src], val[:, src], \
+            cost[:, src]
+    cost[::4, 1] -= 0.5          # ties at the minimum on some rows
+    cost[::4, 3] -= 0.5
+    cost[7, 0] = cost[8, 2] = float("nan")
+    cost[9, 1], cost[10, 0] = float("inf"), -float("inf")
+    v[3], v[4], v[5] = float("nan"), float("inf"), -float("inf")
+    if not aligned:
+        idx, val = _misaligned(idx), _misaligned(val)
+    got = bellman_ell.ell_backup(idx, val, cost, GAMMA, v)
+    want = ref.ell_backup(idx, val, cost, GAMMA, v)
+    assert torch.isnan(want[0]).any() and torch.isinf(want[0]).any()
+    assert (want[1][::4] == 1).any()      # a tie that the first index won
+    assert _bitequal_or_both_nan(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert _bitequal_or_both_nan(ops.ell_qvalues(idx, val, cost, GAMMA, v),
+                                 ref.ell_qvalues(idx, val, cost, GAMMA, v))
+    rows_i, rows_v = idx[:, 0].contiguous(), val[:, 0].contiguous()
+    assert _bitequal_or_both_nan(spmv_ell.ell_matvec(rows_i, rows_v, v),
+                                 ref.ell_matvec(rows_i, rows_v, v))
+
+
+def test_ell_kernels_past_2_31_table_slots(cuda):
+    """n = 2^24 + 3, m = 16, K = 8: 2.15e9 slots (17.2 GB of idx + val),
+    tables drawn on the card from a seeded generator.  The last 4,096
+    states of the backup, and their rows of the SpMV over the (n*m, K)
+    rows (ell_qvalues' product), against the plain version."""
+    n, m, k, tail = 2 ** 24 + 3, 16, 8, 4096
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    idx = torch.randint(0, n, (n, m, k), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    val = torch.rand((n, m, k), generator=gen, device=cuda)
+    cost = torch.rand((n, m), generator=gen, device=cuda)
+    assert idx.numel() > 2 ** 31
+    for dt in (torch.float32, torch.float64):
+        v = (torch.rand(n, generator=gen, device=cuda, dtype=torch.float64)
+             * 40.0 - 20.0).to(dt)
+        got_v, got_pi = bellman_ell.ell_backup(idx, val, cost, GAMMA, v)
+        want_v, want_pi = ref.ell_backup(idx[-tail:], val[-tail:],
+                                         cost[-tail:], GAMMA, v)
+        assert _bitequal(got_v[-tail:], want_v)
+        assert torch.equal(got_pi[-tail:], want_pi)
+        rows_i, rows_v = idx.view(n * m, k), val.view(n * m, k)
+        y = spmv_ell.ell_matvec(rows_i, rows_v, v)
+        assert _bitequal(y[-tail * m:], ref.ell_matvec(rows_i[-tail * m:],
+                                                       rows_v[-tail * m:], v))
+        del got_v, got_pi, y
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -165,7 +270,7 @@ def test_gpu_solve_matches_cpu_solve(cuda, method):
 
 
 @pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("shape", SHAPES, ids=[str(s) for s in SHAPES])
+@pytest.mark.parametrize("shape", ELL_SHAPES, ids=[str(s) for s in ELL_SHAPES])
 def test_ell_qvalues_bitmatches_plain_version(cuda, shape, v_dtype):
     idx, val, cost, v = _tables(*shape, v_dtype, cuda)
     before = ops.launch_counts()
