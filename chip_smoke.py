@@ -32,9 +32,27 @@ result) without them.  Phases, each of which raises on failure:
    CPU;
    then the same ipi_gmres solve once plain and once under torch.profiler
    (device time by kernel, idle share);
-4. GPU vs CPU parity at n=20,000 for vi / mpi / ipi_gmres x mincost /
-   maxreward in float64: same policy and counts, values within
-   max(1e-10 |v|_inf, gap bound);
+   (3g) the rest of the single-device surface on the same garnet, each
+   path with its own launch counts (both ELL kernels must launch in
+   each): (a) ``repro_torch.core.io.save_mdp`` writes it in 4 blocks under
+   ``build/``, then the CLI ``--load DIR --method ipi_bicgstab --option
+   pc_type=jacobi --atol 1e-8 --monitor --ckpt-dir DIR2`` (float64) must
+   exit 0, print outer + 1 monitor lines and pass phase 3's independent
+   CPU backup check; (b) one Session runs ``ipi_chebyshev``,
+   ``ipi_anderson`` and ``ipi_gmres -pc_type bjacobi`` in float32 to
+   1e-4, each of which must converge; (c) ``ipi_gmres
+   -deterministic_dots`` in float64 must give the CLI's (3a) policy and
+   outer count, the value difference logged; (d) 3a's solve stopped at
+   ``-max_outer 3`` with ``-checkpoint_dir`` and resumed must give 3a's
+   policy and counts, values bitwise equal or within 1e-12 |v|_inf (the
+   difference logged); (e) ``ipi_anderson`` float64 with ``-monitor``
+   must give equal stream and chunk records; then each solve of (a)-(c)
+   on the card's tables, once plain and once under torch.profiler (busy
+   time, idle share against the plain run's wall; the Chebyshev and GMRES
+   + block-Jacobi solves over their first 20 and 3 outer steps);
+4. GPU vs CPU parity at n=20,000 for vi / mpi / ipi_gmres / ipi_bicgstab
+   / ipi_chebyshev / ipi_anderson x mincost / maxreward in float64: same
+   policy and counts, values within max(1e-10 |v|_inf, gap bound);
 5. the dense path, on ``as_dense()`` of garnet ``n=16,384, m=16, k=8,
    gamma=0.99`` built on the card (P is 17.2 GB of float32):
    (2d) ``dense_backup`` against its plain version in float32 and float64,
@@ -80,15 +98,17 @@ result) without them.  Phases, each of which raises on failure:
    default method; ``dense_backup``'s is its count in the dense ipi_gmres
    solve (3d); ``ell_qvalues``'s its phase-2q count; ``flash_attention``'s
    its count in the serve_lm CLI run (3f).  ``launches_by_path`` gives
-   each path's counts.
+   each path's counts (the ELL kernels' include phase 3g's paths).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -121,6 +141,10 @@ PLAIN_FLASH_REPS = 5                # the plain scan is slow
 DECODE_TOL = 0.05    # decode vs prefill logits, of max |logit| (bf16)
 PARITY_TOL = 1e-4    # GPU vs CPU logits, of max |logit| (float32)
 PARITY_BATCH, PARITY_PROMPT, PARITY_GEN = 2, 256, 8
+# phase 3g profiles these long solves over their first outer steps only
+# (tens of thousands of small ops make torch.profiler's tables slow)
+PROFILE_PREFIX = {"session_ipi_chebyshev": 20,
+                  "session_ipi_gmres_bjacobi": 3}
 
 
 def log(msg: str) -> None:
@@ -336,18 +360,21 @@ def main_path(mdp) -> dict:
     width, each with its own launch counts, then an independent CPU check
     of the CLI's value vector."""
     from repro_torch.api import MDP, madupite_session
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.launch import solve as cli
 
     OUT.mkdir(parents=True, exist_ok=True)
     v_path, pi_path = OUT / "cli_v.npy", OUT / "cli_pi.npy"
+    stats_path = OUT / "cli_stats.jsonl"
+    stats_path.unlink(missing_ok=True)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     rc = cli.main(["--instance", "garnet", "--n", str(N), "--m", str(M),
                    "--k", str(K), "--gamma", str(GAMMA),
                    "--method", "ipi_gmres", "--atol", "1e-8",
                    "--option", f"file_cost={v_path}",
-                   "--option", f"file_policy={pi_path}"])
+                   "--option", f"file_policy={pi_path}",
+                   "--option", f"file_stats={stats_path}"])
     t_cli = time.perf_counter() - t0
     cli_launches = ops.launch_counts()
     if rc != 0:
@@ -371,26 +398,248 @@ def main_path(mdp) -> dict:
 
     v = np.load(v_path)
     pi = np.load(pi_path)
+    res = certify_on_cpu(mdp, v, pi, "independent CPU backup")
+    log(f"[phase3] CLI wall={t_cli:.2f}s; independent CPU residual "
+        f"{res:.3e} <= 1e-8; launches {cli_launches}")
+    cli_solve = read_stats(stats_path)["solves"][0]
+    launches = {"cli_ipi_gmres": cli_launches, "session_mpi": sess_launches}
+    return dict(launches=launches, cli_wall_s=t_cli, session_wall_s=t_sess,
+                cli_outer=cli_solve["outer_iterations"],
+                cli_inner=cli_solve["inner_iterations"], cli_v=v,
+                cli_pi=pi, session_outer=r.outer_iterations,
+                session_inner=r.inner_iterations, cpu_residual=res)
+
+
+def certify_on_cpu(mdp, v: np.ndarray, pi: np.ndarray, what: str,
+                   atol: float = 1e-8) -> float:
+    """Phase 3's independent check of a float64 value vector: one
+    plain-version backup on the CPU must give ``||Tv - v||_inf <= atol``
+    (plus 16 ulps of ``|v|_inf``) and the solve's greedy policy."""
+    from repro_torch.kernels import ref
+
     if v.shape != (N,) or v.dtype != np.float64 or not np.isfinite(v).all():
-        raise AssertionError(f"CLI value vector: shape {v.shape} dtype "
+        raise AssertionError(f"{what}: value vector shape {v.shape} dtype "
                              f"{v.dtype}, finite={np.isfinite(v).all()}")
     host = mdp.to("cpu")
     tv, tpi = ref.ell_backup(host.idx, host.val, host.cost, GAMMA,
                              torch.from_numpy(v))
     res = float(torch.max(torch.abs(tv - torch.from_numpy(v))))
     slack = 16 * np.finfo(np.float64).eps * float(np.abs(v).max())
-    if not res <= 1e-8 + slack:
-        raise AssertionError(f"independent CPU backup: ||Tv - v||_inf = "
-                             f"{res} > 1e-8")
+    if not res <= atol + slack:
+        raise AssertionError(f"{what}: ||Tv - v||_inf = {res} > {atol}")
     if not np.array_equal(tpi.numpy(), pi):
-        raise AssertionError("independent CPU backup: greedy policy "
-                             "differs from the CLI's")
-    log(f"[phase3] CLI wall={t_cli:.2f}s; independent CPU residual "
-        f"{res:.3e} <= 1e-8; launches {cli_launches}")
-    launches = {"cli_ipi_gmres": cli_launches, "session_mpi": sess_launches}
-    return dict(launches=launches, cli_wall_s=t_cli, session_wall_s=t_sess,
-                session_outer=r.outer_iterations,
-                session_inner=r.inner_iterations, cpu_residual=res)
+        raise AssertionError(f"{what}: greedy policy differs from the "
+                             f"solve's")
+    return res
+
+
+def read_stats(path: Path) -> dict:
+    """The last entry of a ``-file_stats`` jsonl file."""
+    return json.loads(path.read_text().splitlines()[-1])
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that is also kept, to count what a CLI printed."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(main, argv) -> tuple[int, str]:
+    """``main(argv)`` in this process; its exit code and what it printed
+    (still printed)."""
+    tee, saved = _Tee(sys.stdout), sys.stdout
+    sys.stdout = tee
+    try:
+        rc = main(argv)
+    finally:
+        sys.stdout = saved
+    return rc, tee.kept.getvalue()
+
+
+def other_paths(mdp, main: dict) -> dict:
+    """Phase 3g: the rest of the single-device surface on the phase-2
+    garnet, each path with its own launch counts (both ELL kernels in
+    every one) and wall time; then each solve's device busy time."""
+    from repro_torch.api import MDP, Options, madupite_session
+    from repro_torch.core import driver, io as core_io
+    from repro_torch.core.ipi import IPIOptions
+    from repro_torch.kernels import ops
+    from repro_torch.launch import solve as cli
+
+    launches, rows, profiled = {}, {}, {}
+
+    def drive(name: str, fn):
+        """``fn()`` with the launch counters set to 0 just before it and
+        read just after; both ELL kernels must have launched."""
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = ops.launch_counts()
+        require_launched(name, launches[name], ELL_KERNELS)
+        return out, wall
+
+    # (a) io.save_mdp in 4 blocks, then the CLI: --load, BiCGStab + Jacobi,
+    # --monitor, --ckpt-dir, float64 to 1e-8
+    mdp_dir, ck_dir = OUT / "garnet_blocks", OUT / "ckpt_3g_cli"
+    for d in (mdp_dir, ck_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    core_io.save_mdp(str(mdp_dir), mdp, n_blocks=4)
+    t_save = time.perf_counter() - t0
+    v_path, pi_path = OUT / "cli_3g_v.npy", OUT / "cli_3g_pi.npy"
+    stats_path = OUT / "cli_3g_stats.jsonl"
+    stats_path.unlink(missing_ok=True)
+    argv = ["--load", str(mdp_dir), "--method", "ipi_bicgstab",
+            "--option", "pc_type=jacobi", "--atol", "1e-8", "--monitor",
+            "--ckpt-dir", str(ck_dir), "--option", f"file_cost={v_path}",
+            "--option", f"file_policy={pi_path}",
+            "--option", f"file_stats={stats_path}"]
+    (rc, printed), t_cli = drive("cli_load_bicgstab_jacobi",
+                                 lambda: run_cli(cli.main, argv))
+    if rc != 0:
+        raise AssertionError(f"CLI --load ipi_bicgstab exited {rc}")
+    solve = read_stats(stats_path)["solves"][0]
+    outer, n_lines = solve["outer_iterations"], printed.count("[monitor] k=")
+    if n_lines != outer + 1:
+        raise AssertionError(f"CLI --monitor printed {n_lines} records for "
+                             f"{outer} outer iterations")
+    res = certify_on_cpu(mdp, np.load(v_path), np.load(pi_path),
+                         "3g(a) independent CPU backup")
+    if not sorted(p.name for p in ck_dir.iterdir()):
+        raise AssertionError("CLI --ckpt-dir wrote no checkpoint")
+    rows["cli_load_bicgstab_jacobi"] = dict(
+        outer=outer, inner=solve["inner_iterations"], wall_s=t_cli,
+        save_s=t_save, monitor_lines=n_lines, cpu_residual=res)
+    log(f"[phase3g] (a) save_mdp 4 blocks {t_save:.2f}s; CLI --load "
+        f"ipi_bicgstab pc=jacobi f64: outer={outer} inner="
+        f"{solve['inner_iterations']} wall={t_cli:.2f}s, {n_lines} monitor "
+        f"lines, CPU residual {res:.3e}; launches "
+        f"{launches['cli_load_bicgstab_jacobi']}")
+    opts_a = Options({"-method": "ipi_bicgstab", "-pc_type": "jacobi",
+                      "-dtype": "float64", "-atol": 1e-8,
+                      "-max_outer": 2000}).to_ipi()
+    loaded = core_io.load_mdp(str(mdp_dir)).to("cuda")
+    profiled["cli_load_bicgstab_jacobi"] = \
+        lambda: driver.solve(loaded, opts_a, device="cuda")
+
+    # (b) one Session, three methods, float32 to 1e-4
+    with madupite_session({"-dtype": "float32", "-atol": 1e-4}) as s:
+        for method, extra in (("ipi_chebyshev", {}), ("ipi_anderson", {}),
+                              ("ipi_gmres", {"pc_type": "bjacobi"})):
+            name = f"session_{method}" + (f"_{extra['pc_type']}"
+                                          if extra else "")
+            r, wall = drive(name, lambda: s.solve(MDP(mdp), method=method,
+                                                  **extra))
+            if not r.converged:
+                raise AssertionError(f"{name} did not converge: "
+                                     f"{r.summary()}")
+            rows[name] = dict(outer=r.outer_iterations,
+                              inner=r.inner_iterations, wall_s=wall)
+            log(f"[phase3g] (b) {name} f32: {r.summary()} wall={wall:.2f}s;"
+                f" launches {launches[name]}")
+            opts_b = IPIOptions(method=method, dtype="float32", atol=1e-4,
+                                max_outer=PROFILE_PREFIX.get(name, 500),
+                                **extra)
+            profiled[name] = lambda o=opts_b: driver.solve(mdp, o,
+                                                           device="cuda")
+
+    # (c) deterministic GMRES, float64: phase 3a's policy and outer count
+    opts_c = IPIOptions(method="ipi_gmres", dtype="float64", atol=1e-8,
+                        max_outer=2000, deterministic_dots=True)
+    rdet, wall = drive("driver_ipi_gmres_deterministic",
+                       lambda: driver.solve(mdp, opts_c, device="cuda"))
+    dv = float(np.abs(rdet.v - main["cli_v"]).max())
+    if not (rdet.converged and np.array_equal(rdet.policy, main["cli_pi"])
+            and rdet.outer_iterations == main["cli_outer"]):
+        raise AssertionError(f"deterministic GMRES: {rdet.summary()} against "
+                             f"3a's outer={main['cli_outer']} (policies "
+                             f"equal: {np.array_equal(rdet.policy, main['cli_pi'])})")
+    rows["driver_ipi_gmres_deterministic"] = dict(
+        outer=rdet.outer_iterations, inner=rdet.inner_iterations,
+        wall_s=wall, max_abs_dv_vs_3a=dv,
+        inner_3a=main["cli_inner"])
+    log(f"[phase3g] (c) ipi_gmres deterministic_dots f64: {rdet.summary()} "
+        f"wall={wall:.2f}s; 3a's policy and outer count; max |v - v_3a| "
+        f"{dv:.3e} (3a inner {main['cli_inner']}); launches "
+        f"{launches['driver_ipi_gmres_deterministic']}")
+    profiled["driver_ipi_gmres_deterministic"] = \
+        lambda: driver.solve(mdp, opts_c, device="cuda")
+
+    # (d) phase 3a's solve stopped at -max_outer 3 with -checkpoint_dir,
+    # then resumed
+    ck = OUT / "ckpt_3g_session"
+    shutil.rmtree(ck, ignore_errors=True)
+    common = {"-method": "ipi_gmres", "-dtype": "float64", "-atol": 1e-8,
+              "-max_outer": 2000, "-checkpoint_dir": str(ck)}
+
+    def stop_and_resume():
+        with madupite_session({**common, "-max_outer": 3}) as s:
+            part = s.solve(MDP(mdp))
+        with madupite_session(common) as s:
+            return part, s.solve(MDP(mdp))
+
+    (part, whole), wall = drive("session_ipi_gmres_resumed", stop_and_resume)
+    dv = float(np.abs(whole.v - main["cli_v"]).max())
+    bitwise = bool(np.array_equal(whole.v.view(np.int64),
+                                  main["cli_v"].view(np.int64)))
+    tol = 1e-12 * float(np.abs(main["cli_v"]).max())
+    if not (part.outer_iterations == 3 and whole.converged
+            and np.array_equal(whole.policy, main["cli_pi"])
+            and (whole.outer_iterations, whole.inner_iterations)
+            == (main["cli_outer"], main["cli_inner"]) and dv <= tol):
+        raise AssertionError(f"resumed solve {whole.summary()} against 3a's "
+                             f"outer={main['cli_outer']} inner="
+                             f"{main['cli_inner']}, max |dv| {dv} > {tol}")
+    rows["session_ipi_gmres_resumed"] = dict(
+        outer=whole.outer_iterations, inner=whole.inner_iterations,
+        wall_s=wall, bitwise_vs_3a=bitwise, max_abs_dv_vs_3a=dv)
+    log(f"[phase3g] (d) ipi_gmres stopped at k=3 and resumed: "
+        f"{whole.summary()} wall={wall:.2f}s (both sessions); 3a's policy "
+        f"and counts; values bitwise equal to 3a's: {bitwise} (max |dv| "
+        f"{dv:.3e}); launches {launches['session_ipi_gmres_resumed']}")
+
+    # (e) the same solve's stream and chunk monitor records
+    records = {}
+    for mode in ("stream", "chunk"):
+        recs = []
+        opts_e = IPIOptions(method="ipi_anderson", dtype="float64",
+                            atol=1e-8, monitor=True, monitor_mode=mode)
+        r, wall = drive(f"driver_ipi_anderson_monitor_{mode}",
+                        lambda: driver.solve(mdp, opts_e, device="cuda",
+                                             monitor=recs.append, chunk=4))
+        records[mode] = [{k: v for k, v in rec.items() if k != "elapsed"}
+                         for rec in recs]
+        rows[f"driver_ipi_anderson_monitor_{mode}"] = dict(
+            outer=r.outer_iterations, inner=r.inner_iterations, wall_s=wall,
+            records=len(recs))
+    if records["stream"] != records["chunk"] or \
+            len(records["stream"]) != r.outer_iterations + 1:
+        raise AssertionError(f"stream and chunk monitor records differ: "
+                             f"{records}")
+    log(f"[phase3g] (e) ipi_anderson f64 monitor: {len(records['stream'])} "
+        f"stream records equal to the chunk ones ({r.summary()}); launches "
+        f"{launches['driver_ipi_anderson_monitor_stream']}")
+
+    # device busy time and idle share of each solve of (a)-(c): a warm
+    # plain run of its solve on the card's tables, then a profiled one (a
+    # prefix of outer steps where PROFILE_PREFIX says so)
+    for name, fn in profiled.items():
+        r, prof = device_profile(fn)
+        prof["profiled_outer"] = r.outer_iterations
+        rows[name]["profile"] = prof
+        log(f"[phase3g] profile {name}: {json.dumps(prof)}")
+    return dict(launches=launches, rows=rows)
 
 
 def device_profile(fn) -> tuple:
@@ -399,18 +648,27 @@ def device_profile(fn) -> tuple:
     profile.  The idle share is 1 - busy / wall against the plain run's
     wall, and against the profiled run's (profiling adds host time, so
     that one is an upper bound)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    _, prof = profile_once(fn, wall_ms)
+    return result, prof
+
+
+def profile_once(fn, wall_ms: float) -> tuple:
+    """``fn()`` once under torch.profiler: its result, and its device time
+    by entry with the idle share against ``wall_ms`` (a plain run's wall)
+    and against the profiled run's own wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        result = fn()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -454,7 +712,8 @@ def parity() -> list:
 
     mdp = generators.garnet(n=20_000, m=8, k=4, gamma=GAMMA, seed=3)
     rows = []
-    for method in ("vi", "mpi", "ipi_gmres"):
+    for method in ("vi", "mpi", "ipi_gmres", "ipi_bicgstab", "ipi_chebyshev",
+                   "ipi_anderson"):
         for mode in ("mincost", "maxreward"):
             opts = IPIOptions(method=method, mode=mode, dtype="float64",
                               atol=1e-6, max_outer=2000)
@@ -959,6 +1218,8 @@ def main() -> int:
     qchecks = qvalues_checks(mdp, np.random.default_rng(3))
     path = main_path(mdp)
     where_time_goes(mdp, "phase3b")
+    other = other_paths(mdp, path)
+    path["launches"].update(other["launches"])
     parity()
     del mdp
     torch.cuda.empty_cache()

@@ -6,11 +6,12 @@ reward and solves ``max_a``).  Ported so far:
 
 * :meth:`MDP.from_arrays` with ELL tables (``idx`` + ``val`` + ``cost``)
   or a dense transition tensor (``p`` + ``cost``);
-* :meth:`MDP.from_generator` over the host generator families.
+* :meth:`MDP.from_generator` over the host generator families;
+* :meth:`MDP.from_file` over the block-manifest format of
+  :mod:`repro_torch.core.io` (either package's files).
 
-Files and function-backed MDPs are not ported yet.  The tables are built
-on the host; :meth:`MDP.build` returns them on a device, cached per
-device.
+Function-backed MDPs are not ported yet.  The tables are built on the
+host; :meth:`MDP.build` returns them on a device, cached per device.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import io as core_io
 from repro_torch.core.generators import REGISTRY as GENERATORS
 from repro_torch.core.ipi import MODES
 from repro_torch.core.mdp import MDP as CoreMDP, DenseMDP, EllMDP
@@ -69,6 +71,16 @@ class MDP:
         if validate:
             core.validate()
         return cls(core, mode=mode)
+
+    @classmethod
+    def from_file(cls, path: str, *, mode: str | None = None,
+                  rows: tuple[int, int] | None = None) -> "MDP":
+        """Load the block-manifest format of :mod:`repro_torch.core.io`.
+        The manifest's stored ``mode`` (if any) is used unless
+        overridden."""
+        if mode is None:
+            mode = core_io.load_manifest(path).get("mode") or "mincost"
+        return cls(core_io.load_mdp(path, rows=rows), mode=mode)
 
     @classmethod
     def from_generator(cls, name: str, *, mode: str = "mincost",

@@ -9,9 +9,12 @@ and the mapping onto :class:`repro_torch.core.ipi.IPIOptions`.
 Ported keys: the solver keys of ``IPIOptions`` (``-method``, ``-mode``,
 ``-ksp_type``, ``-atol``, ``-stop_criterion``, ``-rtol``, ``-max_outer``,
 ``-max_inner``, ``-inner_forcing``, ``-restart``, ``-omega``,
-``-mpi_sweeps``, ``-safeguard``, ``-divtol``, ``-dtype``), the driver's
-``-chunk`` and ``-verbose``, the outputs ``-file_policy`` / ``-file_cost``,
-and the port's own ``-device``.
+``-mpi_sweeps``, ``-anderson_window``, ``-monitor``, ``-monitor_mode``,
+``-safeguard``, ``-deterministic_dots``, ``-pc_type``, ``-pc_block``,
+``-divtol``, ``-dtype``), the solve loop's ``-chunk``, ``-checkpoint_dir`` and
+``-verbose``, the outputs ``-file_stats`` / ``-file_stats_format`` /
+``-file_policy`` / ``-file_cost``, and the port's own ``-device``.
+:func:`option_table` renders the registry as the README's table.
 """
 
 from __future__ import annotations
@@ -23,15 +26,17 @@ from typing import Any, Callable, Mapping
 
 from repro_torch.core import methods as _methods
 from repro_torch.core.ipi import IPIOptions, MODES
+from repro_torch.core.solvers import PC_TYPES
 from repro_torch.device import DEVICES
 
 __all__ = ["OptionSpec", "OPTION_SPECS", "Options", "UnknownOptionError",
-           "OptionTypeError"]
+           "OptionTypeError", "option_table"]
 
 ENV_VAR = "MADUPITE_OPTIONS"
 
 # precedence levels (higher wins); `set()` without a source is "user"
 _SOURCES = {"default": 0, "env": 1, "cli": 2, "user": 3}
+
 
 
 class UnknownOptionError(KeyError):
@@ -53,7 +58,8 @@ class OptionSpec:
     default: Any
     doc: str
     choices: tuple | None = None
-    choices_fn: Callable[[], tuple] | None = None
+    choices_fn: Callable[[], tuple] | None = None   # live registry view
+    choices_doc: str | None = None                  # table rendering
     nullable: bool = False       # None is a legal value ("unset")
     validate: Callable[[Any], str | None] | None = None  # -> error or None
 
@@ -133,23 +139,42 @@ def _open_unit(v) -> str | None:
     return None if 0.0 < v < 1.0 else f"must lie in (0, 1), got {v}"
 
 
+def _live_choices_doc(names: tuple, register_fn: str) -> str:
+    shown = " \\| ".join(f"`{n}`" for n in names)
+    return f"{shown} \\| user-registered (`{register_fn}`)"
+
+
 _SPECS = [
     # ---- solver (maps onto IPIOptions) -------------------------------------
-    OptionSpec("-method", str, "ipi_gmres", "outer/inner method",
-               choices_fn=_methods.method_names),
+    OptionSpec("-method", str, "ipi_gmres",
+               "outer/inner method (validates against the live registry: "
+               "repro_torch.api.register_method)",
+               choices_fn=lambda: _methods.method_names(),
+               choices_doc=_live_choices_doc(
+                   _methods.method_names(builtin_only=True),
+                   "register_method")),
     OptionSpec("-mode", str, "mincost",
                "argmin (mincost) vs argmax (maxreward) Bellman backup",
                choices=MODES),
     OptionSpec("-ksp_type", str, None,
                "inner linear solver (PETSc-style sugar: picks -method "
-               "ipi_<ksp> unless -method is set explicitly)",
+               "ipi_<ksp> unless -method is set explicitly; live registry: "
+               "repro_torch.api.register_ksp)",
                choices_fn=lambda: ("none",) + _methods.ksp_names(),
+               choices_doc=_live_choices_doc(
+                   ("none",) + _methods.ksp_names(builtin_only=True),
+                   "register_ksp"),
                nullable=True),
     OptionSpec("-atol", float, 1e-8, "stop when ||T v - v||_inf <= atol",
                validate=_positive),
     OptionSpec("-stop_criterion", str, "atol",
-               "outer stopping predicate: atol | rtol | span",
-               choices_fn=_methods.stop_names),
+               "outer stopping predicate; span certifies long-mixing VI "
+               "far earlier than sup-norm residuals (live registry: "
+               "repro_torch.api.register_stop_criterion)",
+               choices_fn=lambda: _methods.stop_names(),
+               choices_doc=_live_choices_doc(
+                   _methods.stop_names(builtin_only=True),
+                   "register_stop_criterion")),
     OptionSpec("-rtol", float, 1e-4,
                "threshold for -stop_criterion rtol (relative to the "
                "initial residual)", validate=_open_unit),
@@ -162,11 +187,34 @@ _SPECS = [
                validate=_open_unit),
     OptionSpec("-restart", int, 32, "GMRES restart length",
                validate=_positive),
-    OptionSpec("-omega", float, 1.0, "Richardson damping factor"),
+    OptionSpec("-omega", float, 1.0,
+               "Richardson damping factor (also the Anderson mixing "
+               "parameter for ksp anderson)"),
     OptionSpec("-mpi_sweeps", int, 50, "Richardson sweeps for method=mpi",
                validate=_positive),
+    OptionSpec("-anderson_window", int, 5,
+               "Anderson-acceleration window for the anderson inner solver",
+               validate=_positive),
+    OptionSpec("-monitor", bool, False,
+               "emit per-outer-iteration records (residual, inner iters, "
+               "elapsed)"),
+    OptionSpec("-monitor_mode", str, "stream",
+               "monitor delivery: stream (a record from the host loop "
+               "after each outer step) or chunk (records rebuilt from the "
+               "residual trace once per run chunk)",
+               choices=("stream", "chunk")),
     OptionSpec("-safeguard", bool, True,
                "monotone (VI-fallback) safeguard for Krylov steps"),
+    OptionSpec("-deterministic_dots", bool, False,
+               "pin the Krylov projection and combination orders (loops "
+               "over basis lanes, explicit back-substitution)"),
+    OptionSpec("-pc_type", str, "none",
+               "right preconditioner for Krylov inner solvers: jacobi "
+               "(diagonal of I - gamma P_pi) or bjacobi (dense blocks, "
+               "PETSc-style)", choices=PC_TYPES),
+    OptionSpec("-pc_block", int, 32,
+               "bjacobi block size (states per dense block)",
+               validate=_positive),
     OptionSpec("-divtol", float, 1e4,
                "declare divergence (sticky flag, loop bail-out) when the "
                "residual exceeds divtol x the initial residual",
@@ -181,8 +229,18 @@ _SPECS = [
     OptionSpec("-chunk", int, 64,
                "outer iterations per chunk between progress reports",
                validate=_positive),
+    OptionSpec("-checkpoint_dir", str, None,
+               "persist solver state between chunks (and resume from it)",
+               nullable=True),
     OptionSpec("-verbose", bool, False, "per-chunk progress lines"),
     # ---- output -------------------------------------------------------------
+    OptionSpec("-file_stats", str, None,
+               "write run statistics here after each solve",
+               nullable=True),
+    OptionSpec("-file_stats_format", str, "jsonl",
+               "run-statistics format: jsonl (one line per solve, "
+               "appended) or json (single array, rewritten per solve)",
+               choices=("jsonl", "json")),
     OptionSpec("-file_policy", str, None,
                "write the optimal policy (.npy) here", nullable=True),
     OptionSpec("-file_cost", str, None,
@@ -198,7 +256,10 @@ _IPI_FIELDS = {
     "-max_outer": "max_outer", "-max_inner": "max_inner",
     "-inner_forcing": "forcing_eta", "-restart": "restart",
     "-omega": "omega", "-mpi_sweeps": "mpi_sweeps",
-    "-safeguard": "safeguard", "-divtol": "divtol", "-dtype": "dtype",
+    "-anderson_window": "anderson_window", "-monitor": "monitor",
+    "-safeguard": "safeguard", "-deterministic_dots": "deterministic_dots",
+    "-dtype": "dtype", "-monitor_mode": "monitor_mode",
+    "-pc_type": "pc_type", "-pc_block": "pc_block", "-divtol": "divtol",
 }
 
 
@@ -338,3 +399,22 @@ def _parse_pairs(tokens, where: str):
                 f"{where}: option {tok!r} is missing a value") from None
     return out
 
+
+def option_table() -> str:
+    """The full registry rendered as a markdown table (README / docs).
+
+    Registry-backed options render their stable builtin choice set
+    (``choices_doc``), so the table does not drift when a user registers
+    extra solvers at runtime."""
+    lines = ["| option | type | default | description |",
+             "|--------|------|---------|-------------|"]
+    for spec in OPTION_SPECS.values():
+        typ = spec.type.__name__
+        if spec.choices_doc:
+            typ = spec.choices_doc
+        elif spec.choices:
+            typ = " \\| ".join(f"`{c}`" for c in spec.choices)
+        default = "—" if spec.default is None else f"`{spec.default}`"
+        doc = spec.doc.replace("|", "\\|")
+        lines.append(f"| `{spec.name}` | {typ} | {default} | {doc} |")
+    return "\n".join(lines)

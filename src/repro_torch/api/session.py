@@ -2,22 +2,23 @@
 
 Counterpart of :mod:`repro.api.session`.  A :class:`Session` owns one
 options database, places each solve on its ``-device`` (``cuda`` unless
-the caller asks for ``cpu``), runs :func:`repro_torch.core.driver.solve`,
-records per-solve statistics (:attr:`Session.stats`) and writes the
-``-file_policy`` / ``-file_cost`` outputs.
+the caller asks for ``cpu``), runs :func:`repro_torch.core.driver.solve`
+(with ``-checkpoint_dir``, monitors and ad-hoc stop predicates), records
+per-solve statistics (:attr:`Session.stats`) and writes the
+``-file_stats`` / ``-file_policy`` / ``-file_cost`` outputs.
 
     from repro_torch.api import MDP, madupite_session
 
     with madupite_session({"-method": "ipi_gmres", "-atol": 1e-8}) as s:
         result = s.solve(MDP.from_generator("garnet", n=10_000, m=16, k=8))
 
-Meshes, fleets, monitors, ``-method auto`` and ``-file_stats`` are not
-ported yet.
+Meshes, fleets and ``-method auto`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 import weakref
@@ -28,6 +29,7 @@ import numpy as np
 from repro_torch.api.mdp import MDP
 from repro_torch.api.options import Options
 from repro_torch.core import driver
+from repro_torch.core import methods as _methods
 from repro_torch.core.driver import SolveResult
 from repro_torch.core.mdp import MDP as CoreMDP, DenseMDP, EllMDP
 from repro_torch.device import resolve_device
@@ -51,6 +53,9 @@ class Session:
             self.options = Options.from_sources(options)
         resolve_device(self.options.get("-device"))
         self._stats: list[dict] = []
+        # per -file_stats path: (format, entries already on disk) — jsonl
+        # appends only the entries written since the last solve
+        self._stats_written: dict[str, tuple[str, int]] = {}
         # builders this session placed: their device copies are dropped
         # on close
         self._solved: weakref.WeakSet = weakref.WeakSet()
@@ -77,16 +82,26 @@ class Session:
         return list(self._stats)
 
     # ---- solving -----------------------------------------------------------
-    def solve(self, mdp: MDP | CoreMDP, **overrides) -> SolveResult:
+    def solve(self, mdp: MDP | CoreMDP, *, monitor=None, stop_criterion=None,
+              **overrides) -> SolveResult:
         """Solve one MDP through the session's options and device.
 
         ``overrides`` are per-call option overrides (keys with or without
         the leading dash): ``s.solve(mdp, method="vi", atol=1e-6)``.
+
+        ``monitor`` receives one record per outer iteration — a callable
+        taking ``{"k", "res", "inner", "diverged", "elapsed"}`` dicts (or
+        ``-monitor`` / ``monitor=True`` for PETSc-style printed lines;
+        ``monitor=False`` turns a session-level ``-monitor`` off for this
+        call).  While monitoring is on, the records and the dense
+        convergence-history arrays also land in :attr:`stats` /
+        ``-file_stats``.
+
+        ``stop_criterion`` overrides ``-stop_criterion``: a registered
+        name or a predicate ``fn(m: repro_torch.api.StopMetrics) -> bool``.
         """
-        if self._closed:
-            raise RuntimeError("this Session is closed; create a new one")
-        opts = self.options.with_overrides(overrides) if overrides \
-            else self.options
+        opts, mon_cb, mon_records = self._observe(overrides, monitor,
+                                                  stop_criterion)
         mdp = self._wrap(mdp, opts)
         ipi = opts.to_ipi()
         if not opts.is_set("-mode") and ipi.mode != mdp.mode:
@@ -95,14 +110,49 @@ class Session:
         core = mdp.build(device)
         self._solved.add(mdp)
         t0 = time.time()
-        r = driver.solve(core, ipi, chunk=opts.get("-chunk"),
-                         verbose=opts.get("-verbose"), device=device)
+        r = driver.solve(core, ipi,
+                         checkpoint_dir=opts.get("-checkpoint_dir"),
+                         chunk=opts.get("-chunk"),
+                         verbose=opts.get("-verbose"), monitor=mon_cb,
+                         device=device)
         wall = time.time() - t0
-        self._record(r, mdp, ipi, opts, device, wall)
+        self._record(r, mdp, ipi, opts, device, wall, monitor=mon_records)
         self._write_outputs(r, opts)
         return r
 
     # ---- internals ---------------------------------------------------------
+    def _observe(self, overrides, monitor, stop_criterion):
+        """Resolve the per-call observability arguments into the merged
+        per-call options plus the monitor callback chain.
+
+        Returns ``(opts, monitor_cb, records)``: ``records`` is the list
+        the callback appends every record to (for :attr:`stats` /
+        ``-file_stats``), or ``None`` when monitoring is off.  A callable
+        ``stop_criterion`` is registered ad hoc (with span metrics on)."""
+        if self._closed:
+            raise RuntimeError("this Session is closed; create a new one")
+        overrides = dict(overrides)
+        if stop_criterion is not None:
+            if callable(stop_criterion):
+                stop_criterion = _methods.adhoc_stop_criterion(stop_criterion)
+            overrides.setdefault("-stop_criterion", stop_criterion)
+        if monitor is False:
+            overrides.setdefault("-monitor", False)
+        elif monitor is not None:
+            overrides.setdefault("-monitor", True)
+        opts = self.options.with_overrides(overrides) if overrides \
+            else self.options
+        if not opts.get("-monitor"):
+            return opts, None, None
+        records: list[dict] = []
+        sink = monitor if callable(monitor) else _methods.print_monitor
+
+        def mon_cb(rec):
+            records.append(rec)
+            sink(rec)
+
+        return opts, mon_cb, records
+
     def _wrap(self, mdp: MDP | CoreMDP, opts: Options) -> MDP:
         if isinstance(mdp, MDP):
             return mdp
@@ -112,15 +162,18 @@ class Session:
                         f"EllMDP/DenseMDP), got {type(mdp).__name__}")
 
     def _record(self, r: SolveResult, mdp: MDP, ipi, opts: Options,
-                device: str, wall: float) -> None:
-        self._stats.append({
+                device: str, wall: float, *, monitor=None) -> None:
+        entry = {
             "method": ipi.method,
             "mode": ipi.mode,
             "stop_criterion": ipi.stop_criterion,
+            # the reference's single-device keys: no mesh, no fleet
+            "layout": "single",
+            "mesh": None,
             "device": device,
-            "options": {k: v for k, v in
-                        opts.as_dict(explicit_only=True).items()},
+            "options": opts.as_dict(explicit_only=True),
             "wall_s": round(wall, 6),
+            "fleet": None,
             "solves": [{
                 "n": int(mdp.n), "m": int(mdp.m), "gamma": float(mdp.gamma),
                 "converged": bool(r.converged),
@@ -130,16 +183,46 @@ class Session:
                 "residual": float(r.residual),
                 "gap_bound": float(r.gap_bound),
             }],
-        })
+        }
+        if monitor is not None:
+            # monitoring on: the records plus the dense convergence-history
+            # arrays land in the run stats
+            entry["monitor"] = sorted(monitor, key=lambda rec: rec["k"])
+            s = entry["solves"][0]
+            s["trace_residual"] = [float(x) for x in r.trace_residual]
+            s["trace_inner"] = [int(x) for x in r.trace_inner]
+        self._stats.append(entry)
 
     def _write_outputs(self, r: SolveResult, opts: Options) -> None:
+        self._write_stats(opts)
         for key, field in (("-file_policy", "policy"), ("-file_cost", "v")):
             path = opts.get(key)
             if not path:
                 continue
-            parent = os.path.dirname(os.path.abspath(path))
-            os.makedirs(parent, exist_ok=True)
+            _ensure_dir(path)
             np.save(path, np.asarray(getattr(r, field)))
+
+    def _write_stats(self, opts: Options) -> None:
+        """Persist run statistics.  ``jsonl`` (default) appends only the
+        entries written since the last solve; ``json`` rewrites one array.
+        Switching the format on one path rewrites it whole (JSONL lines
+        after a JSON array would corrupt both)."""
+        path = opts.get("-file_stats")
+        if not path:
+            return
+        _ensure_dir(path)
+        if opts.get("-file_stats_format") == "json":
+            with open(path, "w") as f:
+                json.dump(self._stats, f, indent=1)
+            self._stats_written[path] = ("json", len(self._stats))
+            return
+        prev_fmt, start = self._stats_written.get(path, ("jsonl", 0))
+        if prev_fmt != "jsonl":
+            start = 0
+        with open(path, "a" if start else "w") as f:
+            for entry in self._stats[start:]:
+                f.write(json.dumps(entry) + "\n")
+        self._stats_written[path] = ("jsonl", len(self._stats))
 
 
 def madupite_session(options: Options | Mapping[str, Any] | None = None) \
@@ -150,3 +233,9 @@ def madupite_session(options: Options | Mapping[str, Any] | None = None) \
             r = s.solve(mdp)
     """
     return Session(options)
+
+
+def _ensure_dir(path: str) -> None:
+    parent = os.path.dirname(os.path.abspath(path))
+    if parent:
+        os.makedirs(parent, exist_ok=True)

@@ -41,3 +41,6 @@ class Axes:
 
     def norm2(self, x: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(torch.clamp_min(self.dot(x, x), 0.0))
+
+    def norm_inf(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pmax_state(torch.max(torch.abs(x)))

@@ -8,8 +8,9 @@ degenerate case.  A monotone safeguard falls back to the VI step whenever
 a Krylov step fails to reduce the sup-norm Bellman residual.
 
 The reference's ``lax.while_loop`` becomes a host loop in
-:func:`solve_chunk` that reads ``done | isnan(res) | diverged`` once per
-outer step; the safeguard's accept/reject decision is one more read.
+:func:`solve_chunk` that reads ``done | isnan(res) | diverged`` with the
+residual once per outer step; the safeguard's accept/reject decision is
+one more read.  A stream monitor gets its record from that same read.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.core import bellman, methods
 from repro_torch.core.comm import Axes
+from repro_torch.core.solvers import PC_TYPES, build_precond
 from repro_torch.core.mdp import MDP
 
 MODES = ("mincost", "maxreward")
@@ -32,9 +34,10 @@ _TOL_FLOOR = float(np.float32(1e-30))
 
 @dataclasses.dataclass(frozen=True)
 class IPIOptions:
-    """Solver options (the subset of the reference's this slice honours)."""
+    """Solver options (the reference's, less its kernel, layout and
+    adaptive fields)."""
 
-    method: str = "ipi_gmres"   # vi | mpi | ipi_richardson | ipi_gmres | pi
+    method: str = "ipi_gmres"   # any name in the live method registry
     mode: str = "mincost"       # "mincost" (argmin backup) | "maxreward"
     atol: float = 1e-8          # stop when ||T v - v||_inf <= atol
     stop_criterion: str = "atol"  # atol | rtol | span
@@ -45,8 +48,18 @@ class IPIOptions:
     restart: int = 32           # GMRES restart length
     omega: float = 1.0          # Richardson damping
     mpi_sweeps: int = 50        # L for modified policy iteration
+    anderson_window: int = 5    # AA depth for the anderson inner solver
     safeguard: bool = True      # monotone (VI-fallback) safeguard
+    monitor: bool = False       # emit one record per outer iteration
+    deterministic_dots: bool = False  # pin the Krylov accumulation orders
     dtype: str = "float32"      # value-vector dtype; "float64" == PETSc
+    monitor_mode: str = "stream"  # "stream": a record from the host loop
+                                # after each outer step; "chunk": the same
+                                # records rebuilt from the traces after
+                                # each chunk
+    pc_type: str = "none"       # Krylov inner-solve preconditioner:
+                                # none | jacobi | bjacobi
+    pc_block: int = 32          # bjacobi tile size
     divtol: float = 1e4         # declare divergence when the residual
                                 # exceeds divtol * (initial residual)
 
@@ -76,6 +89,39 @@ class IPIOptions:
         if not 0.0 < self.forcing_eta < 1.0:
             raise ValueError(f"forcing_eta must lie in (0, 1) for iPI "
                              f"convergence, got {self.forcing_eta}")
+        spec = methods.get_method(self.method)
+        if self.deterministic_dots and spec.ksp is not None \
+                and not methods.get_ksp(spec.ksp).deterministic:
+            raise ValueError(
+                f"deterministic_dots pins batch-invariant accumulation "
+                f"orders, which ksp {spec.ksp!r} (method {self.method!r}) "
+                f"does not implement — its dots would still re-associate "
+                f"by lane count; use a deterministic ksp (e.g. "
+                f"gmres/richardson/chebyshev) or drop the flag")
+        if self.pc_type not in PC_TYPES:
+            raise ValueError(f"pc_type must be 'none', 'jacobi' or "
+                             f"'bjacobi', got {self.pc_type!r}")
+        if self.pc_type != "none":
+            if spec.ksp is None:
+                raise ValueError(
+                    f"pc_type {self.pc_type!r} preconditions the Krylov "
+                    f"inner solve, but method {self.method!r} has no inner "
+                    f"KSP; pick an ipi_* method (or -method auto) or drop "
+                    f"-pc_type")
+            if not methods.get_ksp(spec.ksp).preconditioned:
+                raise ValueError(
+                    f"ksp {spec.ksp!r} (method {self.method!r}) does not "
+                    f"accept a preconditioner; register it with "
+                    f"preconditioned=True (and a `precond` keyword) or use "
+                    f"gmres/bicgstab")
+            if self.pc_type == "bjacobi" and self.deterministic_dots:
+                raise ValueError(
+                    "pc_type 'bjacobi' applies batched tile inverses whose "
+                    "accumulation order is not lane-count-pinned; under "
+                    "deterministic_dots use pc_type 'jacobi' (elementwise) "
+                    "or drop the flag")
+        if self.pc_block < 1:
+            raise ValueError(f"pc_block must be >= 1, got {self.pc_block}")
         if not self.divtol > 1.0:
             raise ValueError(f"divtol must be > 1 (residual growth factor "
                              f"declaring divergence), got {self.divtol}")
@@ -83,6 +129,12 @@ class IPIOptions:
             raise ValueError(f"restart must be >= 1, got {self.restart}")
         if self.mpi_sweeps < 1:
             raise ValueError(f"mpi_sweeps must be >= 1, got {self.mpi_sweeps}")
+        if self.anderson_window < 1:
+            raise ValueError(f"anderson_window must be >= 1, "
+                             f"got {self.anderson_window}")
+        if self.monitor_mode not in ("stream", "chunk"):
+            raise ValueError(f"monitor_mode must be 'stream' or 'chunk', "
+                             f"got {self.monitor_mode!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,8 +200,15 @@ def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions,
     tol = torch.maximum(opts.forcing_eta * state.res,
                         torch.tensor(_TOL_FLOOR, dtype=state.res.dtype,
                                      device=state.res.device))
-    v1, inner_iters, _ = methods.inner_solve(opts, matvec, b, state.tv,
-                                             tol, axes)
+    precond = None
+    if opts.pc_type != "none" and spec.ksp is not None:
+        # rebuilt every outer step from the policy rows the matvec holds
+        precond = build_precond(rows, axes=axes, n_local=mdp.n_local,
+                                gamma=mdp.gamma, pc_type=opts.pc_type,
+                                block=opts.pc_block, dtype=state.tv.dtype)
+    v1, inner_iters, _ = methods.inner_solve(
+        opts, matvec, b, state.tv, tol, axes,
+        context=dict(gamma=mdp.gamma), precond=precond)
 
     def eval_at(v):
         tv, pi, _ = bellman.gather_backup(mdp, v, axes, mode=opts.mode)
@@ -187,13 +246,27 @@ def outer_step(mdp: MDP, state: SolveState, opts: IPIOptions,
         res0=state.res0, span=span1, done=done, diverged=div1)
 
 
+def stop_flags(state: SolveState) -> tuple[bool, float, bool]:
+    """``(stop, res, diverged)`` of ``state`` in one device read."""
+    stop = state.done | torch.isnan(state.res) | state.diverged
+    flags = torch.stack([stop.to(torch.float64),
+                         state.res.to(torch.float64),
+                         state.diverged.to(torch.float64)]).tolist()
+    return bool(flags[0]), flags[1], bool(flags[2])
+
+
 def solve_chunk(mdp: MDP, state: SolveState, k_hi: int,
-                opts: IPIOptions, axes: Axes) -> SolveState:
+                opts: IPIOptions, axes: Axes,
+                on_step=None) -> SolveState:
     """Run outer iterations until convergence, a NaN residual, divergence
-    or ``k == k_hi``: one device read of the stop flags per step."""
-    while state.k < k_hi:
-        stop = state.done | torch.isnan(state.res) | state.diverged
-        if bool(stop):
-            break
+    or ``k == k_hi``: one device read of the stop flags and the residual
+    per step.  ``on_step(k, res, inner, diverged)``, if given, receives
+    each step's record from that read (the stream monitor)."""
+    stop, _, _ = stop_flags(state)
+    while not stop and state.k < k_hi:
+        inner0 = state.inner_total
         state = outer_step(mdp, state, opts, axes)
+        stop, res, div = stop_flags(state)
+        if on_step is not None:
+            on_step(state.k, res, state.inner_total - inner0, div)
     return state

@@ -1,8 +1,13 @@
 """Inner linear solvers for the policy-evaluation system (single device),
-and the dense direct oracle."""
+their preconditioners, and the dense direct oracle."""
 
+from repro_torch.core.solvers.anderson import anderson
+from repro_torch.core.solvers.bicgstab import bicgstab
+from repro_torch.core.solvers.chebyshev import chebyshev
 from repro_torch.core.solvers.direct import dense_policy_value
 from repro_torch.core.solvers.gmres import gmres
+from repro_torch.core.solvers.precond import PC_TYPES, build_precond
 from repro_torch.core.solvers.richardson import richardson
 
-__all__ = ["dense_policy_value", "gmres", "richardson"]
+__all__ = ["PC_TYPES", "anderson", "bicgstab", "build_precond",
+           "chebyshev", "dense_policy_value", "gmres", "richardson"]

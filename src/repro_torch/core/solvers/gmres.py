@@ -1,7 +1,8 @@
 """Restarted GMRES with CGS2 orthogonalization and Givens rotations.
 
-Counterpart of :mod:`repro.core.solvers.gmres` (the non-deterministic,
-unpreconditioned path): the inner solver behind iGMRES-PI.
+Counterpart of :mod:`repro.core.solvers.gmres`: the inner solver behind
+iGMRES-PI, with the reference's optional right preconditioner and its
+deterministic mode.
 
 Each restart cycle runs all ``restart`` Arnoldi steps, as the reference's
 ``fori_loop`` does, and masks every update after convergence with
@@ -13,6 +14,13 @@ the host).  ``V @ w`` and ``h @ V`` are plain products, left to
 ``torch.matmul`` as the reference leaves them to XLA; their summation order
 differs between the two packages and between CPU and GPU, so Krylov values
 agree to a tolerance, not bit for bit.
+
+Deterministic mode (``deterministic=True``, ``-deterministic_dots``) pins
+every accumulation order instead, as the reference's does: each
+projection is a loop of one elementwise-multiply-and-sum per basis lane,
+each basis combination an ordered AXPY loop, and the Hessenberg solve an
+explicit back-substitution.  No BLAS product is left whose blocking could
+depend on the library or the shape.
 """
 
 from __future__ import annotations
@@ -24,13 +32,52 @@ from repro_torch.core.comm import Axes
 _TINY = 1e-30
 
 
-def _arnoldi_cycle(matvec, b, x, *, restart: int, tol, axes: Axes):
+def _det_dot(axes: Axes, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """<x, y> as an elementwise multiply and one reduction (never a BLAS
+    dot), then the sum over state shards."""
+    return axes.psum_state(torch.sum(x * y))
+
+
+def _det_norm2(axes: Axes, x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp_min(_det_dot(axes, x, x), 0.0))
+
+
+def _det_projections(axes: Axes, V: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    """The CGS2 projection ``V @ w`` one basis lane at a time."""
+    return axes.psum_state(torch.stack([torch.sum(vj * w) for vj in V]))
+
+
+def _det_combine(h: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """``h @ V`` as an ordered AXPY loop (lane order, from zero)."""
+    acc = torch.zeros_like(V[0])
+    for j in range(V.shape[0]):
+        acc = acc + h[j] * V[j]
+    return acc
+
+
+def _det_backsolve(R: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Upper-triangular solve by explicit back-substitution: ``y`` is
+    filled from the last row up, each row reducing against the whole
+    ``y`` (its unassigned entries are still zero)."""
+    n = R.shape[0]
+    y = torch.zeros_like(g)
+    for i in range(n):
+        j = n - 1 - i
+        y[j] = (g[j] - torch.sum(R[j] * y)) / R[j, j]
+    return y
+
+
+def _arnoldi_cycle(matvec, b, x, *, restart: int, tol, axes: Axes,
+                   deterministic: bool = False, precond=None):
     """One restart cycle.  Returns ``(x_new, resnorm, iters_done)`` with
     ``resnorm`` and ``iters_done`` as 0-d device tensors."""
     n_local = x.shape[0]
     dt, dev = x.dtype, x.device
+    M = precond if precond is not None else (lambda v: v)
+    norm2 = (lambda v: _det_norm2(axes, v)) if deterministic else axes.norm2
     r = b - matvec(x)
-    beta = axes.norm2(r)
+    beta = norm2(r)
     v0 = r / torch.where(beta > _TINY, beta, 1.0)
 
     V = torch.zeros((restart + 1, n_local), dtype=dt, device=dev)
@@ -46,15 +93,24 @@ def _arnoldi_cycle(matvec, b, x, *, restart: int, tol, axes: Axes):
     done = beta <= tol
 
     for j in range(restart):
-        w = matvec(V[j])
+        # right preconditioning: the Krylov space of A M, the solution
+        # mapped back through M at the cycle's end, so the Givens
+        # estimate stays the true residual ||b - A x||
+        w = matvec(M(V[j]))
         # CGS2: two masked classical Gram-Schmidt passes
         mask = (row_ids <= j).to(dt)
-        h1 = mask * axes.psum_state(V @ w)
-        w = w - h1 @ V
-        h2 = mask * axes.psum_state(V @ w)
-        w = w - h2 @ V
+        if deterministic:
+            h1 = mask * _det_projections(axes, V, w)
+            w = w - _det_combine(h1, V)
+            h2 = mask * _det_projections(axes, V, w)
+            w = w - _det_combine(h2, V)
+        else:
+            h1 = mask * axes.psum_state(V @ w)
+            w = w - h1 @ V
+            h2 = mask * axes.psum_state(V @ w)
+            w = w - h2 @ V
         h = h1 + h2
-        hnorm = axes.norm2(w)
+        hnorm = norm2(w)
         v_next = w / torch.where(hnorm > _TINY, hnorm, 1.0)
 
         # Apply the j previous Givens rotations to the new column; rotation
@@ -98,22 +154,40 @@ def _arnoldi_cycle(matvec, b, x, *, restart: int, tol, axes: Axes):
     diag_fix = torch.diag(torch.where(active, 0.0, 1.0).to(dt))
     R_m = torch.where(active[None, :] & active[:, None], R, 0.0) + diag_fix
     g_m = torch.where(active, g[:restart], 0.0)
-    y = torch.linalg.solve_triangular(R_m, g_m[:, None], upper=True)[:, 0]
-    x_new = x + y @ V[:restart]
+    if deterministic:
+        y = _det_backsolve(R_m, g_m)
+        x_new = x + M(_det_combine(y, V[:restart]))
+    else:
+        y = torch.linalg.solve_triangular(R_m, g_m[:, None],
+                                          upper=True)[:, 0]
+        x_new = x + M(y @ V[:restart])
+    if precond is not None:
+        # with an ill-conditioned M the rounding of x + M(V y) can leave
+        # the true residual far above the Givens estimate: measure it (one
+        # matvec a cycle); the plain path keeps the estimate
+        res = norm2(b - matvec(x_new))
     return x_new, res, it
 
 
 def gmres(matvec, b: torch.Tensor, x0: torch.Tensor, *, tol, maxiter: int,
-          axes: Axes, restart: int = 32):
-    """Restarted GMRES.  Returns ``(x, iters, resnorm_2)``."""
+          axes: Axes, restart: int = 32, deterministic: bool = False,
+          precond=None):
+    """Restarted GMRES.  Returns ``(x, iters, resnorm_2)``.
+
+    ``deterministic=True`` pins every accumulation order (module
+    docstring).  ``precond`` is an optional right preconditioner apply
+    ``x -> M x`` (``M ~= A^-1``); ``None`` keeps the plain path bit for
+    bit.
+    """
     restart = int(restart)
     r0 = b - matvec(x0)
-    res = axes.norm2(r0)
+    res = _det_norm2(axes, r0) if deterministic else axes.norm2(r0)
     x, it = x0, 0
     go = bool(res > tol)
     while go and it < maxiter:
-        x, res, done_iters = _arnoldi_cycle(matvec, b, x, restart=restart,
-                                            tol=tol, axes=axes)
+        x, res, done_iters = _arnoldi_cycle(
+            matvec, b, x, restart=restart, tol=tol, axes=axes,
+            deterministic=deterministic, precond=precond)
         # one device read per cycle: the step count and the loop condition
         more, n_it = torch.stack([(res > tol).to(torch.int64),
                                   done_iters.to(torch.int64)]).tolist()

@@ -12,9 +12,16 @@ reaches the whole registry and ``MADUPITE_OPTIONS`` is ingested first:
     PYTHONPATH=src python -m repro_torch.launch.solve --instance maze2d \\
         --size 64 --device cpu --option mode=maxreward
 
-Fleets (``--batch``, ``--sweep-gamma``), ``--load``, the mesh flags
-(``--layout``, ``--fleet``), ``--ckpt-dir`` and ``--monitor`` are not yet
-ported and exit with an error that says so.  Exit code 0 iff converged.
+    PYTHONPATH=src python -m repro_torch.launch.solve --load DIR \\
+        --method ipi_bicgstab --option pc_type=jacobi --monitor \\
+        --ckpt-dir CKPT
+
+``--load`` reads the block-manifest format of :mod:`repro_torch.core.io`
+(either package's files); ``--ckpt-dir`` checkpoints between chunks and
+resumes from the newest step there; ``--monitor`` prints one line per
+outer iteration.  Fleets (``--batch``, ``--sweep-gamma``) and the mesh
+flags (``--layout``, ``--fleet``) are not yet ported and exit with an
+error that says so.  Exit code 0 iff converged.
 """
 
 from __future__ import annotations
@@ -41,6 +48,12 @@ def _gen_kwargs(args) -> dict:
     raise ValueError(args.instance)
 
 
+def build_instance(args) -> MDP:
+    if args.load:
+        return MDP.from_file(args.load)
+    return MDP.from_generator(args.instance, **_gen_kwargs(args))
+
+
 def build_options(args) -> Options:
     """Flags -> options database (env < flags/--option; flags the user did
     not pass fall back to the CLI's soft defaults, which still lose to
@@ -49,11 +62,14 @@ def build_options(args) -> Options:
     flag_map = {"method": "-method", "ksp_type": "-ksp_type",
                 "atol": "-atol", "stop_criterion": "-stop_criterion",
                 "max_outer": "-max_outer", "dtype": "-dtype",
-                "mode": "-mode", "device": "-device"}
+                "ckpt_dir": "-checkpoint_dir", "mode": "-mode",
+                "device": "-device"}
     for flag, key in flag_map.items():
         val = getattr(args, flag)
         if val is not None:
             opts.set(key, val, source="cli")
+    if args.monitor:
+        opts.set("-monitor", True, source="cli")
     opts.ingest_cli(args.option)
     # the CLI defaults to PETSc-style f64 and a deep outer cap, as the
     # reference's does; the environment may override
@@ -67,13 +83,10 @@ def build_options(args) -> Options:
 
 
 def _not_ported(args) -> str | None:
-    for flag, dest, unset in (("--load", "load", None),
-                              ("--batch", "batch", 1),
+    for flag, dest, unset in (("--batch", "batch", 1),
                               ("--sweep-gamma", "sweep_gamma", None),
                               ("--layout", "layout", None),
-                              ("--fleet", "fleet", None),
-                              ("--ckpt-dir", "ckpt_dir", None),
-                              ("--monitor", "monitor", False)):
+                              ("--fleet", "fleet", None)):
         if getattr(args, dest) != unset:
             return (f"{flag} is not yet ported to repro_torch (this slice "
                     f"solves one instance on one device); use the JAX "
@@ -87,7 +100,9 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--instance", default="garnet",
                     choices=["garnet", "maze2d", "sis", "chain_walk"])
-    ap.add_argument("--load", default=None, help="not yet ported")
+    ap.add_argument("--load", default=None,
+                    help="load an MDP saved by repro_torch.core.io (or "
+                         "repro.core.io)")
     ap.add_argument("--n", type=int, default=10000)
     ap.add_argument("--m", type=int, default=16)
     ap.add_argument("--k", type=int, default=8)
@@ -102,7 +117,8 @@ def main(argv=None):
     ap.add_argument("--atol", type=float, default=None, help="option -atol")
     ap.add_argument("--stop-criterion", default=None,
                     help="option -stop_criterion (atol|rtol|span)")
-    ap.add_argument("--monitor", action="store_true", help="not yet ported")
+    ap.add_argument("--monitor", action="store_true",
+                    help="option -monitor (per-outer-iteration records)")
     ap.add_argument("--max-outer", type=int, default=None,
                     help="option -max_outer")
     ap.add_argument("--layout", default=None, help="not yet ported")
@@ -111,7 +127,8 @@ def main(argv=None):
     ap.add_argument("--dtype", default=None, help="option -dtype")
     ap.add_argument("--device", default=None, choices=list(DEVICES),
                     help="option -device (default cuda)")
-    ap.add_argument("--ckpt-dir", default=None, help="not yet ported")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="option -checkpoint_dir")
     ap.add_argument("--single-device", action="store_true",
                     help="accepted for compatibility: the port always "
                          "solves on one device")
@@ -129,7 +146,7 @@ def main(argv=None):
         raise SystemExit(err)
     opts = build_options(args)
     with Session(opts) as session:
-        mdp = MDP.from_generator(args.instance, **_gen_kwargs(args))
+        mdp = build_instance(args)
         print(f"[solve] instance={args.instance} n={mdp.n} m={mdp.m} "
               f"gamma={mdp.gamma} mode={mdp.mode} "
               f"device={opts.get('-device')}")

@@ -104,7 +104,7 @@ def test_unknown_keys_and_devices_raise():
     with pytest.raises(topts.OptionTypeError, match="'-device' must be"):
         Options({"-device": "tpu"})
     with pytest.raises(topts.OptionTypeError, match="'-method'"):
-        Options({"-method": "ipi_bicgstab"})
+        Options({"-method": "async_vi"})
     assert Options().get("-device") == "cuda"
 
 
@@ -188,9 +188,11 @@ def test_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--batch", "2"], ["--layout", "1d"],
-                                   ["--load", "x.npz"], ["--monitor"],
+                                   ["--batch", "3", "--load", "x"],
+                                   ["--layout", "fleet", "--monitor"],
                                    ["--sweep-gamma", "0.9", "0.99"],
-                                   ["--fleet", "2"], ["--ckpt-dir", "d"]])
+                                   ["--fleet", "2"],
+                                   ["--fleet", "4", "--ckpt-dir", "d"]])
 def test_cli_unported_flags_raise(flags):
     with pytest.raises(SystemExit, match="not yet ported"):
         tcli.main(["--device", "cpu", *flags])
@@ -206,6 +208,12 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch, repro_torch.api, repro_torch.launch.solve\n"
         "import repro_torch.core.driver, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.build\n"
+        "import repro_torch.core.io, repro_torch.utils.checkpoint\n"
+        "import repro_torch.core.solvers.precond\n"
+        "import repro_torch.core.solvers.bicgstab\n"
+        "import repro_torch.core.solvers.chebyshev\n"
+        "import repro_torch.core.solvers.anderson\n"
+        "import repro_torch.api.methods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")

@@ -269,6 +269,87 @@ def test_gpu_solve_matches_cpu_solve(cuda, method):
             1e-10 * np.abs(rc.v).max(), rc.gap_bound)
 
 
+# the other KSPs, their preconditioners and deterministic GMRES
+NEW_PATHS = {"bicgstab": dict(method="ipi_bicgstab"),
+             "bicgstab_jacobi": dict(method="ipi_bicgstab",
+                                     pc_type="jacobi"),
+             "bicgstab_bjacobi": dict(method="ipi_bicgstab",
+                                      pc_type="bjacobi"),
+             "chebyshev": dict(method="ipi_chebyshev"),
+             "anderson": dict(method="ipi_anderson"),
+             "gmres_deterministic": dict(method="ipi_gmres",
+                                         deterministic_dots=True),
+             "gmres_jacobi": dict(method="ipi_gmres", pc_type="jacobi"),
+             "gmres_bjacobi": dict(method="ipi_gmres", pc_type="bjacobi")}
+
+
+@pytest.mark.parametrize("path", sorted(NEW_PATHS))
+def test_new_ksp_gpu_solve_matches_cpu_solve(cuda, path):
+    """Each new path launches both ELL kernels and gives the CPU's policy
+    and counts; values agree to the certificate's scale (the dots and the
+    tile inverses reduce in other orders on the card)."""
+    mdp = generators.garnet(n=2000, m=6, k=4, gamma=0.95, seed=5)
+    opts = IPIOptions(mode="maxreward", dtype="float64", atol=1e-8,
+                      **NEW_PATHS[path])
+    before = ops.launch_counts()
+    rg = driver.solve(mdp, opts, device=cuda)
+    after = ops.launch_counts()
+    rc = driver.solve(mdp, opts, device="cpu")
+    assert rg.converged and rc.converged
+    assert after["ell_backup"] > before["ell_backup"]
+    assert after["ell_matvec"] > before["ell_matvec"]
+    np.testing.assert_array_equal(rg.policy, rc.policy)
+    assert (rg.outer_iterations, rg.inner_iterations) == \
+        (rc.outer_iterations, rc.inner_iterations)
+    assert np.abs(rg.v - rc.v).max() <= max(1e-10 * np.abs(rc.v).max(),
+                                            rc.gap_bound)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("block", [32, 7])
+def test_bjacobi_build_on_the_card_is_reproducible(cuda, block, dtype):
+    """Two block-Jacobi builds on the card are bit for bit equal (the
+    strip accumulates one K slot at a time: no colliding atomics), and
+    equal to the CPU build within ``4 kappa`` float32 ulps of ``|M x|``
+    (``kappa`` the largest tile condition number: the two inversions
+    round differently, and an inverse moves by about kappa ulps)."""
+    from repro_torch.core import bellman
+    from repro_torch.core.comm import Axes
+    from repro_torch.core.solvers import build_precond
+
+    mdp = generators.chain_walk(n=1000, gamma=0.99)
+    pi = torch.from_numpy(np.random.default_rng(3).integers(
+        0, mdp.m_local, mdp.n_local).astype(np.int32))
+    x = torch.from_numpy(np.random.default_rng(4).random(mdp.n_local)) \
+        .to(dtype)
+
+    def apply(device):
+        m = mdp.to(device)
+        rows = bellman.policy_rows(m, pi.to(device), Axes(), dtype=dtype)
+        M = build_precond(rows, axes=Axes(), n_local=m.n_local,
+                          gamma=m.gamma, pc_type="bjacobi", block=block,
+                          dtype=dtype)
+        return M(x.to(device))
+
+    g1, g2, c = apply(cuda), apply(cuda), apply("cpu")
+    assert _bitequal(g1, g2)
+    # the largest tile condition number, from the policy's dense rows
+    b, n = block, mdp.n_local
+    nb = -(-n // b)
+    strip = torch.zeros((nb * b, b), dtype=torch.float64)
+    dense = mdp.as_dense().p[torch.arange(n), pi.long()].double()
+    for i in range(n):
+        lo = (i // b) * b
+        hi = min(lo + b, n)
+        strip[i, :hi - lo] = dense[i, lo:hi]
+    tiles = torch.eye(b, dtype=torch.float64) - 0.99 * strip.view(nb, b, b)
+    kappa = float(torch.linalg.cond(tiles).max())
+    scale = float(torch.abs(c).max())
+    eps32 = float(np.finfo(np.float32).eps)
+    assert float(torch.max(torch.abs(g1.cpu() - c))) <= \
+        4 * kappa * eps32 * scale
+
+
 @pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("shape", ELL_SHAPES, ids=[str(s) for s in ELL_SHAPES])
 def test_ell_qvalues_bitmatches_plain_version(cuda, shape, v_dtype):
