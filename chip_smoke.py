@@ -71,7 +71,30 @@ result) without them.  Phases, each of which raises on failure:
    (its only path: no solver calls it), each result bitwise equal to the
    plain version; timed beside ``torch.sparse_csr_tensor @ v`` plus the
    same epilogue;
-7. the LM serving path, minitron-8b (32 layers, d_model 4096, 32 query /
+7. (3h) fleets, each path with its launch counts against the unbatched
+   solves of the same instances: (a) the CLI ``--batch 4`` seed ensemble
+   (garnet ``n=10^6, m=16, k=8``, seeds 0-3: a batched ``idx``,
+   ipi_gmres float64 to ``1e-8``) must exit 0, each lane must pass phase
+   3's independent CPU backup and give its unbatched solve's policy and
+   counts with values within 1e-10 |v|_inf, and ``ell_backup`` and
+   ``ell_matvec`` must each launch fewer times than the four unbatched
+   solves together; (e) the same fleet on the card's tables, once plain
+   and once profiled as in phase 3b, beside the unbatched solves' walls;
+   (b) ``Session.solve_fleet`` of a gamma sweep over [0.9, 0.99] (B=4,
+   seed 0: one shared ``idx``), mpi float32 to ``1e-4``: every lane bit
+   for bit its unbatched solve; (d) ``ell_backup``, ``ell_matvec`` and
+   ``ell_qvalues`` at B=4 on the sweep's (shared ``idx``) and the
+   ensemble's (batched ``idx``) tables in float32 and float64, bitwise
+   against their batched plain versions, timed in both grid orders of
+   the lane axis beside four unbatched launches, with the batched byte
+   bound; (c) after the dense phases, ``driver.solve_many`` of two
+   ``as_dense()`` garnets ``n=8,192, m=16`` (2 x 4.3 GB of P), ipi_gmres
+   float64 to ``1e-8``: ``dense_backup`` launched fewer times than in the
+   two unbatched solves, each lane certified by the plain dense backup
+   with its unbatched solve's policy and counts; then ``dense_backup`` at
+   B=2 against its plain version, timed as in (d) in its one grid order
+   (lane-slowest);
+8. the LM serving path, minitron-8b (32 layers, d_model 4096, 32 query /
    8 KV heads, d_head 128, vocab 256,000, bf16, random weights from a
    seed):
    (2f) ``flash_attention`` against its plain version at ``B=4, T=S=2048``
@@ -93,12 +116,14 @@ result) without them.  Phases, each of which raises on failure:
    (4f) GPU vs CPU parity: minitron-8b at full width but 2 layers, float32,
    the same weights on both, prompt 256, batch 2, 8 greedy tokens: logits
    within 1e-4 of their largest magnitude at every step, tokens equal;
-8. one JSON ``kernels`` line, then the ``ok`` line last.  An ELL kernel's
+9. one JSON ``kernels`` line, then the ``ok`` line last.  An ELL kernel's
    ``launches`` is its count in the CLI's ipi_gmres solve (a), the
    default method; ``dense_backup``'s is its count in the dense ipi_gmres
    solve (3d); ``ell_qvalues``'s its phase-2q count; ``flash_attention``'s
    its count in the serve_lm CLI run (3f).  ``launches_by_path`` gives
-   each path's counts (the ELL kernels' include phase 3g's paths).
+   each path's counts (the ELL kernels' include phase 3g's and 3h's
+   paths).  Rows 1-4 carry ``batched``: phase 3h (d)'s rows, keyed by
+   ``idx`` kind and dtype.
 """
 
 from __future__ import annotations
@@ -132,6 +157,9 @@ REPS, WARMUP = 25, 3
 SPIN_CYCLES = 1_000_000             # queued ahead of each timed call
 PLAIN_DENSE_REPS = 5                # the dense plain version is slow
 ELL_KERNELS = ("ell_backup", "ell_matvec")
+FLEET_B = 4                         # phase 3h's ELL fleets
+FLEET_SWEEP = (0.9, 0.99)           # (b)'s gamma sweep, the CLI's LO HI
+DFN, DENSE_FLEET_B = 8_192, 2       # (c)'s dense garnets: 2 x 4.3 GB of P
 LM_ARCH = "minitron-8b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 16
 # (name, H, KV, d) at B=4, T=S=2048: minitron-8b, stablelm-3b, granite-34b
@@ -888,6 +916,333 @@ def dense_parity() -> list:
     return rows
 
 
+def fleet_gammas(lo: float, hi: float, b: int) -> list[float]:
+    """The CLI's ``--sweep-gamma LO HI`` gammas for a fleet of ``b``."""
+    return [float(g) for g in 1.0 - np.geomspace(1 - lo, 1 - hi, b)]
+
+
+def timed_solve(fn) -> tuple:
+    """``fn()`` and its wall in seconds, between device syncs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fleet_paths(mdp) -> dict:
+    """Phase 3h (a), (b) and (e), and (d) for the ELL kernels: fleets on
+    the phase-2 garnet's shape through the CLI, a Session and the
+    driver, each with its launch counts against the unbatched solves of
+    the same instances."""
+    from repro_torch.api import madupite_session
+    from repro_torch.core import driver, generators, mdp as core_mdp
+    from repro_torch.core.ipi import IPIOptions
+    from repro_torch.kernels import ops
+    from repro_torch.launch import solve as cli
+
+    out = {"launches": {}}
+    opts = IPIOptions(method="ipi_gmres", dtype="float64", atol=1e-8,
+                      max_outer=2000)
+
+    # (a) the CLI's seed ensemble: B garnets, seeds 0 .. B-1, a batched idx
+    v_path, pi_path = OUT / "fleet_v.npz", OUT / "fleet_pi.npz"
+    stats_path = OUT / "fleet_stats.jsonl"
+    stats_path.unlink(missing_ok=True)
+    ops.reset_launch_counts()
+    rc, t_cli = timed_solve(lambda: cli.main(
+        ["--instance", "garnet", "--n", str(N), "--m", str(M), "--k",
+         str(K), "--gamma", str(GAMMA), "--batch", str(FLEET_B),
+         "--method", "ipi_gmres", "--dtype", "float64", "--atol", "1e-8",
+         "--option", f"file_cost={v_path}",
+         "--option", f"file_policy={pi_path}",
+         "--option", f"file_stats={stats_path}"]))
+    fleet_launches = ops.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"CLI --batch {FLEET_B} ipi_gmres exited {rc}")
+    require_launched("CLI fleet ipi_gmres", fleet_launches, ELL_KERNELS)
+    stats = read_stats(stats_path)
+    with np.load(v_path) as zv, np.load(pi_path) as zp:
+        vs = [zv[f"instance_{b}"] for b in range(FLEET_B)]
+        pis = [zp[f"instance_{b}"] for b in range(FLEET_B)]
+    # the lanes' instances, and their unbatched solves on the card
+    lanes = [generators.garnet(n=N, m=M, k=K, gamma=GAMMA, seed=s)
+             for s in range(FLEET_B)]
+    dev_lanes = [lane.to("cuda") for lane in lanes]
+    singles, walls, lane_launches = [], [], []
+    for d in dev_lanes:
+        ops.reset_launch_counts()
+        r, wall = timed_solve(lambda d=d: driver.solve(d, opts,
+                                                       device="cuda"))
+        singles.append(r)
+        walls.append(wall)
+        lane_launches.append(ops.launch_counts())
+    single_launches = {name: sum(c[name] for c in lane_launches)
+                       for name in ELL_KERNELS}
+    rows = []
+    for b, (s, solve) in enumerate(zip(singles, stats["solves"])):
+        res = certify_on_cpu(lanes[b], vs[b], pis[b],
+                             f"3h(a) lane {b}, independent CPU backup")
+        dv = float(np.abs(vs[b] - s.v).max())
+        tol = 1e-10 * float(np.abs(s.v).max())
+        counts = (solve["outer_iterations"], solve["inner_iterations"])
+        if not (s.converged and np.array_equal(pis[b], s.policy)
+                and counts == (s.outer_iterations, s.inner_iterations)
+                and dv <= tol):
+            raise AssertionError(
+                f"3h(a) lane {b}: fleet outer/inner {counts}, unbatched "
+                f"{s.summary()}, policies equal "
+                f"{np.array_equal(pis[b], s.policy)}, max |dv| {dv} > {tol}")
+        rows.append(dict(lane=b, outer=counts[0], inner=counts[1],
+                         cpu_residual=res, max_abs_dv_vs_unbatched=dv,
+                         unbatched_wall_s=walls[b],
+                         unbatched_launches=lane_launches[b]))
+    for name in ELL_KERNELS:
+        if not fleet_launches[name] < single_launches[name]:
+            raise AssertionError(
+                f"3h(a) {name}: the fleet launched {fleet_launches[name]} "
+                f"times, the {FLEET_B} unbatched solves "
+                f"{single_launches[name]}: the lane axis is not native")
+    out["launches"]["cli_fleet_ipi_gmres"] = fleet_launches
+    out["cli"] = dict(wall_s=t_cli, lanes=rows,
+                      unbatched_launches=single_launches)
+    log(f"[phase3h] (a) CLI --batch {FLEET_B} ipi_gmres f64: wall "
+        f"{t_cli:.2f}s (generation, stacking, H2D, solve); lanes "
+        f"{json.dumps(rows)}; launches fleet {fleet_launches} against "
+        f"{single_launches} for the {FLEET_B} unbatched solves")
+
+    # (e) the same fleet on the card's tables, plain then profiled,
+    # against the unbatched solves' walls
+    seeds = core_mdp.stack_mdps(dev_lanes)
+    assert seeds.batch == FLEET_B and not seeds.shared_topology
+    rs, prof = device_profile(lambda: driver.solve_many(seeds, opts,
+                                                        device="cuda"))
+    for b, (r, s) in enumerate(zip(rs, singles)):
+        if (r.outer_iterations, r.inner_iterations) != \
+                (s.outer_iterations, s.inner_iterations):
+            raise AssertionError(f"3h(e) lane {b}: {r.summary()} against "
+                                 f"{s.summary()}")
+    prof["sum_unbatched_wall_ms"] = sum(walls) * 1e3
+    prof["wall_per_lane_ms"] = prof["wall_ms"] / FLEET_B
+    out["profile"] = prof
+    log(f"[phase3h] (e) fleet of {FLEET_B} ipi_gmres f64 profiled: "
+        f"{json.dumps(prof)}")
+    del dev_lanes, lanes
+    torch.cuda.empty_cache()
+
+    # (b) a Session gamma sweep over one seed (one shared idx), mpi f32
+    gammas = fleet_gammas(*FLEET_SWEEP, FLEET_B)
+    sweep = [dataclasses.replace(mdp, gamma=g) for g in gammas]
+    ops.reset_launch_counts()
+    with madupite_session({"-method": "mpi", "-dtype": "float32",
+                           "-atol": 1e-4}) as s:
+        rs, t_sweep = timed_solve(lambda: s.solve_fleet(sweep))
+    sweep_launches = ops.launch_counts()
+    require_launched("Session fleet mpi", sweep_launches, ELL_KERNELS)
+    opts_b = IPIOptions(method="mpi", dtype="float32", atol=1e-4)
+    lanes_b = []
+    for b, (r, inst) in enumerate(zip(rs, sweep)):
+        single = driver.solve(inst, opts_b, device="cuda")
+        if not (r.converged and single.converged
+                and np.array_equal(r.v.view(np.int32),
+                                   single.v.view(np.int32))
+                and np.array_equal(r.policy, single.policy)):
+            raise AssertionError(
+                f"3h(b) lane {b} (gamma {gammas[b]}): {r.summary()} not bit "
+                f"for bit the unbatched {single.summary()} (max |dv| "
+                f"{float(np.abs(r.v - single.v).max())})")
+        lanes_b.append(dict(gamma=gammas[b], outer=r.outer_iterations,
+                            inner=r.inner_iterations))
+    out["launches"]["session_fleet_mpi"] = sweep_launches
+    out["sweep"] = dict(wall_s=t_sweep, lanes=lanes_b)
+    log(f"[phase3h] (b) Session gamma sweep {gammas} mpi f32: wall "
+        f"{t_sweep:.2f}s; lanes {json.dumps(lanes_b)}, each bit for bit its "
+        f"unbatched solve; launches {sweep_launches}")
+
+    # (d) the ELL kernels' lane axis at B on the phase-2 shape: a shared
+    # idx (the sweep's tables) and a batched one (the seeds')
+    shared = core_mdp.stack_mdps(sweep)
+    assert shared.shared_topology
+    out["kernels"] = fleet_kernel_checks(
+        {"shared": shared, "batched": seeds}, gammas,
+        np.random.default_rng(7))
+    ops.reset_launch_counts()
+    q = ops.ell_qvalues(seeds.idx, seeds.val, seeds.cost, GAMMA,
+                        torch.zeros((FLEET_B, N), dtype=torch.float64,
+                                    device="cuda"))
+    torch.cuda.synchronize()
+    out["qvalues_launches"] = ops.launch_counts()
+    require_launched("ops.ell_qvalues fleet", out["qvalues_launches"],
+                     ("ell_qvalues",))
+    del q, shared, seeds, sweep
+    torch.cuda.empty_cache()
+    return out
+
+
+def batched_rows(rows: list) -> dict:
+    """Phase 3h (d)'s rows of one kernel for its ``kernels`` entry, keyed
+    by ``idx`` kind and dtype (each row: B, ``idx``, ms by grid order, the
+    B-launch loop's ms, bound, max |diff|)."""
+    return {f"{r['idx']}_idx_{r['dtype']}" if r["idx"] != "none"
+            else r["dtype"]: r for r in rows}
+
+
+def fleet_kernel_checks(fleets: dict, gammas, gen) -> dict:
+    """Phase 3h (d), ELL: ``ell_backup``, ``ell_matvec`` and
+    ``ell_qvalues`` on each fleet in float32 and float64, bitwise against
+    their batched plain versions, timed in both grid orders beside B
+    unbatched launches (one timed call), with the batched byte bound."""
+    from repro_torch.kernels import bellman_ell, lanes, ref, spmv_ell
+
+    out = {"ell_backup": [], "ell_matvec": [], "ell_qvalues": []}
+    for kind, f in fleets.items():
+        b_, n, m, k = f.val.shape
+        one = lambda t, b: t if kind == "shared" else t[b]
+        rows_i = f.idx[..., 0, :].contiguous()     # action 0's rows
+        rows_v = f.val[:, :, 0].contiguous()
+        for dt in (torch.float64, torch.float32):
+            name = str(dt).replace("torch.", "")
+            v = torch.from_numpy(gen.random((b_, n)) * 50.0).to("cuda", dt)
+            g = torch.tensor(gammas, dtype=dt, device="cuda") \
+                if kind == "shared" else GAMMA
+            lane_g = (lambda b: gammas[b]) if kind == "shared" \
+                else (lambda b: GAMMA)
+            cases = {
+                "ell_backup": (
+                    lambda o=None: bellman_ell.ell_backup(
+                        f.idx, f.val, f.cost, g, v, lane_order=o),
+                    lambda: ref.ell_backup(f.idx, f.val, f.cost, g, v),
+                    lambda: [bellman_ell.ell_backup(
+                        one(f.idx, b), f.val[b], f.cost[b], lane_g(b), v[b])
+                        for b in range(b_)],
+                    f.idx.nbytes + f.val.nbytes + f.cost.nbytes + v.nbytes
+                    + b_ * n * (v.element_size() + 4),
+                    b_ * n * m * (2 * k + 3)),
+                "ell_matvec": (
+                    lambda o=None: (spmv_ell.ell_matvec(rows_i, rows_v, v,
+                                                        lane_order=o),),
+                    lambda: (ref.ell_matvec(rows_i, rows_v, v),),
+                    lambda: [spmv_ell.ell_matvec(one(rows_i, b), rows_v[b],
+                                                 v[b]) for b in range(b_)],
+                    rows_i.nbytes + rows_v.nbytes + 2 * v.nbytes,
+                    2 * b_ * n * k),
+                "ell_qvalues": (
+                    lambda o=None: (bellman_ell.ell_qvalues(
+                        f.idx, f.val, f.cost, g, v, lane_order=o),),
+                    lambda: (ref.ell_qvalues(f.idx, f.val, f.cost, g, v),),
+                    lambda: [bellman_ell.ell_qvalues(
+                        one(f.idx, b), f.val[b], f.cost[b], lane_g(b), v[b])
+                        for b in range(b_)],
+                    f.idx.nbytes + f.val.nbytes + f.cost.nbytes + v.nbytes
+                    + b_ * n * m * v.element_size(),
+                    b_ * n * m * (2 * k + 2)),
+            }
+            for kernel, (run, plain, loop, nbytes, flops) in cases.items():
+                got, want = run(), plain()
+                torch.cuda.synchronize()
+                diff = max(max_abs_diff(a, w) for a, w in zip(got, want))
+                if not all(bits_equal(a, w) for a, w in zip(got, want)):
+                    raise AssertionError(
+                        f"3h(d) {kernel} {kind} idx {name}: batched kernel "
+                        f"!= batched plain version (max |diff| {diff})")
+                b_ms, b_by = bound_ms(nbytes, flops, dt)
+                by_order = {o: time_ms(lambda o=o: run(o))
+                            for o in lanes.LANE_ORDERS}
+                row = dict(B=b_, idx=kind, dtype=name,
+                           ms=by_order[lanes.LANE_ORDER],
+                           ms_by_order=by_order,
+                           unbatched_loop_ms=time_ms(loop), bound_ms=b_ms,
+                           bound_by=b_by, bytes=nbytes, max_abs_diff=diff)
+                out[kernel].append(row)
+                log(f"[phase3h] (d) {kernel} B={b_} {kind} idx {name}: "
+                    f"{json.dumps(row)}; bitwise equal")
+    return out
+
+
+def dense_fleet(gen) -> dict:
+    """Phase 3h (c), and (d) for ``dense_backup``: a fleet of
+    ``as_dense()`` garnets through ``driver.solve_many`` against their
+    unbatched solves, each lane certified by the plain dense backup; then
+    the batched kernel against its plain version, timed."""
+    from repro_torch.core import driver, generators, mdp as core_mdp
+    from repro_torch.core.ipi import IPIOptions
+    from repro_torch.kernels import dense_backup, ops, ref
+
+    dense = [generators.garnet(n=DFN, m=DM, k=DK, gamma=GAMMA, seed=s)
+             .to("cuda").as_dense() for s in range(DENSE_FLEET_B)]
+    fleet = core_mdp.stack_mdps(dense)
+    opts = IPIOptions(method="ipi_gmres", dtype="float64", atol=1e-8,
+                      max_outer=2000)
+    ops.reset_launch_counts()
+    rs, wall = timed_solve(lambda: driver.solve_many(fleet, opts,
+                                                     device="cuda"))
+    launches = ops.launch_counts()
+    require_launched("dense fleet ipi_gmres", launches, ("dense_backup",))
+    single_launches, lanes = 0, []
+    for b, (r, d) in enumerate(zip(rs, dense)):
+        ops.reset_launch_counts()
+        s, s_wall = timed_solve(lambda d=d: driver.solve(d, opts,
+                                                         device="cuda"))
+        single_launches += ops.launch_counts()["dense_backup"]
+        v = torch.from_numpy(r.v).to("cuda")
+        tv, tpi = ref.dense_backup(d.p, d.cost, GAMMA, v)
+        res = float(torch.max(torch.abs(tv - v)))
+        slack = 16 * np.finfo(np.float64).eps * float(np.abs(r.v).max())
+        dv = float(np.abs(r.v - s.v).max())
+        if not (r.converged and res <= 1e-8 + slack
+                and np.array_equal(tpi.cpu().numpy(), r.policy)
+                and np.array_equal(r.policy, s.policy)
+                and (r.outer_iterations, r.inner_iterations)
+                == (s.outer_iterations, s.inner_iterations)):
+            raise AssertionError(
+                f"3h(c) dense lane {b}: {r.summary()}, plain-version "
+                f"residual {res}, unbatched {s.summary()}")
+        lanes.append(dict(lane=b, outer=r.outer_iterations,
+                          inner=r.inner_iterations, plain_residual=res,
+                          max_abs_dv_vs_unbatched=dv, unbatched_wall_s=s_wall))
+    if not launches["dense_backup"] < single_launches:
+        raise AssertionError(
+            f"3h(c) dense_backup: the fleet launched "
+            f"{launches['dense_backup']} times, the unbatched solves "
+            f"{single_launches}")
+    log(f"[phase3h] (c) dense fleet B={DENSE_FLEET_B} n={DFN} ipi_gmres f64: "
+        f"wall {wall:.2f}s; lanes {json.dumps(lanes)}; launches {launches} "
+        f"against {single_launches} for the unbatched solves")
+
+    p, cost = fleet.p, fleet.cost
+    b_, n, m, n_cols = p.shape
+    rows = []
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).replace("torch.", "")
+        v = torch.from_numpy(gen.random((b_, n_cols)) * 50.0).to("cuda", dt)
+        got = dense_backup.dense_backup(p, cost, GAMMA, v)
+        want = ref.dense_backup(p, cost, GAMMA, v)
+        torch.cuda.synchronize()
+        diff = max_abs_diff(got[0], want[0])
+        if not (bits_equal(got[0], want[0]) and torch.equal(got[1],
+                                                            want[1])):
+            raise AssertionError(f"3h(d) dense_backup {name}: batched kernel "
+                                 f"!= batched plain version ({diff})")
+        nbytes = p.nbytes + cost.nbytes + v.nbytes + b_ * n * (
+            v.element_size() + 4)
+        b_ms, b_by = bound_ms(nbytes, b_ * n * m * (2 * n_cols + 3), dt)
+        row = dict(B=b_, idx="none", dtype=name,
+                   ms=time_ms(lambda: dense_backup.dense_backup(p, cost,
+                                                                GAMMA, v)),
+                   unbatched_loop_ms=time_ms(lambda: [
+                       dense_backup.dense_backup(p[b], cost[b], GAMMA, v[b])
+                       for b in range(b_)]),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                   max_abs_diff=diff)
+        rows.append(row)
+        log(f"[phase3h] (d) dense_backup B={b_} {name}: {json.dumps(row)}; "
+            f"bitwise equal")
+    del dense, fleet
+    torch.cuda.empty_cache()
+    return dict(launches={"driver_fleet_ipi_gmres": launches}, wall_s=wall,
+                lanes=lanes, kernel=rows)
+
+
 def qvalues_checks(mdp, gen: np.random.Generator) -> dict:
     """Phase 2q: ``ops.ell_qvalues`` (its only path) in float32 and
     float64 between reset and read launch counts, each result bitwise
@@ -1221,6 +1576,8 @@ def main() -> int:
     other = other_paths(mdp, path)
     path["launches"].update(other["launches"])
     parity()
+    fleet = fleet_paths(mdp)
+    path["launches"].update(fleet["launches"])
     del mdp
     torch.cuda.empty_cache()
 
@@ -1236,6 +1593,8 @@ def main() -> int:
     where_time_goes(dmdp, "phase3e")
     del ell, dmdp
     torch.cuda.empty_cache()
+    dfleet = dense_fleet(np.random.default_rng(8))
+    dpath["launches"].update(dfleet["launches"])
     dense_parity()
     fchecks = flash_checks()
     fresources = flash_report(libs[flash_attention.SOURCE])
@@ -1259,7 +1618,9 @@ def main() -> int:
             ms=f64["ms"], plain_ms=f64["plain_ms"],
             bound_ms=f64["bound_ms"], bound_by=f64["bound_by"],
             library_ms=f64["library_ms"], dtype="float64", float32=f32,
-            local_ms=f64["local_ms"], resources=ell_resources[name], shape=dict(n=N, m=M, k=K)))
+            local_ms=f64["local_ms"], resources=ell_resources[name],
+            shape=dict(n=N, m=M, k=K),
+            batched=batched_rows(fleet["kernels"][name])))
     f32, f64 = dchecks["float32"], dchecks["float64"]
     kernels.append(dict(
         name="dense_backup", route="cuda",
@@ -1273,21 +1634,25 @@ def main() -> int:
         ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
         bound_by=f32["bound_by"], library_ms=f32["library_ms"],
         library=f32["library"], dtype="float32", float64=f64,
-        shape=dict(n=DN, m=DM, n_cols=DN)))
+        shape=dict(n=DN, m=DM, n_cols=DN),
+        batched=batched_rows(dfleet["kernel"])))
     f64, f32 = qchecks["float64"], qchecks["float32"]
     kernels.append(dict(
         name="ell_qvalues", route="cuda",
         source="src/repro_torch/kernels/csrc/ell_spmv.cu",
         replaces="src/repro/kernels/bellman_ell.py:168",
         launches=qchecks["launches"]["ell_qvalues"],
-        launches_by_path={"ops_ell_qvalues": qchecks["launches"][
-            "ell_qvalues"]},
+        launches_by_path={
+            "ops_ell_qvalues": qchecks["launches"]["ell_qvalues"],
+            "ops_ell_qvalues_fleet": fleet["qvalues_launches"][
+                "ell_qvalues"]},
         max_abs_err=max(f64["max_abs_err"], f32["max_abs_err"]),
         max_abs_diff=max(f64["max_abs_err"], f32["max_abs_err"]),
         ms=f64["ms"], plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"],
         bound_by=f64["bound_by"], library_ms=f64["library_ms"],
         library="torch.sparse_csr_tensor @ v, then cost + gamma * pv",
-        dtype="float64", float32=f32, shape=dict(n=N, m=M, k=K)))
+        dtype="float64", float32=f32, shape=dict(n=N, m=M, k=K),
+        batched=batched_rows(fleet["kernels"]["ell_qvalues"])))
     main_case = fchecks[FLASH_CASES[0][0]]
     kernels.append(dict(
         name="flash_attention", route="cuda",

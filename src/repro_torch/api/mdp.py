@@ -105,6 +105,12 @@ class MDP:
     def gamma(self) -> float:
         return self._core.gamma
 
+    @property
+    def core(self) -> CoreMDP:
+        """The core container as built (host tables for the built-in
+        constructors); :meth:`build` places it."""
+        return self._core
+
     def __repr__(self) -> str:
         return (f"MDP({type(self._core).__name__}, n={self.n}, m={self.m}, "
                 f"gamma={self.gamma}, mode={self.mode!r})")

@@ -12,8 +12,10 @@ Ported keys: the solver keys of ``IPIOptions`` (``-method``, ``-mode``,
 ``-mpi_sweeps``, ``-anderson_window``, ``-monitor``, ``-monitor_mode``,
 ``-safeguard``, ``-deterministic_dots``, ``-pc_type``, ``-pc_block``,
 ``-divtol``, ``-dtype``), the solve loop's ``-chunk``, ``-checkpoint_dir`` and
-``-verbose``, the outputs ``-file_stats`` / ``-file_stats_format`` /
-``-file_policy`` / ``-file_cost``, and the port's own ``-device``.
+``-verbose``, fleets' ``-fleet_bucketing``, the outputs ``-file_stats`` /
+``-file_stats_format`` / ``-file_policy`` / ``-file_cost``, and the port's
+own ``-device``.  The reference's mesh keys ``-layout`` / ``-fleet`` /
+``-pad_fleet`` raise, naming the ROADMAP item that ports them.
 :func:`option_table` renders the registry as the README's table.
 """
 
@@ -36,6 +38,10 @@ ENV_VAR = "MADUPITE_OPTIONS"
 
 # precedence levels (higher wins); `set()` without a source is "user"
 _SOURCES = {"default": 0, "env": 1, "cli": 2, "user": 3}
+
+# the reference's keys this package does not take yet, and the ROADMAP
+# queue 1 item that ports each
+NOT_PORTED_OPTIONS = {"-layout": 10, "-fleet": 10, "-pad_fleet": 10}
 
 
 
@@ -149,7 +155,11 @@ _SPECS = [
     OptionSpec("-method", str, "ipi_gmres",
                "outer/inner method (validates against the live registry: "
                "repro_torch.api.register_method)",
-               choices_fn=lambda: _methods.method_names(),
+               # the reference's methods not ported yet pass the choices
+               # and fail validation, naming their ROADMAP item
+               choices_fn=lambda: _methods.method_names()
+               + tuple(_methods.NOT_PORTED_METHODS),
+               validate=_methods.check_method,
                choices_doc=_live_choices_doc(
                    _methods.method_names(builtin_only=True),
                    "register_method")),
@@ -233,6 +243,10 @@ _SPECS = [
                "persist solver state between chunks (and resume from it)",
                nullable=True),
     OptionSpec("-verbose", bool, False, "per-chunk progress lines"),
+    OptionSpec("-fleet_bucketing", str, "auto",
+               "group ragged fleets by state count into pad-efficient "
+               "buckets (one batched loop per bucket)",
+               choices=("auto", "off")),
     # ---- output -------------------------------------------------------------
     OptionSpec("-file_stats", str, None,
                "write run statistics here after each solve",
@@ -268,6 +282,11 @@ def _normalize(key: Any) -> str:
         raise UnknownOptionError(f"option keys are strings like '-atol', "
                                  f"got {key!r}")
     name = key if key.startswith("-") else "-" + key
+    if name in NOT_PORTED_OPTIONS:
+        raise UnknownOptionError(
+            f"option {name!r} is not yet ported to repro_torch (ROADMAP "
+            f"queue 1 item {NOT_PORTED_OPTIONS[name]}: meshes and the fleet "
+            f"layouts); this package solves on one device")
     if name not in OPTION_SPECS:
         raise UnknownOptionError(
             f"unknown option {key!r}{_methods.suggest(name, OPTION_SPECS)} "

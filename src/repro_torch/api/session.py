@@ -3,7 +3,9 @@
 Counterpart of :mod:`repro.api.session`.  A :class:`Session` owns one
 options database, places each solve on its ``-device`` (``cuda`` unless
 the caller asks for ``cpu``), runs :func:`repro_torch.core.driver.solve`
-(with ``-checkpoint_dir``, monitors and ad-hoc stop predicates), records
+(with ``-checkpoint_dir``, monitors and ad-hoc stop predicates) or, for a
+fleet, :func:`repro_torch.core.driver.solve_many` once per pad-efficient
+bucket (``-fleet_bucketing``, :mod:`repro_torch.api.fleet`), records
 per-solve statistics (:attr:`Session.stats`) and writes the
 ``-file_stats`` / ``-file_policy`` / ``-file_cost`` outputs.
 
@@ -11,8 +13,12 @@ per-solve statistics (:attr:`Session.stats`) and writes the
 
     with madupite_session({"-method": "ipi_gmres", "-atol": 1e-8}) as s:
         result = s.solve(MDP.from_generator("garnet", n=10_000, m=16, k=8))
+        sweep = s.solve_fleet([MDP.from_generator("garnet", n=10_000, m=16,
+                                                  k=8, gamma=g)
+                               for g in (0.9, 0.99, 0.999)])
 
-Meshes, fleets and ``-method auto`` are not ported yet.
+Meshes (and with them the fleet-sharded layouts and their device-fleet
+cache) and ``-method auto`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,10 +28,11 @@ import json
 import os
 import time
 import weakref
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 
+from repro_torch.api.fleet import bucket_indices
 from repro_torch.api.mdp import MDP
 from repro_torch.api.options import Options
 from repro_torch.core import driver
@@ -116,9 +123,68 @@ class Session:
                          verbose=opts.get("-verbose"), monitor=mon_cb,
                          device=device)
         wall = time.time() - t0
-        self._record(r, mdp, ipi, opts, device, wall, monitor=mon_records)
-        self._write_outputs(r, opts)
+        self._record([r], [mdp], ipi, opts, device, wall, fleet=None,
+                     monitor=mon_records)
+        self._write_outputs([r], opts)
         return r
+
+    def solve_fleet(self, mdps: Sequence[MDP | CoreMDP], *, monitor=None,
+                    stop_criterion=None, **overrides) -> list[SolveResult]:
+        """Solve a fleet of MDPs in batched lockstep loops on the session's
+        device.
+
+        Ragged fleets (instances with very different state counts) are
+        grouped into pad-efficient buckets (``-fleet_bucketing auto``), and
+        each bucket runs one :func:`repro_torch.core.driver.solve_many`;
+        results come back in input order.  All instances must share one
+        ``mode``.  With more than one bucket, ``-checkpoint_dir`` gets a
+        ``bucket{j}`` subdirectory a bucket and monitor records carry their
+        ``bucket``.  ``monitor`` / ``stop_criterion`` / ``overrides`` as in
+        :meth:`solve`.
+        """
+        if not mdps:
+            return []
+        opts, mon_cb, mon_records = self._observe(overrides, monitor,
+                                                  stop_criterion)
+        wrapped = [self._wrap(m, opts) for m in mdps]
+        modes = {m.mode for m in wrapped}
+        if len(modes) > 1:
+            raise ValueError(f"solve_fleet needs one shared mode, got "
+                             f"{sorted(modes)}; solve mixed-mode instances "
+                             f"separately")
+        ipi = opts.to_ipi()
+        mode = modes.pop()
+        if not opts.is_set("-mode") and ipi.mode != mode:
+            ipi = dataclasses.replace(ipi, mode=mode)
+        device = opts.get("-device")
+        buckets = bucket_indices([m.n for m in wrapped],
+                                 policy=opts.get("-fleet_bucketing"))
+        ckpt = opts.get("-checkpoint_dir")
+        results: list[SolveResult | None] = [None] * len(wrapped)
+        t0 = time.time()
+        for j, bucket in enumerate(buckets):
+            bucket_ckpt = ckpt if ckpt is None or len(buckets) == 1 \
+                else os.path.join(ckpt, f"bucket{j}")
+            # tag records by bucket so interleaved per-bucket streams stay
+            # attributable (each bucket restarts k at 0)
+            bucket_cb = mon_cb if mon_cb is None or len(buckets) == 1 \
+                else (lambda rec, _j=j: mon_cb({**rec, "bucket": _j}))
+            # the tables as built: stacked where they are, then placed on
+            # the device once
+            rs = driver.solve_many(
+                [wrapped[i].core for i in bucket], ipi,
+                checkpoint_dir=bucket_ckpt, chunk=opts.get("-chunk"),
+                verbose=opts.get("-verbose"), monitor=bucket_cb,
+                device=device)
+            for i, r in zip(bucket, rs):
+                results[i] = r
+        wall = time.time() - t0
+        fleet_info = dict(size=len(wrapped),
+                          buckets=[sorted(b) for b in buckets])
+        self._record(results, wrapped, ipi, opts, device, wall,
+                     fleet=fleet_info, monitor=mon_records)
+        self._write_outputs(results, opts)
+        return results  # type: ignore[return-value]
 
     # ---- internals ---------------------------------------------------------
     def _observe(self, overrides, monitor, stop_criterion):
@@ -161,19 +227,19 @@ class Session:
         raise TypeError(f"solve wants a repro_torch.api.MDP (or a core "
                         f"EllMDP/DenseMDP), got {type(mdp).__name__}")
 
-    def _record(self, r: SolveResult, mdp: MDP, ipi, opts: Options,
-                device: str, wall: float, *, monitor=None) -> None:
+    def _record(self, results, mdps, ipi, opts: Options, device: str,
+                wall: float, *, fleet, monitor=None) -> None:
         entry = {
             "method": ipi.method,
             "mode": ipi.mode,
             "stop_criterion": ipi.stop_criterion,
-            # the reference's single-device keys: no mesh, no fleet
+            # the reference's single-device keys: no mesh
             "layout": "single",
             "mesh": None,
             "device": device,
             "options": opts.as_dict(explicit_only=True),
             "wall_s": round(wall, 6),
-            "fleet": None,
+            "fleet": fleet,
             "solves": [{
                 "n": int(mdp.n), "m": int(mdp.m), "gamma": float(mdp.gamma),
                 "converged": bool(r.converged),
@@ -182,25 +248,34 @@ class Session:
                 "inner_iterations": int(r.inner_iterations),
                 "residual": float(r.residual),
                 "gap_bound": float(r.gap_bound),
-            }],
+            } for mdp, r in zip(mdps, results)],
         }
         if monitor is not None:
             # monitoring on: the records plus the dense convergence-history
             # arrays land in the run stats
-            entry["monitor"] = sorted(monitor, key=lambda rec: rec["k"])
-            s = entry["solves"][0]
-            s["trace_residual"] = [float(x) for x in r.trace_residual]
-            s["trace_inner"] = [int(x) for x in r.trace_inner]
+            entry["monitor"] = sorted(
+                monitor, key=lambda rec: (rec.get("bucket", 0), rec["k"]))
+            for s, r in zip(entry["solves"], results):
+                s["trace_residual"] = [float(x) for x in r.trace_residual]
+                s["trace_inner"] = [int(x) for x in r.trace_inner]
         self._stats.append(entry)
 
-    def _write_outputs(self, r: SolveResult, opts: Options) -> None:
+    def _write_outputs(self, results, opts: Options) -> None:
+        """``-file_stats``, then ``-file_policy`` / ``-file_cost``: one
+        ``.npy`` for a single solve, one ``.npz`` of ``instance_{i}``
+        arrays for a fleet, as the reference writes them."""
         self._write_stats(opts)
         for key, field in (("-file_policy", "policy"), ("-file_cost", "v")):
             path = opts.get(key)
             if not path:
                 continue
             _ensure_dir(path)
-            np.save(path, np.asarray(getattr(r, field)))
+            arrays = [np.asarray(getattr(r, field)) for r in results]
+            if len(arrays) == 1:
+                np.save(path, arrays[0])
+            else:
+                np.savez(path, **{f"instance_{i}": a
+                                  for i, a in enumerate(arrays)})
 
     def _write_stats(self, opts: Options) -> None:
         """Persist run statistics.  ``jsonl`` (default) appends only the

@@ -43,4 +43,15 @@ class Axes:
         return torch.sqrt(torch.clamp_min(self.dot(x, x), 0.0))
 
     def norm_inf(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pmax_state(torch.max(torch.abs(x)))
+        """``max |x|`` over the states: 0-d, or ``(B,)`` for a fleet's
+        ``(B, n)`` (a max is exact in any order)."""
+        return self.pmax_state(torch.amax(torch.abs(x), dim=-1))
+
+    # ---- fleets: one value a lane of (B, n) vectors ------------------------
+    def dot_lanes(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """``(B,)``: ``<x[b], y[b]>`` over state shards, for every lane."""
+        return self.psum_state(torch.sum(x * y, dim=-1))
+
+    def norm2_lanes(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sqrt(torch.clamp_min(self.dot_lanes(x, x), 0.0))
+

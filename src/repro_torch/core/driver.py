@@ -8,7 +8,24 @@ its compiled loop.  :class:`SolveResult`, the span midpoint correction,
 the checkpoint file format and the monitor records are the reference's,
 so either package resumes the other's checkpoints.
 
-The adaptive supervisor hook, fleets and meshes are not ported yet.
+Fleet solves — :func:`solve_many`
+---------------------------------
+``solve_many(mdps, opts)`` stacks B instances into one batched container
+(:func:`repro_torch.core.mdp.stack_mdps`), runs one lockstep outer loop
+for the whole fleet (one launch of each kernel for the fleet, through the
+kernels' lane axis) and returns per-instance :class:`SolveResult`\\ s.
+:func:`solve` runs the same loop on the fleet of one
+(:func:`repro_torch.core.mdp.as_fleet`) and keeps the unbatched
+checkpoint, monitor and result forms.
+Converged lanes freeze under the active mask, so each result carries the
+``k`` / ``inner_total`` / traces of its independent solve.  Ragged state
+counts are padded and the results trimmed; per-lane gammas run as a
+``(B,)`` discount tensor.  A fleet checkpoint holds the reference's
+leaves with a leading ``B``, unpadded, so it too crosses between the
+packages.
+
+The adaptive supervisor hook and meshes (with the fleet-sharded layouts,
+ROADMAP queue 1 item 10) are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +38,8 @@ import torch
 from repro_torch.core import ipi, methods
 from repro_torch.core.comm import Axes
 from repro_torch.core.ipi import IPIOptions, SolveState
-from repro_torch.core.mdp import MDP, DenseMDP, EllMDP
+from repro_torch.core.mdp import (MDP, DenseMDP, EllMDP, as_fleet, gammas_of,
+                                  stack_mdps)
 from repro_torch.device import resolve_device
 from repro_torch.utils import checkpoint as ckpt
 
@@ -31,6 +49,9 @@ CKPT_FIELDS = ("v", "tv", "pi", "res", "k", "inner_total", "trace_res",
                "trace_inner", "res0", "span", "done", "diverged", "n_true",
                "win")
 _CKPT_TREEDEF = f"SolveState({', '.join(CKPT_FIELDS)})"
+
+# the ROADMAP queue 1 item that ports meshes and the fleet layouts
+MESH_ITEM = 10
 
 
 @dataclasses.dataclass
@@ -58,12 +79,14 @@ class SolveResult:
                 f"gap<= {self.gap_bound:.3e}{flag}")
 
 
-def _result(state: SolveState, opts: IPIOptions, gamma: float) \
-        -> SolveResult:
-    k = state.k
-    res = float(state.res)
-    converged = bool(state.done)
-    v = state.v.cpu().numpy()
+def _result(state: SolveState, b: int, opts: IPIOptions, gamma: float,
+            n_orig: int | None = None) -> SolveResult:
+    """The result of lane ``b`` of ``state``, with padding states past
+    ``n_orig`` trimmed."""
+    k = int(state.k[b])
+    res = float(state.res[b])
+    converged = bool(state.done[b])
+    v = state.v[b, :n_orig].cpu().numpy()
     gap = res / (1.0 - gamma)
     if converged and opts.stop_criterion == "span" and gamma < 1.0:
         # Midpoint correction (Puterman §6.6): with d = T v - v,
@@ -71,66 +94,89 @@ def _result(state: SolveState, opts: IPIOptions, gamma: float) \
         # max(d), so the midpoint-shifted T v carries the certified bound
         # gamma * sp(d) / (2 * (1-gamma)).  A constant shift: the policy is
         # untouched.
-        tv = state.tv.cpu().numpy()
+        tv = state.tv[b, :n_orig].cpu().numpy()
         d = tv - v
         scale = gamma / (1.0 - gamma)
         v = tv + scale * (float(d.max()) + float(d.min())) / 2.0
-        gap = scale * float(state.span) / 2.0
+        gap = scale * float(state.span[b]) / 2.0
     return SolveResult(
         v=v,
-        policy=state.pi.cpu().numpy(),
+        policy=state.pi[b, :n_orig].cpu().numpy(),
         residual=res,
         gap_bound=gap,
         converged=converged,
         outer_iterations=k,
-        inner_iterations=state.inner_total,
-        trace_residual=state.trace_res[:k + 1].cpu().numpy(),
-        trace_inner=state.trace_inner[:k].cpu().numpy(),
-        diverged=bool(state.diverged),
-        span=float(state.span))
+        inner_iterations=int(state.inner_total[b]),
+        trace_residual=state.trace_res[b, :k + 1].cpu().numpy(),
+        trace_inner=state.trace_inner[b, :k].cpu().numpy(),
+        diverged=bool(state.diverged[b]),
+        span=float(state.span[b]))
 
 
-def _drain_monitor(mid: int, state: SolveState, k_prev: int) -> None:
+def _drain_monitor(emit, state: SolveState, done_prev: np.ndarray,
+                   k_prev: np.ndarray) -> None:
     """``monitor_mode="chunk"``: rebuild this chunk's per-iteration
     records from the residual and inner traces — record for record (``k``
     / ``res`` / ``inner`` / ``diverged``) what ``"stream"`` emits
-    (``elapsed`` is the drain time).  ``k_prev`` is the pre-chunk outer
-    count."""
+    (``elapsed`` is the drain time; the reference's reconstruction).
+    ``done_prev`` / ``k_prev`` are the pre-chunk stop mask and outer
+    counts."""
+    act_prev = ~done_prev
+    if not act_prev.any():
+        return
     k = state.k
-    tr = state.trace_res[:k + 1].cpu().numpy()
-    ti = state.trace_inner[:k].cpu().numpy()
-    div = bool(state.diverged)
-    for kk in range(k_prev + 1, k + 1):
+    tr = state.trace_res.cpu().numpy()
+    ti = state.trace_inner.cpu().numpy()
+    res_f = state.res.cpu().numpy()
+    div_f = state.diverged.cpu().numpy()
+    # lockstep: all active lanes share one outer index, so the stream's
+    # per-step columns are exactly this range
+    k_lo = int(k_prev[act_prev].max())
+    k_hi = int(k[act_prev].max())
+    for kk in range(k_lo + 1, k_hi + 1):
+        col = tr[:, kk]
+        # frozen lanes: the stream reports their current residual (lanes
+        # frozen before the chunk override their old column; lanes frozen
+        # in it have an unwritten, NaN column)
+        col = np.where(~act_prev | np.isnan(col), res_f, col)
+        inn = ti[:, kk - 1]
+        inn = np.where(~act_prev | (inn < 0), 0, inn)
         # diverged flips exactly at the iteration the loop stopped on, so
         # only the final record can carry it, as in the stream
-        methods.emit_host(mid, kk, float(tr[kk]), max(int(ti[kk - 1]), 0),
-                          div and kk == k)
+        div = div_f & (kk == k) if kk == k_hi else np.zeros_like(div_f)
+        emit(kk, col, inn, div)
 
 
-def _state_like(n: int, opts: IPIOptions) -> list[tuple]:
+def _state_like(n: int, opts: IPIOptions,
+                batch: int | None = None) -> list[tuple]:
     """``(shape, numpy dtype)`` of each checkpoint leaf of a solve of
     ``n`` states under ``opts`` (the reference's ``eval_shape`` of its
-    initial state)."""
+    initial state), with a leading ``batch`` for a fleet."""
     dt = np.dtype(opts.dtype)
     i32, b = np.dtype(np.int32), np.dtype(np.bool_)
-    return [((n,), dt), ((n,), dt), ((n,), i32), ((), dt), ((), i32),
-            ((), i32), ((opts.max_outer + 1,), dt), ((opts.max_outer,), i32),
-            ((), dt), ((), dt), ((), b), ((), b), ((), i32), ((0,), dt)]
+    lead = () if batch is None else (batch,)
+    return [(lead + shape, dtype) for shape, dtype in (
+        ((n,), dt), ((n,), dt), ((n,), i32), ((), dt), ((), i32),
+        ((), i32), ((opts.max_outer + 1,), dt), ((opts.max_outer,), i32),
+        ((), dt), ((), dt), ((), b), ((), b), ((), i32), ((0,), dt))]
 
 
-def _trim_ckpt_state(state: SolveState, n_orig: int) -> list[np.ndarray]:
+def _trim_ckpt_state(state: SolveState, n_orig: int,
+                     b_orig: int) -> list[np.ndarray]:
     """The solver state in its checkpoint form: host arrays in the
-    reference's leaf order, with ``k`` / ``inner_total`` as 0-d int32,
-    ``n_true = n_orig`` and the (asynchronous methods') exchanged window
-    empty, as the reference writes it.  One device pads nothing, so no
-    leaf needs trimming."""
-    host = lambda t: t.detach().cpu().numpy()
-    v = host(state.v)
-    return [v, host(state.tv), host(state.pi), host(state.res),
-            np.int32(state.k), np.int32(state.inner_total),
+    reference's leaf order, with ``k`` / ``inner_total`` as int32, the
+    unpadded ``n_true`` and the (asynchronous methods') exchanged window
+    empty, as the reference writes it — the true ``b_orig`` lanes and
+    ``n_orig`` states (the reference's unpadded, mesh-agnostic form)."""
+    lane = lambda a: np.asarray(a)[:b_orig]
+    host = lambda t: lane(t.detach().cpu().numpy())
+    v = host(state.v)[..., :n_orig]
+    return [v, host(state.tv)[..., :n_orig], host(state.pi)[..., :n_orig],
+            host(state.res), lane(state.k).astype(np.int32),
+            lane(state.inner_total).astype(np.int32),
             host(state.trace_res), host(state.trace_inner), host(state.res0),
             host(state.span), host(state.done), host(state.diverged),
-            np.int32(n_orig), np.zeros((0,), v.dtype)]
+            host(state.n_true), np.zeros(v.shape[:-1] + (0,), v.dtype)]
 
 
 def _pad_restored(leaves, like) -> list[np.ndarray]:
@@ -160,21 +206,24 @@ def _pad_restored(leaves, like) -> list[np.ndarray]:
 def _state_from_leaves(leaves, dev: torch.device) -> SolveState:
     f = dict(zip(CKPT_FIELDS, leaves))
     put = lambda a: torch.from_numpy(np.array(a)).to(dev)
+    count = lambda a: np.asarray(a, np.int64)
     return SolveState(
         v=put(f["v"]), tv=put(f["tv"]), pi=put(f["pi"]), res=put(f["res"]),
-        k=int(f["k"]), inner_total=int(f["inner_total"]),
+        k=count(f["k"]), inner_total=count(f["inner_total"]),
         trace_res=put(f["trace_res"]), trace_inner=put(f["trace_inner"]),
         res0=put(f["res0"]), span=put(f["span"]), done=put(f["done"]),
-        diverged=put(f["diverged"]))
+        diverged=put(f["diverged"]), n_true=put(f["n_true"]))
 
 
 def _restore_or_init(init, like, dev: torch.device, checkpoint_dir,
-                     verbose: bool, expect=None) -> SolveState:
+                     verbose: bool, expect=None,
+                     single: bool = False) -> SolveState:
     """The state restored from ``checkpoint_dir``'s newest valid step, or
     ``init()``.  ``expect`` maps checkpoint-meta keys (``n``) to the
     values this solve requires — a mismatch means the directory holds
     another problem's checkpoint, which zero-padding would otherwise
-    silently absorb."""
+    silently absorb.  ``single``: the checkpoint holds one instance's
+    unbatched leaves, restored as the fleet of one."""
     if checkpoint_dir and ckpt.latest_step(checkpoint_dir) is not None:
         restored = ckpt.restore(checkpoint_dir, len(like))
         if restored is not None:
@@ -186,11 +235,44 @@ def _restore_or_init(init, like, dev: torch.device, checkpoint_dir,
                         f"checkpoint in {checkpoint_dir!r} was written for "
                         f"{key}={got} but this solve has {key}={want}; "
                         f"refusing to resume from another problem's state")
-            state = _state_from_leaves(_pad_restored(leaves, like), dev)
+            leaves = _pad_restored(leaves, like)
+            if single:
+                leaves = [a[None] for a in leaves]
+            state = _state_from_leaves(leaves, dev)
             if verbose:
-                print(f"[driver] resumed at outer k={state.k}")
+                print(f"[driver] resumed at outer k={np.max(state.k)}")
             return state
     return init()
+
+
+def _drive(dev_mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
+           *, chunk: int, mid: int, emit, report, after_chunk):
+    """The host loop of :func:`solve` and :func:`solve_many`: chunks of at
+    most ``chunk`` outer steps until every lane has stopped or reached
+    ``opts.max_outer``.  ``emit(k, res, inner, diverged)`` sends a
+    record (per-lane arrays) to monitor ``mid``; ``report(state, res, div,
+    done)`` runs before every chunk and at the end, ``after_chunk(state)``
+    after every chunk.  Returns the final state and its ``(stop, res,
+    diverged)`` flags."""
+    stream = emit if mid and opts.monitor_mode == "stream" else None
+    stop, res, div = ipi.stop_flags(state)
+    if mid:   # the k=0 (or resume-point) record
+        emit(state.k, res, np.zeros_like(state.k), np.zeros_like(stop))
+    while True:
+        k = state.k
+        done = stop | (k >= opts.max_outer)
+        report(state, res, div, done)
+        # converged, a NaN residual (inner-solver breakdown) or a diverged
+        # flag: bail out, do not spin
+        if done.all():
+            return state, (stop, res, div)
+        k_hi = min(int(k[~done].min()) + chunk, opts.max_outer)
+        state = ipi.solve_chunk(dev_mdp, state, k_hi, opts, axes,
+                                on_step=stream)
+        if mid and opts.monitor_mode == "chunk":
+            _drain_monitor(emit, state, done, k)
+        after_chunk(state)
+        stop, res, div = ipi.stop_flags(state)
 
 
 def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, v0=None,
@@ -215,62 +297,161 @@ def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, v0=None,
     the solve stops early on divergence.
     """
     if not isinstance(mdp, (EllMDP, DenseMDP)):
-        raise TypeError(f"solve() takes an EllMDP or a DenseMDP (batched "
-                        f"and matrix-free MDPs are not yet ported), got "
+        raise TypeError(f"solve() takes an EllMDP or a DenseMDP "
+                        f"(matrix-free MDPs are not yet ported), got "
                         f"{type(mdp).__name__}")
+    if mdp.batch is not None:
+        raise ValueError("solve() takes one MDP instance; for a batched "
+                         "fleet use solve_many()")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if checkpoint_mode not in ("chunk", "interrupt"):
         raise ValueError(f"checkpoint_mode={checkpoint_mode!r}: expected "
                          f"'chunk' or 'interrupt'")
     dev = resolve_device(device)
-    dev_mdp = mdp.to(dev)
+    dev_mdp = as_fleet(mdp.to(dev))
     axes = Axes()
     n_orig = mdp.n_global
+    v0 = None if v0 is None else torch.as_tensor(v0)[None]
     state = _restore_or_init(
         lambda: ipi.init_state(dev_mdp, axes, opts, v0),
         _state_like(n_orig, opts), dev, checkpoint_dir, verbose,
-        expect=dict(n=n_orig))
+        expect=dict(n=n_orig), single=True)
     save_each = bool(checkpoint_dir) and checkpoint_mode == "chunk"
 
-    def save_state() -> None:
-        ckpt.save(checkpoint_dir, state.k, _trim_ckpt_state(state, n_orig),
+    def save_state(state: SolveState) -> None:
+        ckpt.save(checkpoint_dir, int(state.k[0]),
+                  [a[0] for a in _trim_ckpt_state(state, n_orig, 1)],
                   meta=dict(method=opts.method, n=n_orig),
                   treedef=_CKPT_TREEDEF)
+
+    def report(state, res, div, done) -> None:
+        if verbose:
+            print(f"[driver] k={state.k[0]} residual={res[0]:.3e}"
+                  + (" DIVERGED" if div[0] else ""))
 
     mid = 0
     if opts.monitor:
         mid = methods.monitor_handle(monitor or methods.print_monitor)
-    stream = None
-    if mid and opts.monitor_mode == "stream":
-        stream = lambda k, res, inner, div: methods.emit_host(
-            mid, k, res, inner, div)
+    emit = lambda k, res, inner, div: methods.emit_host(
+        mid, np.max(k), res[0], inner[0], div[0])
     try:
-        stop, res, div = ipi.stop_flags(state)
-        if mid:   # the k=0 (or resume-point) record
-            methods.emit_host(mid, state.k, res, 0)
-        while True:
-            k = state.k
-            if verbose:
-                print(f"[driver] k={k} residual={res:.3e}"
-                      + (" DIVERGED" if div else ""))
-            # converged, a NaN residual (inner-solver breakdown) or a
-            # diverged flag: bail out, do not spin.
-            if stop or k >= opts.max_outer:
-                # a NaN-poisoned state is not worth persisting
-                if div and not np.isnan(res) and checkpoint_dir \
-                        and not save_each:
-                    save_state()
-                break
-            state = ipi.solve_chunk(dev_mdp, state,
-                                    min(k + chunk, opts.max_outer), opts,
-                                    axes, on_step=stream)
-            if mid and opts.monitor_mode == "chunk":
-                _drain_monitor(mid, state, k)
-            if save_each:
-                save_state()
-            stop, res, div = ipi.stop_flags(state)
+        state, (_, res, div) = _drive(
+            dev_mdp, state, opts, axes, chunk=chunk, mid=mid, emit=emit,
+            report=report,
+            after_chunk=save_state if save_each else lambda state: None)
+        # a NaN-poisoned state is not worth persisting
+        if div[0] and not np.isnan(res[0]) and checkpoint_dir \
+                and not save_each:
+            save_state(state)
     finally:
         if mid:
             methods.monitor_release(mid)
-    return _result(state, opts, mdp.gamma)
+    return _result(state, 0, opts, mdp.gamma)
+
+
+def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
+               origin: tuple[int, int] | None = None,
+               checkpoint_dir: str | None = None, chunk: int = 64,
+               verbose: bool = False, monitor=None,
+               device: str | torch.device = "cuda", mesh=None,
+               layout: str = "1d", pad_fleet: bool = True) \
+        -> list[SolveResult]:
+    """Solve a fleet of MDPs in one lockstep batched loop on ``device``.
+
+    ``mdps`` is a sequence of unbatched instances (stacked here, on the
+    first instance's device, then moved to ``device``) or an
+    already-batched container from :func:`repro_torch.core.mdp.stack_mdps`.
+    Each instance is solved exactly as an individual :func:`solve` call
+    would (per-instance counts and traces included: converged lanes freeze
+    under the active mask), but every kernel runs once for the fleet.
+    Returns one :class:`SolveResult` per instance, padding trimmed.
+
+    ``v0s`` warm-starts: per-instance ``(n_i,)`` vectors (zero-padded to
+    the fleet width) or a stacked ``(B, n)`` tensor.  ``origin=(B, n)``
+    names the true fleet size and state count of a pre-batched container
+    that carries padding, to trim results and checkpoints to.
+    ``checkpoint_dir`` persists the fleet state after every chunk, in the
+    reference's unpadded format (meta ``batch`` and ``n``), and resumes
+    from its newest step.  ``monitor`` (with ``opts.monitor``) receives one
+    fleet-wide record per outer step, one entry a lane.
+
+    ``mesh`` / ``layout`` / ``pad_fleet`` are the reference's fleet-layout
+    arguments: this package has one device and no fleet layouts yet
+    (ROADMAP queue 1 item 10), so anything but the defaults raises.
+    """
+    if mesh is not None or layout != "1d" or pad_fleet is not True:
+        raise NotImplementedError(
+            f"solve_many(mesh=..., layout=..., pad_fleet=...): meshes and "
+            f"the fleet layouts are not yet ported to repro_torch (ROADMAP "
+            f"queue 1 item {MESH_ITEM}); this package solves a fleet on one "
+            f"device")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if isinstance(mdps, (EllMDP, DenseMDP)):
+        if mdps.batch is None:
+            raise ValueError("solve_many() wants a fleet; for a single "
+                             "instance use solve()")
+        batched = mdps
+        b_true, n_true = origin or (batched.batch, batched.n_global)
+        if b_true > batched.batch or n_true > batched.n_global:
+            raise ValueError(f"origin={origin} exceeds the container's "
+                             f"(B={batched.batch}, n={batched.n_global})")
+        n_origs = [n_true] * b_true
+    else:
+        if origin is not None:
+            raise ValueError("origin= applies to a pre-batched container; "
+                             "per-instance MDPs carry their own true n")
+        mdps = list(mdps)
+        n_origs = [m.n_global for m in mdps]
+        batched = stack_mdps(mdps)
+        b_true, n_true = batched.batch, batched.n_global
+    dev = resolve_device(device)
+    dev_mdp = batched.to(dev)
+    gammas = gammas_of(batched)
+    axes = Axes()
+
+    v0 = None
+    if v0s is not None:
+        if isinstance(v0s, (list, tuple)):
+            n_to = batched.n_local
+            v0 = torch.stack([torch.nn.functional.pad(
+                torch.as_tensor(np.asarray(x)), (0, n_to - len(x)))
+                for x in v0s])
+        else:
+            v0 = torch.as_tensor(v0s)
+    # per-lane unpadded state counts (0 for the lanes past origin's B)
+    nt = list(n_origs) + [0] * (batched.batch - len(n_origs))
+    state = _restore_or_init(
+        lambda: ipi.init_state(dev_mdp, axes, opts, v0, n_true=nt),
+        _state_like(batched.n_global, opts, batched.batch), dev,
+        checkpoint_dir, verbose, expect=dict(n=n_true, batch=b_true))
+
+    def report(state, res, div, done) -> None:
+        if verbose:
+            print(f"[driver] fleet B={len(state.k)} active="
+                  f"{int((~done).sum())} k_max={int(state.k.max())} "
+                  f"res_max={float(res.max()):.3e}")
+
+    def save_state(state: SolveState) -> None:
+        if checkpoint_dir:
+            ckpt.save(checkpoint_dir, int(np.max(state.k[:b_true])),
+                      _trim_ckpt_state(state, n_true, b_true),
+                      meta=dict(method=opts.method, batch=b_true, n=n_true,
+                                layout=layout),
+                      treedef=_CKPT_TREEDEF)
+
+    mid = 0
+    if opts.monitor:
+        mid = methods.monitor_handle(monitor or methods.print_monitor)
+    emit = lambda k, res, inner, div: methods.emit_host(
+        mid, k[:b_true] if np.ndim(k) else k, res[:b_true], inner[:b_true],
+        div[:b_true])
+    try:
+        state, _ = _drive(dev_mdp, state, opts, axes, chunk=chunk, mid=mid,
+                          emit=emit, report=report, after_chunk=save_state)
+    finally:
+        if mid:
+            methods.monitor_release(mid)
+    return [_result(state, b, opts, gammas[b], n_origs[b])
+            for b in range(b_true)]

@@ -124,3 +124,36 @@ def chain_walk(n: int, gamma: float = 0.9999, p_fwd: float = 0.7,
 
 REGISTRY = {"garnet": garnet, "maze2d": maze2d, "sis": sis,
             "chain_walk": chain_walk}
+
+
+def generate_many(kind: str, batch: int, *, sweep=None, **kw) -> list[EllMDP]:
+    """Generate a fleet of ``batch`` related instances in one call.
+
+    By default this is a *seed ensemble*: instance ``b`` gets
+    ``seed = kw.get("seed", 0) + b``.  ``sweep`` maps parameter names to
+    length-``batch`` value sequences and overrides the per-instance kwargs
+    instead (the seed stays fixed unless swept), e.g. a gamma sweep::
+
+        generate_many("chain_walk", 4, n=300,
+                      sweep={"gamma": [0.9, 0.99, 0.999, 0.9999]})
+
+    The result feeds :func:`repro_torch.core.mdp.stack_mdps` /
+    :func:`repro_torch.core.driver.solve_many`.
+    """
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    fn = REGISTRY[kind]
+    for name, vals in (sweep or {}).items():
+        if len(vals) != batch:
+            raise ValueError(f"sweep[{name!r}] has {len(vals)} values for "
+                             f"batch={batch}")
+    out = []
+    for b in range(batch):
+        kwb = dict(kw)
+        if sweep:
+            for name, vals in sweep.items():
+                kwb[name] = vals[b]
+        else:
+            kwb["seed"] = int(kw.get("seed", 0)) + b
+        out.append(fn(**kwb))
+    return out

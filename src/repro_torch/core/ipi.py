@@ -1,16 +1,28 @@
 """Inexact policy iteration (iPI) — the outer loop, single device.
 
-Counterpart of :mod:`repro.core.ipi` (the unbatched path).  Every outer
-iteration does one Bellman backup (greedy step + residual) and one inexact
-solve of ``(I - gamma P_pi) v = g_pi`` warm-started at ``T v_k``; with 0
-inner iterations the update *is* ``T v_k``, so VI falls out as the
-degenerate case.  A monotone safeguard falls back to the VI step whenever
-a Krylov step fails to reduce the sup-norm Bellman residual.
+Counterpart of :mod:`repro.core.ipi`.  Every outer iteration does one
+Bellman backup (greedy step + residual) and one inexact solve of ``(I -
+gamma P_pi) v = g_pi`` warm-started at ``T v_k``; with 0 inner
+iterations the update *is* ``T v_k``, so VI falls out as the degenerate
+case.  A monotone safeguard falls back to the VI step whenever a Krylov
+step fails to reduce the sup-norm Bellman residual.
 
-The reference's ``lax.while_loop`` becomes a host loop in
-:func:`solve_chunk` that reads ``done | isnan(res) | diverged`` with the
-residual once per outer step; the safeguard's accept/reject decision is
-one more read.  A stream monitor gets its record from that same read.
+The loop runs on a batched MDP (leading ``B``,
+:func:`repro_torch.core.mdp.stack_mdps`; one instance is the fleet of one,
+:func:`repro_torch.core.mdp.as_fleet`) with a batched
+:class:`SolveState` — per-lane vectors, traces ``(B, ...)``, and host
+arrays ``k`` / ``inner_total``.  The reference's vmapped ``lax.while_loop``
+becomes one lockstep host loop in :func:`solve_chunk`: every step runs the
+outer core on all lanes at once (one launch of each kernel for the
+fleet), and an *active mask* (not done, no NaN, not diverged, ``k <
+k_hi``) freezes the lanes that have stopped, so each lane's ``k``,
+``inner_total`` and traces are what its independent solve gives.  All
+active lanes share one outer index (every lane starts at 0 and advances
+only while active), so each step writes one trace column.  One host read
+per outer step carries every lane's flags and residual (a stream monitor
+gets its record from it); the safeguard is a per-lane select behind one
+more read.  ``n_true`` (per lane) keeps a ragged fleet's padding states
+out of the span.
 """
 
 from __future__ import annotations
@@ -22,8 +34,8 @@ import torch
 
 from repro_torch.core import bellman, methods
 from repro_torch.core.comm import Axes
-from repro_torch.core.solvers import PC_TYPES, build_precond
-from repro_torch.core.mdp import MDP
+from repro_torch.core.solvers import PC_TYPES, build_precond, lanes
+from repro_torch.core.mdp import MDP, batch_parts, gammas_of
 
 MODES = ("mincost", "maxreward")
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -139,134 +151,207 @@ class IPIOptions:
 
 @dataclasses.dataclass(frozen=True)
 class SolveState:
-    """Solver state.  ``k`` and ``inner_total`` are host ints (the host
-    loop owns them); everything else lives on the solve device.  The trace
-    tensors keep the reference's fixed lengths and are written in place."""
+    """Solver state of a fleet of B lanes (one instance: B = 1).  ``k`` and
+    ``inner_total`` are host int64 arrays ``(B,)`` (the host loop owns
+    them); everything else lives on the solve device with a leading ``B``.
+    The trace tensors keep the reference's fixed lengths and are written
+    in place."""
 
-    v: torch.Tensor            # (n,) current value iterate
-    tv: torch.Tensor           # (n,) T v (one backup ahead)
-    pi: torch.Tensor           # (n,) int32 greedy policy (global ids)
-    res: torch.Tensor          # 0-d, ||T v - v||_inf
-    k: int                     # outer iterations done
-    inner_total: int           # cumulative inner iterations
-    trace_res: torch.Tensor    # (max_outer + 1,) residual after k outers
-    trace_inner: torch.Tensor  # (max_outer,) int32 inner iters per outer
-    res0: torch.Tensor         # 0-d, residual at k=0 (rtol baseline)
-    span: torch.Tensor         # 0-d, sp(T v - v) (inf unless needs_span)
-    done: torch.Tensor         # 0-d bool, stop criterion satisfied
-    diverged: torch.Tensor     # 0-d bool (sticky): NaN or > divtol * res0
+    v: torch.Tensor            # (B, n) current value iterate
+    tv: torch.Tensor           # (B, n) T v (one backup ahead)
+    pi: torch.Tensor           # (B, n) int32 greedy policy (global ids)
+    res: torch.Tensor          # (B,) ||T v - v||_inf
+    k: np.ndarray              # (B,) outer iterations done
+    inner_total: np.ndarray    # (B,) cumulative inner iterations
+    trace_res: torch.Tensor    # (B, max_outer + 1) residual after k outers
+    trace_inner: torch.Tensor  # (B, max_outer) int32 inner iters per outer
+    res0: torch.Tensor         # (B,) residual at k=0 (rtol baseline)
+    span: torch.Tensor         # (B,) sp(T v - v) (inf unless needs_span)
+    done: torch.Tensor         # (B,) bool, stop criterion satisfied
+    diverged: torch.Tensor     # (B,) bool (sticky): NaN or > divtol * res0
+    n_true: torch.Tensor       # (B,) int32 unpadded state counts
 
 
-def _span_of(d: torch.Tensor, opts: IPIOptions) -> torch.Tensor:
-    """Span seminorm ``sp(d) = max(d) - min(d)`` — computed only when the
-    stop criterion declared ``needs_span``, else a free ``+inf``.  (One
-    device holds no mesh-pad rows, so every row is a true state.)"""
+def _span_of(d: torch.Tensor, opts: IPIOptions,
+             n_true: torch.Tensor) -> torch.Tensor:
+    """Span seminorms ``sp(d) = max(d) - min(d)`` of the lanes of ``(B,
+    n)`` ``d`` — computed only when the stop criterion declared
+    ``needs_span``, else a free ``+inf`` — over each lane's true states:
+    rows ``>= n_true`` (a ragged fleet's padding) are masked out as the
+    reference masks them.  (One device holds no mesh-pad rows.)"""
     if not methods.get_stop(opts.stop_criterion).needs_span:
-        return torch.tensor(float("inf"), dtype=d.dtype, device=d.device)
-    return torch.max(d) - torch.min(d)
+        return torch.full(d.shape[:-1], float("inf"), dtype=d.dtype,
+                          device=d.device)
+    rows = torch.arange(d.shape[-1], device=d.device)
+    valid = rows[None, :] < n_true[:, None]
+    ninf = torch.tensor(-float("inf"), dtype=d.dtype, device=d.device)
+    dmax = torch.amax(torch.where(valid, d, ninf), dim=-1)
+    dmin = -torch.amax(torch.where(valid, -d, ninf), dim=-1)
+    return dmax - dmin
 
 
 def init_state(mdp: MDP, axes: Axes, opts: IPIOptions,
-               v0: torch.Tensor | None = None) -> SolveState:
+               v0: torch.Tensor | None = None, *,
+               n_true=None) -> SolveState:
+    """The k = 0 state of a batched MDP: one backup of ``v0`` (``(B, n)``,
+    zeros if not given).  ``n_true`` holds the lanes' unpadded state
+    counts (default: all ``n``)."""
     dt = DTYPES[opts.dtype]
     dev = mdp.device
-    v = torch.zeros((mdp.n_local,), dtype=dt, device=dev) if v0 is None \
-        else torch.as_tensor(v0).to(device=dev, dtype=dt)
-    tv, pi, _ = bellman.gather_backup(mdp, v, axes, mode=opts.mode)
+    batch = mdp.batch
+    v = torch.zeros((batch, mdp.n_local), dtype=dt, device=dev) \
+        if v0 is None else torch.as_tensor(v0).to(device=dev, dtype=dt)
+    gamma_t = batch_parts(mdp, dt)
+    tv, pi, _ = bellman.gather_backup(mdp, v, axes, mode=opts.mode,
+                                      gamma_t=gamma_t)
     tv = tv.to(dt)
-    res = axes.pmax_state(torch.max(torch.abs(tv - v)))
-    span = _span_of(tv - v, opts)
-    done = methods.stop_done(opts, res=res, span=span, res0=res, k=0,
-                             gamma=mdp.gamma)
-    trace_res = torch.full((opts.max_outer + 1,), float("nan"), dtype=dt,
-                           device=dev)
-    trace_res[0] = res
+    res = axes.norm_inf(tv - v)
+    nt = torch.tensor([mdp.n_local] * batch if n_true is None
+                      else list(n_true), dtype=torch.int32, device=dev)
+    span = _span_of(tv - v, opts, nt)
+    done = methods.stop_done(
+        opts, res=res, span=span, res0=res,
+        k=torch.zeros((batch,), dtype=torch.int32, device=dev),
+        gamma=mdp.gamma if gamma_t is None else gamma_t)
+    trace_res = torch.full((batch, opts.max_outer + 1), float("nan"),
+                           dtype=dt, device=dev)
+    trace_res[:, 0] = res
     return SolveState(
-        v=v, tv=tv, pi=pi, res=res, k=0, inner_total=0,
-        trace_res=trace_res,
-        trace_inner=torch.full((opts.max_outer,), -1, dtype=torch.int32,
-                               device=dev),
-        res0=res, span=span, done=done, diverged=torch.isnan(res))
+        v=v, tv=tv, pi=pi, res=res, k=np.zeros(batch, np.int64),
+        inner_total=np.zeros(batch, np.int64), trace_res=trace_res,
+        trace_inner=torch.full((batch, opts.max_outer), -1,
+                               dtype=torch.int32, device=dev),
+        res0=res, span=span, done=done, diverged=torch.isnan(res),
+        n_true=nt)
 
 
-def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions,
-                axes: Axes):
-    """One outer iteration minus the k/trace bookkeeping.  Returns
-    ``(v1, tv1, pi1, res1, span1, inner_iters)``."""
+def stop_flags(state: SolveState) -> tuple:
+    """``(stop, res, diverged)`` of every lane in one device read: host
+    arrays ``(B,)``."""
+    stop = state.done | torch.isnan(state.res) | state.diverged
+    flags = torch.stack([stop.to(torch.float64),
+                         state.res.to(torch.float64),
+                         state.diverged.to(torch.float64)]).cpu().numpy()
+    return flags[0] != 0, flags[1], flags[2] != 0
+
+
+def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
+                gamma_t, act: torch.Tensor | None, act_h: np.ndarray):
+    """One outer iteration of every lane minus the k/trace bookkeeping.
+    Lanes outside ``act`` (``None``: all lanes are active) are computed
+    but not solved for, and their results are dropped by the caller.
+    Returns ``(v1, tv1, pi1, res1, span1, inner_iters (B,) int32)``."""
     spec = methods.get_method(opts.method)
-    rows = bellman.policy_rows(mdp, state.pi, axes, dtype=state.tv.dtype)
-    b = bellman.b_pi(rows, axes).to(state.tv.dtype)
+    dt = state.tv.dtype
+    gammas = gammas_of(mdp)
+    rows = bellman.policy_rows(mdp, state.pi, axes, dtype=dt,
+                               gamma_t=gamma_t)
+    b = bellman.b_pi(rows, axes).to(dt)
     matvec = lambda x: bellman.a_pi_matvec(rows, x, axes)
     tol = torch.maximum(opts.forcing_eta * state.res,
                         torch.tensor(_TOL_FLOOR, dtype=state.res.dtype,
                                      device=state.res.device))
+    live = np.flatnonzero(act_h)
+    lane_pcs = [None] * mdp.batch
     precond = None
     if opts.pc_type != "none" and spec.ksp is not None:
-        # rebuilt every outer step from the policy rows the matvec holds
-        precond = build_precond(rows, axes=axes, n_local=mdp.n_local,
-                                gamma=mdp.gamma, pc_type=opts.pc_type,
-                                block=opts.pc_block, dtype=state.tv.dtype)
-    v1, inner_iters, _ = methods.inner_solve(
-        opts, matvec, b, state.tv, tol, axes,
-        context=dict(gamma=mdp.gamma), precond=precond)
+        # rebuilt every outer step, per lane with the lane's gamma, from
+        # the policy rows the matvec holds
+        for i in live:
+            lane_pcs[i] = build_precond(
+                rows.lane(i, gammas[i]), axes=axes, n_local=mdp.n_local,
+                gamma=gammas[i], pc_type=opts.pc_type, block=opts.pc_block,
+                dtype=dt)
+        precond = lambda x: torch.stack(
+            [x[i] if pc is None else pc(x[i])
+             for i, pc in enumerate(lane_pcs)])
+
+    def lane(i):
+        rows_i = rows.lane(i, gammas[i])
+        return (lambda x: bellman.a_pi_matvec(rows_i, x, axes),
+                dict(gamma=gammas[i]), lane_pcs[i])
+
+    v1, inner = methods.inner_solve(
+        opts, matvec, b, state.tv, tol, axes, live=act, live_lanes=live,
+        lane=lane, precond=precond)
 
     def eval_at(v):
-        tv, pi, _ = bellman.gather_backup(mdp, v, axes, mode=opts.mode)
-        res = axes.pmax_state(torch.max(torch.abs(tv - v)))
-        return v, tv, pi, res
+        tv, pi, _ = bellman.gather_backup(mdp, v, axes, mode=opts.mode,
+                                          gamma_t=gamma_t)
+        return v, tv, pi, axes.norm_inf(tv - v)
 
     cand = eval_at(v1)
     if opts.safeguard and spec.safeguarded and spec.ksp is not None:
-        # Krylov-type steps are not contractions; reject any step that
-        # increases the Bellman residual and take the VI step instead.
-        if not bool(cand[3] <= state.res):
+        # Krylov-type steps are not contractions: a step that increases a
+        # lane's Bellman residual is replaced by its VI step, computed
+        # only when some active lane rejects
+        reject = ~(cand[3] <= state.res)
+        if act is not None:
+            reject = reject & act
+        reject_h = reject.cpu().numpy()
+        if reject_h.all():
             cand = eval_at(state.tv)
+        elif reject_h.any():
+            fall = eval_at(state.tv)
+            cand = tuple(torch.where(reject.view(-1, *[1] * (c.dim() - 1)),
+                                     f, c) for c, f in zip(cand, fall))
     v1, tv1, pi1, res1 = cand
-    span1 = _span_of(tv1 - v1, opts)
-    return v1, tv1, pi1, res1, span1, inner_iters
-
-
-def outer_step(mdp: MDP, state: SolveState, opts: IPIOptions,
-               axes: Axes) -> SolveState:
-    """One outer iPI iteration (greedy policy is already in ``state``).
-    Writes this step's entries of the trace tensors in place."""
-    v1, tv1, pi1, res1, span1, inner_iters = _outer_core(mdp, state, opts,
-                                                         axes)
-    k1 = state.k + 1
-    done = methods.stop_done(opts, res=res1, span=span1, res0=state.res0,
-                             k=k1, gamma=mdp.gamma)
-    div1 = state.diverged | torch.isnan(res1) | \
-        (res1 > opts.divtol * torch.clamp_min(state.res0, 1e-30))
-    state.trace_res[k1] = res1
-    state.trace_inner[state.k] = inner_iters
-    return SolveState(
-        v=v1, tv=tv1, pi=pi1, res=res1, k=k1,
-        inner_total=state.inner_total + inner_iters,
-        trace_res=state.trace_res, trace_inner=state.trace_inner,
-        res0=state.res0, span=span1, done=done, diverged=div1)
-
-
-def stop_flags(state: SolveState) -> tuple[bool, float, bool]:
-    """``(stop, res, diverged)`` of ``state`` in one device read."""
-    stop = state.done | torch.isnan(state.res) | state.diverged
-    flags = torch.stack([stop.to(torch.float64),
-                         state.res.to(torch.float64),
-                         state.diverged.to(torch.float64)]).tolist()
-    return bool(flags[0]), flags[1], bool(flags[2])
+    span1 = _span_of(tv1 - v1, opts, state.n_true)
+    return v1, tv1, pi1, res1, span1, inner
 
 
 def solve_chunk(mdp: MDP, state: SolveState, k_hi: int,
                 opts: IPIOptions, axes: Axes,
                 on_step=None) -> SolveState:
-    """Run outer iterations until convergence, a NaN residual, divergence
-    or ``k == k_hi``: one device read of the stop flags and the residual
-    per step.  ``on_step(k, res, inner, diverged)``, if given, receives
-    each step's record from that read (the stream monitor)."""
-    stop, _, _ = stop_flags(state)
-    while not stop and state.k < k_hi:
-        inner0 = state.inner_total
-        state = outer_step(mdp, state, opts, axes)
-        stop, res, div = stop_flags(state)
+    """Run outer iterations until every lane has converged, hit a NaN
+    residual, diverged or reached ``k == k_hi`` (module docstring): one
+    device read of the lanes' flags and residuals per step.
+    ``on_step(k, res, inner, diverged)``, if given, receives each step's
+    record from that read (the stream monitor), one entry a lane."""
+    dt = DTYPES[opts.dtype]
+    dev = state.v.device
+    gamma_t = batch_parts(mdp, dt)
+    gamma = mdp.gamma if gamma_t is None else gamma_t
+    stop_h, _, _ = stop_flags(state)
+    while True:
+        act_h = ~stop_h & (state.k < k_hi)
+        if not act_h.any():
+            return state
+        # with every lane active no lane is masked, and nothing is copied
+        act = None if act_h.all() else lanes.to_device(act_h, dev)
+        v1, tv1, pi1, res1, span1, inner = _outer_core(
+            mdp, state, opts, axes, gamma_t, act, act_h)
+        k1 = state.k + act_h
+        done1 = methods.stop_done(
+            opts, res=res1, span=span1, res0=state.res0,
+            k=lanes.to_device(k1.astype(np.int32), dev), gamma=gamma)
+        div = torch.isnan(res1) | (
+            res1 > opts.divtol * torch.clamp_min(state.res0, 1e-30))
+        sel = lambda new, old: lanes.keep(act, act is None, new, old)
+        div1 = state.diverged | (div if act is None else act & div)
+        # lockstep: every active lane writes outer index k_col; frozen
+        # lanes keep their column
+        k_col = int(k1[act_h].max())
+        state.trace_res[:, k_col] = sel(res1.to(state.trace_res.dtype),
+                                        state.trace_res[:, k_col])
+        if act is not None:
+            inner = torch.where(act, inner, 0)
+        state.trace_inner[:, k_col - 1] = sel(
+            inner, state.trace_inner[:, k_col - 1])
+        res = sel(res1, state.res)
+        done = sel(done1, state.done)
+        stop = done | torch.isnan(res) | div1
+        # the step's one read: every lane's flags, residual, inner count
+        flags = torch.stack([stop.to(torch.float64), res.to(torch.float64),
+                             div1.to(torch.float64),
+                             inner.to(torch.float64)]).cpu().numpy()
+        stop_h, inner_h = flags[0] != 0, flags[3].astype(np.int64)
+        state = SolveState(
+            v=sel(v1, state.v), tv=sel(tv1, state.tv),
+            pi=sel(pi1, state.pi), res=res, k=k1,
+            inner_total=state.inner_total + inner_h,
+            trace_res=state.trace_res, trace_inner=state.trace_inner,
+            res0=state.res0, span=sel(span1, state.span), done=done,
+            diverged=div1, n_true=state.n_true)
         if on_step is not None:
-            on_step(state.k, res, state.inner_total - inner0, div)
-    return state
+            on_step(k_col, flags[1], inner_h, flags[2] != 0)

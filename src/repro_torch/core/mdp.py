@@ -7,7 +7,20 @@ in-range index, so gathers stay in bounds and the arithmetic is exact.
 Successor indices are global state ids.  A :class:`DenseMDP` stores the
 full ``(n, m, n_cols)`` transition tensor.
 
-Batched and matrix-free containers are not ported yet.
+Batched fleets
+--------------
+Both containers optionally carry a leading batch dimension ``B`` (a
+*fleet* of same-shape instances solved in one lockstep loop —
+:func:`repro_torch.core.driver.solve_many`).  :func:`stack_mdps` builds
+the batched container from per-instance MDPs with the reference's rules:
+heterogeneous ELL state counts are padded with absorbing zero-cost
+states, one ``idx`` is stored unbatched when every instance has the same
+sparsity pattern (a gamma sweep: *shared topology*), and ``gamma`` is a
+float for a homogeneous fleet or a tuple of per-instance floats.
+:func:`batch_parts` turns a per-instance gamma into the ``(B,)`` tensor
+the kernels take; :func:`as_fleet` makes one instance the fleet of one,
+as the solver loop runs it.  Matrix-free containers are not ported yet (ROADMAP
+queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -19,6 +32,9 @@ import torch
 
 from repro_torch.device import resolve_device
 
+# the ROADMAP queue 1 item that ports matrix-free containers
+MATRIX_FREE_ITEM = 11
+
 
 @dataclasses.dataclass(frozen=True)
 class EllMDP:
@@ -27,14 +43,38 @@ class EllMDP:
     idx:  (n, m, K) int32 — global successor ids (pad: 0)
     val:  (n, m, K) f32   — transition probabilities (pad: 0)
     cost: (n, m)    f32   — stage costs g(s, a)
+
+    Batched (``B``-instance fleet): ``val`` / ``cost`` gain a leading
+    batch dim; ``idx`` is either batched ``(B, n, m, K)`` or shared
+    ``(n, m, K)`` (one topology for every instance); ``gamma`` is a float
+    or a length-B tuple of per-instance floats.
     """
 
     idx: torch.Tensor
     val: torch.Tensor
     cost: torch.Tensor
-    gamma: float
+    gamma: float | tuple
     n_global: int
     m_global: int
+
+    @property
+    def batch(self) -> int | None:
+        """Fleet size ``B``, or ``None`` for an unbatched instance."""
+        return self.val.shape[0] if self.val.dim() == 4 else None
+
+    @property
+    def shared_topology(self) -> bool:
+        """Batched with one ``idx`` shared by every instance."""
+        return self.batch is not None and self.idx.dim() == 3
+
+    def instance(self, b: int) -> "EllMDP":
+        """The unbatched instance ``b`` of a fleet (views of its tables)."""
+        if self.batch is None:
+            raise ValueError("instance() is only defined on a batched MDP")
+        return EllMDP(idx=self.idx if self.shared_topology else self.idx[b],
+                      val=self.val[b], cost=self.cost[b],
+                      gamma=gammas_of(self)[b], n_global=self.n_global,
+                      m_global=self.m_global)
 
     @property
     def n_local(self) -> int:
@@ -78,7 +118,8 @@ class EllMDP:
         """Host-side sanity checks (probability rows, index ranges)."""
         idx = self.idx.cpu().numpy()
         val = self.val.cpu().numpy()
-        if idx.shape[-3:] != val.shape[-3:]:
+        if idx.shape[-3:] != val.shape[-3:] or val.ndim not in (3, 4) \
+                or (idx.ndim == 4 and idx.shape[0] != val.shape[0]):
             raise ValueError(f"idx shape {idx.shape} != val shape "
                              f"{val.shape}")
         if tuple(self.cost.shape) != val.shape[:-1]:
@@ -96,7 +137,7 @@ class EllMDP:
                              f"sums to {rowsum[bad]}, not 1")
         if not (val >= -1e-7).all():
             raise ValueError("transition probabilities must be >= 0")
-        _check_gamma(self.gamma)
+        _check_gammas(self)
 
     def as_dense(self) -> "DenseMDP":
         """Materialize the dense tensor on the tables' device (small
@@ -106,6 +147,8 @@ class EllMDP:
         order, ``k = 0 .. K-1`` from ``+0``: one ``index_put_`` per ``k``,
         within which no two writes share a ``(s, a)`` row, so the bits are
         the same on every device."""
+        if self.batch is not None:
+            raise ValueError("as_dense() is unbatched-only; use instance(b)")
         n, m, k = self.idx.shape
         dev = self.device
         p = torch.zeros((n, m, self.n_global), dtype=self.val.dtype,
@@ -126,13 +169,31 @@ class DenseMDP:
 
     p:    (n, m, n_cols) f32 — transition probabilities P(s, a, s')
     cost: (n, m)         f32 — stage costs g(s, a)
+
+    Batched fleet: leading ``B`` dim on both tensors; ``gamma`` as in
+    :class:`EllMDP`.
     """
 
     p: torch.Tensor
     cost: torch.Tensor
-    gamma: float
+    gamma: float | tuple
     n_global: int
     m_global: int
+
+    @property
+    def batch(self) -> int | None:
+        return self.p.shape[0] if self.p.dim() == 4 else None
+
+    @property
+    def shared_topology(self) -> bool:
+        return False
+
+    def instance(self, b: int) -> "DenseMDP":
+        if self.batch is None:
+            raise ValueError("instance() is only defined on a batched MDP")
+        return DenseMDP(p=self.p[b], cost=self.cost[b],
+                        gamma=gammas_of(self)[b], n_global=self.n_global,
+                        m_global=self.m_global)
 
     @property
     def n_local(self) -> int:
@@ -169,9 +230,11 @@ class DenseMDP:
         tables' own device: a table that fills the card is never copied to
         the host to be checked."""
         p = self.p
-        if p.dim() != 3 or tuple(self.cost.shape) != tuple(p.shape[:2]):
-            raise ValueError(f"p must be (n, m, n_cols) and cost (n, m); got "
-                             f"{tuple(p.shape)} and {tuple(self.cost.shape)}")
+        if p.dim() not in (3, 4) \
+                or tuple(self.cost.shape) != tuple(p.shape[:-1]):
+            raise ValueError(f"p must be ([B,] n, m, n_cols) and cost "
+                             f"([B,] n, m); got {tuple(p.shape)} and "
+                             f"{tuple(self.cost.shape)}")
         if p.shape[-1] != self.n_global:
             raise ValueError(f"p has {p.shape[-1]} columns, not n_global = "
                              f"{self.n_global}")
@@ -184,10 +247,116 @@ class DenseMDP:
                                  f" sums to {float(rowsum[bad])}, not 1")
             if not float(p.min()) >= -1e-7:
                 raise ValueError("transition probabilities must be >= 0")
-        _check_gamma(self.gamma)
+        _check_gammas(self)
 
 
 MDP = EllMDP | DenseMDP   # a materialized MDP block
+
+
+# --------------------------------------------------------------------------- #
+# Fleet (batched multi-instance) construction                                 #
+# --------------------------------------------------------------------------- #
+
+def gammas_of(mdp: MDP) -> tuple:
+    """Per-instance discount factors as a tuple (length B, or 1 unbatched)."""
+    if isinstance(mdp.gamma, tuple):
+        return mdp.gamma
+    return (mdp.gamma,) * (mdp.batch or 1)
+
+
+def stack_mdps(mdps) -> MDP:
+    """Stack per-instance MDPs into one batched fleet container.
+
+    All instances must share the container type, action count and (for
+    ELL) nnz/row; heterogeneous ELL state counts are padded to the largest
+    with absorbing zero-cost self-loops (trim results with the
+    per-instance ``n_global`` you kept).  When every instance has the same
+    sparsity pattern the single ``idx`` is stored unbatched.  A
+    heterogeneous ``gamma`` is kept as a per-instance tuple.  The tables
+    are stacked on the first instance's device.
+    """
+    mdps = list(mdps)
+    if not mdps:
+        raise ValueError("stack_mdps needs at least one MDP")
+    first = mdps[0]
+    if any(not isinstance(m, (EllMDP, DenseMDP)) for m in mdps):
+        bad = sorted({type(m).__name__ for m in mdps
+                      if not isinstance(m, (EllMDP, DenseMDP))})
+        raise TypeError(f"stack_mdps takes EllMDP or DenseMDP instances, "
+                        f"got {bad} (matrix-free fleets are not yet ported "
+                        f"to repro_torch: ROADMAP queue 1 item "
+                        f"{MATRIX_FREE_ITEM})")
+    if any(type(m) is not type(first) for m in mdps):
+        raise ValueError("stack_mdps: all instances must share one container "
+                         f"type, got {sorted({type(m).__name__ for m in mdps})}")
+    if any(m.batch is not None for m in mdps):
+        raise ValueError("stack_mdps takes unbatched instances")
+    if any(m.m_global != first.m_global for m in mdps):
+        raise ValueError("stack_mdps: action counts differ "
+                         f"({[m.m_global for m in mdps]}); pad actions first")
+    gammas = tuple(float(m.gamma) for m in mdps)
+    gamma = gammas[0] if len(set(gammas)) == 1 else gammas
+    dev = first.device
+    if isinstance(first, DenseMDP):
+        if any(m.n_global != first.n_global for m in mdps):
+            raise ValueError("stack_mdps(DenseMDP): state counts must match")
+        return DenseMDP(p=torch.stack([m.p.to(dev) for m in mdps]),
+                        cost=torch.stack([m.cost.to(dev) for m in mdps]),
+                        gamma=gamma, n_global=first.n_global,
+                        m_global=first.m_global)
+    if any(m.nnz_per_row != first.nnz_per_row for m in mdps):
+        raise ValueError("stack_mdps(EllMDP): nnz/row differ "
+                         f"({[m.nnz_per_row for m in mdps]})")
+    n_to = max(m.n_global for m in mdps)
+    k, m_g = first.nnz_per_row, first.m_global
+    idxs, vals, costs = [], [], []
+    for m in mdps:
+        hi, hv, hc = m.idx.to(dev), m.val.to(dev), m.cost.to(dev)
+        if m.n_global < n_to:
+            # absorbing zero-cost self-loops, the reference's state padding
+            # (value identically 0, unreachable from real states)
+            n_pad = n_to - m.n_global
+            pad_idx = torch.zeros((n_pad, m_g, k), dtype=hi.dtype,
+                                  device=dev)
+            pad_idx[..., 0] = torch.arange(m.n_global, n_to, dtype=hi.dtype,
+                                           device=dev)[:, None]
+            pad_val = torch.zeros((n_pad, m_g, k), dtype=hv.dtype,
+                                  device=dev)
+            pad_val[..., 0] = 1.0
+            hi = torch.cat([hi, pad_idx])
+            hv = torch.cat([hv, pad_val])
+            hc = torch.cat([hc, torch.zeros((n_pad, m_g), dtype=hc.dtype,
+                                            device=dev)])
+        idxs.append(hi)
+        vals.append(hv)
+        costs.append(hc)
+    shared = all(torch.equal(i, idxs[0]) for i in idxs[1:])
+    idx = idxs[0].contiguous() if shared else torch.stack(idxs)
+    return EllMDP(idx=idx, val=torch.stack(vals), cost=torch.stack(costs),
+                  gamma=gamma, n_global=n_to, m_global=m_g)
+
+
+def as_fleet(mdp: MDP) -> MDP:
+    """One instance as the fleet of one: views of its tables with a
+    leading ``B = 1`` (an ELL ``idx`` stays unbatched, as a shared
+    topology) and its float ``gamma``."""
+    if mdp.batch is not None:
+        raise ValueError("as_fleet() takes one MDP instance")
+    if isinstance(mdp, DenseMDP):
+        return dataclasses.replace(mdp, p=mdp.p[None], cost=mdp.cost[None])
+    return dataclasses.replace(mdp, val=mdp.val[None], cost=mdp.cost[None])
+
+
+def batch_parts(mdp: MDP, dtype: torch.dtype) -> torch.Tensor | None:
+    """The per-instance discounts of a batched MDP as the ``(B,)`` tensor
+    the kernels take, in ``dtype`` (the solve's) on the tables' device, or
+    ``None`` for a homogeneous fleet, which keeps the Python float and
+    with it the unbatched arithmetic."""
+    if mdp.batch is None:
+        raise ValueError("batch_parts() requires a batched MDP")
+    if not (isinstance(mdp.gamma, tuple) and len(set(mdp.gamma)) > 1):
+        return None
+    return torch.tensor(mdp.gamma, dtype=dtype, device=mdp.device)
 
 
 def _put(x, dtype, dev: torch.device) -> torch.Tensor:
@@ -197,7 +366,11 @@ def _put(x, dtype, dev: torch.device) -> torch.Tensor:
                                      copy=True)).to(dev)
 
 
-def _check_gamma(gamma: float) -> None:
-    if not 0.0 < gamma < 1.0:
-        raise ValueError(f"gamma must lie in (0, 1), got {gamma}")
+def _check_gammas(mdp: MDP) -> None:
+    gammas = gammas_of(mdp)
+    if mdp.batch is not None and len(gammas) != mdp.batch:
+        raise ValueError(f"{len(gammas)} gammas for a fleet of {mdp.batch}")
+    for gamma in gammas:
+        if not 0.0 < gamma < 1.0:
+            raise ValueError(f"gamma must lie in (0, 1), got {gamma}")
 

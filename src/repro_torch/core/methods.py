@@ -24,7 +24,15 @@ callers that cache something keyed by a registered name.
 
 The monitor dispatch table also lives here: the solve's host loop emits
 one record per outer iteration (:func:`emit_host`) to the monitor
-registered under an integer id (:func:`monitor_handle`).
+registered under an integer id (:func:`monitor_handle`); a fleet's record
+holds one entry a lane.
+
+Fleets (:func:`inner_solve`; an unbatched solve is the fleet of one): a
+KSP registered with a batched form (``KSPSpec.fleet``: Richardson, GMRES,
+BiCGStab) solves all lanes in lockstep through the kernels' lane axis;
+any other KSP (Chebyshev, Anderson, user KSPs) runs lane by lane, its
+unbatched form on each live lane's own system — each lane's result is
+its independent solve's.
 """
 
 from __future__ import annotations
@@ -40,8 +48,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.comm import Axes
-from repro_torch.core.solvers import (anderson, bicgstab, chebyshev, gmres,
-                                      richardson)
+from repro_torch.core.solvers import (anderson, bicgstab, bicgstab_fleet,
+                                      chebyshev, gmres, gmres_fleet,
+                                      richardson, richardson_fleet)
 
 __all__ = [
     "KSPSpec", "MethodSpec", "StopMetrics", "StopSpec",
@@ -50,7 +59,8 @@ __all__ = [
     "ksp_names", "method_names", "stop_names",
     "get_ksp", "get_method", "get_stop", "method_for_ksp",
     "check_ksp", "check_method", "check_stop",
-    "inner_solve", "stop_done", "adhoc_stop_criterion", "suggest",
+    "inner_solve", "stop_done", "adhoc_stop_criterion",
+    "suggest",
     "monitor_handle", "monitor_release", "emit_host", "print_monitor",
 ]
 
@@ -78,6 +88,10 @@ class KSPSpec:
     #                              accumulation orders)
     builtin: bool = False
     preconditioned: bool = False  # accepts a `precond` apply (-pc_type)
+    fleet: Callable | None = None  # batched form over (B, n) systems:
+    #                                fleet(matvec, b, x0, tol, maxiter,
+    #                                axes, opts, precond, live)
+    #                                -> (x, iters (B,), res (B,))
 
     def call(self, matvec, b, x0, *, tol, maxiter, axes, opts, context,
              precond=None):
@@ -101,14 +115,15 @@ class MethodSpec:
 
 @dataclasses.dataclass(frozen=True)
 class StopMetrics:
-    """Per-outer-iteration quantities a stopping criterion may read."""
+    """Per-outer-iteration quantities a stopping criterion may read (for a
+    fleet, ``(B,)`` tensors: one value a lane)."""
 
     res: torch.Tensor       # ||T v - v||_inf (the Bellman residual)
     span: torch.Tensor      # sp(T v - v) = max - min (inf unless the
     #                         criterion declared needs_span)
     res0: torch.Tensor      # residual at k = 0 (rtol baseline)
-    k: int                  # outer iterations done
-    gamma: float
+    k: int | torch.Tensor   # outer iterations done
+    gamma: float | torch.Tensor
     atol: float
     rtol: float
 
@@ -189,7 +204,8 @@ def _check_free(registry: Mapping[str, Any], kind: str, name: str,
 def register_ksp(name: str, fn: Callable | None = None, *, doc: str = "",
                  deterministic: bool = False, auto_method: bool = True,
                  preconditioned: bool = False,
-                 overwrite: bool = False, _builtin: bool = False):
+                 overwrite: bool = False, _builtin: bool = False,
+                 _fleet: Callable | None = None):
     """Register an inner linear solver (usable as a decorator).
 
     ``fn(matvec, b, x0, *, tol, maxiter, axes)`` returns ``(x, iters,
@@ -204,12 +220,13 @@ def register_ksp(name: str, fn: Callable | None = None, *, doc: str = "",
                                       deterministic=deterministic,
                                       auto_method=auto_method,
                                       preconditioned=preconditioned,
-                                      overwrite=overwrite, _builtin=_builtin)
+                                      overwrite=overwrite, _builtin=_builtin,
+                                      _fleet=_fleet)
     _check_free(_KSPS, "ksp", name, overwrite)
     spec = KSPSpec(name=name, fn=_normalize_ksp_fn(fn),
                    doc=doc or (fn.__doc__ or "").strip().split("\n")[0],
                    deterministic=deterministic, builtin=_builtin,
-                   preconditioned=preconditioned)
+                   preconditioned=preconditioned, fleet=_fleet)
     _KSPS[name] = spec
     if auto_method and f"ipi_{name}" not in _METHODS:
         register_method(f"ipi_{name}", ksp=name, inner="forcing",
@@ -390,41 +407,63 @@ def method_for_ksp(ksp: str) -> str:
 # Dispatch: the inner solve and the outer stopping decision                   #
 # --------------------------------------------------------------------------- #
 
-def inner_solve(opts, matvec, b, x0, forcing_tol, axes: Axes, *,
-                context: Mapping[str, Any] | None = None, precond=None):
-    """Run ``opts.method``'s inner policy-evaluation solve.
+def _inner_bounds(opts, spec: MethodSpec, forcing_tol, dev):
+    """``(tol, maxiter)`` of the method's inner policy; tolerances keep the
+    reference's dtypes (a float32 ``0`` for sweeps, ``float32(atol) *
+    0.01`` for tight)."""
+    if spec.inner == "sweeps":
+        return (torch.tensor(0.0, dtype=torch.float32, device=dev),
+                max(opts.mpi_sweeps - 1, 0))
+    if spec.inner == "tight":
+        return (torch.tensor(np.float32(opts.atol), device=dev) * 0.01,
+                opts.max_inner)
+    return forcing_tol, opts.max_inner
 
-    Returns ``(x, iters, resnorm)``.  ``forcing_tol`` is the iPI forcing
-    term ``eta * ||T v - v||_inf`` (already floored); the method's inner
-    policy decides whether it, a fixed sweep count, or a tight absolute
-    tolerance bounds the KSP.  Tolerances keep the reference's dtypes
-    (a float32 ``0`` for sweeps, ``float32(atol) * 0.01`` for tight).
+
+def inner_solve(opts, matvec, b, x0, forcing_tol, axes: Axes, *,
+                live: torch.Tensor, live_lanes, lane, precond=None):
+    """Run ``opts.method``'s inner policy-evaluation solve on a fleet of
+    ``(B, n)`` systems (an unbatched solve is the fleet of one).
+
+    ``forcing_tol`` is the iPI forcing term ``eta * ||T v - v||_inf``
+    (``(B,)``, already floored); the method's inner policy decides whether
+    it, a fixed sweep count, or a tight absolute tolerance bounds the KSP.
+    Tolerances keep the reference's dtypes (a float32 ``0`` for sweeps,
+    ``float32(atol) * 0.01`` for tight).  Lanes outside ``live`` (the
+    frozen ones) are not solved and report 0 iterations.  A KSP with a
+    batched form runs it on the batched ``matvec`` / ``precond``; any other
+    KSP runs lane by lane over ``live_lanes`` (host indices), on ``lane(b)
+    -> (matvec_b, context_b, precond_b)``, the lane's own unbatched system.
     ``precond`` reaches only KSPs that declared ``preconditioned=True``.
+    Returns ``(x (B, n), iters (B,) int32 on the solve device)``.
     """
     spec = get_method(opts.method)
-    if spec.ksp is None:
-        return x0, 0, torch.tensor(float("inf"), dtype=torch.float32)
-    ksp = get_ksp(spec.ksp)
     dev = x0.device
-    if spec.inner == "sweeps":
-        tol = torch.tensor(0.0, dtype=torch.float32, device=dev)
-        maxiter = max(opts.mpi_sweeps - 1, 0)
-    elif spec.inner == "tight":
-        tol = torch.tensor(np.float32(opts.atol), device=dev) * 0.01
-        maxiter = opts.max_inner
-    else:
-        tol, maxiter = forcing_tol, opts.max_inner
-    x, iters, res = ksp.call(matvec, b, x0, tol=tol, maxiter=maxiter,
-                             axes=axes, opts=opts,
-                             context=dict(context or {}),
-                             precond=precond if ksp.preconditioned
-                             else None)
-    return x, int(iters), res
+    lanes = x0.shape[0]
+    if spec.ksp is None:
+        return x0, torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    ksp = get_ksp(spec.ksp)
+    tol, maxiter = _inner_bounds(opts, spec, forcing_tol, dev)
+    if ksp.fleet is not None:
+        x, iters, _ = ksp.fleet(matvec, b, x0, tol, maxiter, axes, opts,
+                                precond if ksp.preconditioned else None,
+                                live)
+        return x, iters
+    x = x0.clone()
+    iters = [0] * lanes
+    for i in live_lanes:
+        mv, context, pc = lane(i)
+        x[i], it, _ = ksp.call(
+            mv, b[i], x0[i], tol=tol[i] if tol.dim() else tol,
+            maxiter=maxiter, axes=axes, opts=opts, context=context,
+            precond=pc if ksp.preconditioned else None)
+        iters[i] = int(it)
+    return x, torch.tensor(iters, dtype=torch.int32, device=dev)
 
 
 def stop_done(opts, *, res, span, res0, k, gamma) -> torch.Tensor:
-    """Evaluate ``opts.stop_criterion`` -> 0-d bool "converged".  NaN
-    residuals never converge."""
+    """Evaluate ``opts.stop_criterion`` -> bool "converged" (0-d, or
+    elementwise over a fleet's lanes).  NaN residuals never converge."""
     spec = get_stop(opts.stop_criterion)
     m = StopMetrics(res=res, span=span, res0=res0, k=k, gamma=gamma,
                     atol=opts.atol, rtol=opts.rtol)
@@ -485,6 +524,13 @@ def monitor_release(mid: int) -> None:
 
 def _record(mid_entry, k, res, inner, diverged=False) -> dict:
     _, t0 = mid_entry
+    res = np.asarray(res)
+    if res.ndim:                           # a fleet: one entry a lane
+        div = np.broadcast_to(np.asarray(diverged), res.shape)
+        return dict(k=int(np.max(k)), res=[float(x) for x in res],
+                    inner=[int(x) for x in np.asarray(inner)],
+                    diverged=[bool(x) for x in div],
+                    elapsed=time.perf_counter() - t0)
     return dict(k=int(k), res=float(res), inner=int(inner),
                 diverged=bool(diverged), elapsed=time.perf_counter() - t0)
 
@@ -529,7 +575,10 @@ register_ksp(
         richardson(mv, b, x0, tol=tol, maxiter=maxiter, axes=axes,
                    omega=opts.omega if opts is not None else 1.0),
     doc="(damped) Richardson iteration == repeated T_pi sweeps",
-    deterministic=True, auto_method=False, _builtin=True)
+    deterministic=True, auto_method=False, _builtin=True,
+    _fleet=lambda mv, b, x0, tol, maxiter, axes, opts, precond, live:
+        richardson_fleet(mv, b, x0, tol=tol, maxiter=maxiter, axes=axes,
+                         omega=opts.omega, live=live))
 
 register_ksp(
     "gmres",
@@ -540,7 +589,12 @@ register_ksp(
               else False, precond=precond),
     doc="restarted GMRES (CGS2 + Givens) — the iGMRES-PI inner solver",
     deterministic=True, auto_method=False, preconditioned=True,
-    _builtin=True)
+    _builtin=True,
+    _fleet=lambda mv, b, x0, tol, maxiter, axes, opts, precond, live:
+        gmres_fleet(mv, b, x0, tol=tol, maxiter=maxiter, axes=axes,
+                    restart=opts.restart,
+                    deterministic=bool(opts.deterministic_dots),
+                    precond=precond, live=live))
 
 register_ksp(
     "bicgstab",
@@ -549,7 +603,10 @@ register_ksp(
                  precond=precond),
     doc="BiCGStab — O(1)-memory Krylov alternative",
     deterministic=False, auto_method=False, preconditioned=True,
-    _builtin=True)
+    _builtin=True,
+    _fleet=lambda mv, b, x0, tol, maxiter, axes, opts, precond, live:
+        bicgstab_fleet(mv, b, x0, tol=tol, maxiter=maxiter, axes=axes,
+                       precond=precond, live=live))
 
 register_ksp(
     "chebyshev",

@@ -2,12 +2,13 @@
 their preconditioners, and the dense direct oracle."""
 
 from repro_torch.core.solvers.anderson import anderson
-from repro_torch.core.solvers.bicgstab import bicgstab
+from repro_torch.core.solvers.bicgstab import bicgstab, bicgstab_fleet
 from repro_torch.core.solvers.chebyshev import chebyshev
 from repro_torch.core.solvers.direct import dense_policy_value
-from repro_torch.core.solvers.gmres import gmres
+from repro_torch.core.solvers.gmres import gmres, gmres_fleet
 from repro_torch.core.solvers.precond import PC_TYPES, build_precond
-from repro_torch.core.solvers.richardson import richardson
+from repro_torch.core.solvers.richardson import richardson, richardson_fleet
 
-__all__ = ["PC_TYPES", "anderson", "bicgstab", "build_precond",
-           "chebyshev", "dense_policy_value", "gmres", "richardson"]
+__all__ = ["PC_TYPES", "anderson", "bicgstab", "bicgstab_fleet",
+           "build_precond", "chebyshev", "dense_policy_value", "gmres",
+           "gmres_fleet", "richardson", "richardson_fleet"]

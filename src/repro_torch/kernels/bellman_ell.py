@@ -13,9 +13,17 @@ row length and the tables' alignment allow it, else 4-byte ones.
 ``cost + gamma * pv`` as two torch ops, each rounded on its own; it equals
 :func:`repro_torch.kernels.ref.ell_qvalues` bit for bit.
 
+A fleet is one launch of each: ``val`` ``(B, n, m, K)``, ``cost``
+``(B, n, m)``, ``idx`` ``(B, n, m, K)`` or shared ``(n, m, K)``, ``v``
+``(B, n_v)`` or shared ``(n_v,)``, and ``gamma`` a float or a ``(B,)``
+tensor; the kernel's lane axis (``csrc/lanes.cuh``) gives each lane the
+unbatched body, so lane ``b`` equals the unbatched call on lane ``b``'s
+operands bit for bit.
+
 Both take CUDA tensors only, check them, allocate the outputs, launch on
 PyTorch's current stream and raise on any launch error.  ``launches``
-counts the backup's launches, ``qvalues_launches`` the Q table's.
+counts the backup's launches, ``qvalues_launches`` the Q table's (one a
+call, whatever B).
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, spmv_ell
+from repro_torch.kernels import build, lanes, spmv_ell
 
 SOURCE = "ell_backup"
 
@@ -36,16 +44,17 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_typed", False):
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for fn, g in ((lib.ell_backup_f32, ctypes.c_float),
-                      (lib.ell_backup_f64, ctypes.c_double)):
-            fn.argtypes = [ptr, ptr, ptr, ptr, g, i64, i32, i32, ptr, ptr,
-                           ptr]
+        for fn in (lib.ell_backup_f32, lib.ell_backup_f64):
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32,
+                           ptr, ptr, ptr, ptr]
             fn.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def _check(idx, val, cost, v, what: str = "ell_backup") -> torch.dtype:
+def _check(idx, val, cost, v, what: str = "ell_backup") \
+        -> tuple[torch.dtype, int | None]:
+    """The accumulation dtype and the lane count (``None`` unbatched)."""
     dev = v.device
     if dev.type != "cuda":
         raise ValueError(f"{what} kernel takes CUDA tensors, got v on {dev}")
@@ -58,49 +67,72 @@ def _check(idx, val, cost, v, what: str = "ell_backup") -> torch.dtype:
             or cost.dtype != torch.float32:
         raise ValueError(f"{what} takes int32 idx and float32 val/cost, "
                          f"got {idx.dtype}/{val.dtype}/{cost.dtype}")
-    if v.dtype not in (torch.float32, torch.float64) or v.dim() != 1 \
-            or not v.is_contiguous():
-        raise ValueError(f"{what} takes a contiguous 1-D float32/float64 "
-                         f"v, got {v.dtype} {tuple(v.shape)}")
-    if idx.dim() != 3 or val.shape != idx.shape \
-            or cost.shape != idx.shape[:2] or idx.shape[1] < 1:
-        raise ValueError(f"{what} shapes: idx/val (n, m>=1, K), cost "
-                         f"(n, m); got {tuple(idx.shape)} "
-                         f"{tuple(val.shape)} {tuple(cost.shape)}")
-    return v.dtype
+    batch = val.shape[0] if val.dim() == 4 else None
+    v_dims = (1,) if batch is None else (1, 2)
+    if v.dtype not in (torch.float32, torch.float64) \
+            or v.dim() not in v_dims or v.stride(-1) != 1 \
+            or (v.dim() == 2 and v.shape[0] != batch):
+        raise ValueError(f"{what} takes a float32/float64 v of contiguous "
+                         f"rows, (n_v,) or (B, n_v) for B lanes (any lane "
+                         f"stride); got {v.dtype} {tuple(v.shape)} strides "
+                         f"{v.stride()}")
+    if val.dim() not in (3, 4) or idx.shape[-3:] != val.shape[-3:] \
+            or idx.dim() not in (3, val.dim()) \
+            or (idx.dim() == 4 and idx.shape[0] != batch) \
+            or cost.shape != val.shape[:-1] or val.shape[-2] < 1:
+        raise ValueError(f"{what} shapes: val ([B,] n, m>=1, K), cost "
+                         f"([B,] n, m), idx as val or shared (n, m, K); got "
+                         f"{tuple(idx.shape)} {tuple(val.shape)} "
+                         f"{tuple(cost.shape)}")
+    return v.dtype, batch
 
 
 def ell_backup(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
-               gamma: float, v: torch.Tensor) \
+               gamma, v: torch.Tensor, *, lane_order: str | None = None) \
         -> tuple[torch.Tensor, torch.Tensor]:
-    """``(min_a Q (n,) acc-dtype, argmin_a Q (n,) int32)`` on the card."""
+    """``(min_a Q ([B,] n) acc-dtype, argmin_a Q ([B,] n) int32)`` on the
+    card, one launch.  ``gamma``: a float, or a ``(B,)`` tensor (one value
+    a lane, rounded to the accumulation dtype)."""
     global launches
-    dt = _check(idx, val, cost, v)
-    n, m, k = idx.shape
-    out_v = torch.empty(n, dtype=dt, device=v.device)
-    out_pi = torch.empty(n, dtype=torch.int32, device=v.device)
-    if n == 0:
+    dt, batch = _check(idx, val, cost, v)
+    n, m, k = val.shape[-3:]
+    out_v = torch.empty(val.shape[:-2], dtype=dt, device=v.device)
+    out_pi = torch.empty(val.shape[:-2], dtype=torch.int32, device=v.device)
+    if out_v.numel() == 0:
         return out_v, out_pi
+    b = batch or 1
+    g, g_stride = lanes.gamma_operand(gamma, b, dt, v.device)
+    strides = lanes.strides(
+        n * m * k if idx.dim() == 4 else 0, n * m * k if batch else 0,
+        n * m if batch else 0, v.stride(0) if v.dim() == 2 else 0,
+        n if batch else 0, g_stride)
     lib = _lib()
     fn = lib.ell_backup_f64 if dt == torch.float64 else lib.ell_backup_f32
     stream = torch.cuda.current_stream(v.device).cuda_stream
     code = fn(idx.data_ptr(), val.data_ptr(), cost.data_ptr(), v.data_ptr(),
-              float(gamma), n, m, k, out_v.data_ptr(), out_pi.data_ptr(),
-              stream)
+              g.data_ptr(), n, m, k, b, lanes.order_flag(lane_order),
+              strides, out_v.data_ptr(), out_pi.data_ptr(), stream)
     build.check(code, "ell_backup launch")
     launches += 1
     return out_v, out_pi
 
 
 def ell_qvalues(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
-                gamma: float, v: torch.Tensor) -> torch.Tensor:
-    """``Q = cost + gamma * P v`` (n, m) in the accumulation dtype, on the
-    card: one SpMV launch over the ``(n*m, K)`` rows, then the epilogue as
-    two torch ops (``gamma * pv`` rounded before ``+ cost``)."""
+                gamma, v: torch.Tensor, *,
+                lane_order: str | None = None) -> torch.Tensor:
+    """``Q = cost + gamma * P v`` ([B,] n, m) in the accumulation dtype, on
+    the card: one SpMV launch over the ``(n*m, K)`` rows of every lane,
+    then the epilogue as two torch ops (``gamma * pv`` rounded before
+    ``+ cost``; a ``(B,)`` gamma one value a lane)."""
     global qvalues_launches
-    _check(idx, val, cost, v, "ell_qvalues")
-    n, m, k = idx.shape
-    pv = spmv_ell.launch(idx.view(n * m, k), val.view(n * m, k), v)
+    _, batch = _check(idx, val, cost, v, "ell_qvalues")
+    n, m, k = val.shape[-3:]
+    rows = lambda t: t.view(*t.shape[:-3], n * m, k)
+    pv = spmv_ell.launch(rows(idx), rows(val), v, lane_order=lane_order)
     if pv.numel():
         qvalues_launches += 1
-    return cost.to(pv.dtype) + gamma * pv.view(n, m)
+    pv = pv.view(cost.shape)
+    if isinstance(gamma, torch.Tensor):
+        gamma = gamma.to(device=pv.device, dtype=pv.dtype).reshape(
+            (-1,) + (1,) * (pv.dim() - 1))
+    return cost.to(pv.dtype) + gamma * pv

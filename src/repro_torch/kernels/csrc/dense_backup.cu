@@ -19,7 +19,7 @@
 //     w = 16, 8, 4, 2, 1 (__shfl_down_sync), leaving the sum in lane 0;
 //   * gamma * pv is rounded before + cost; no FMA contraction anywhere
 //     (explicit _rn intrinsics, and the build passes -fmad=false).
-// gamma arrives already rounded to Acc.
+// gamma arrives already rounded to Acc, one value a lane.
 //
 // Bound on the H100: bytes.  One backup reads p once, n*m*n_cols*4 bytes:
 // 17.2 GB at n = n_cols = 16384, m = 16, 5.1 ms at 3.35 TB/s, against
@@ -35,9 +35,16 @@
 // reads m times, stays in L1/L2.  All row offsets are 64-bit: s*m*n_cols
 // passes 2^31 at n = 16384, m = 16.  Staging v in shared memory, TMA and a
 // split of the columns across warps are later work.
+//
+// Fleets: one launch covers B lanes (lanes.cuh), each with its own p,
+// cost, outputs and gamma and its own or a shared v; an unbatched call is
+// B = 1.  The lanes run one after another (lane-slowest): each lane's
+// rows stream their own p, so no order shares a read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lanes.cuh"
 
 namespace {
 
@@ -53,12 +60,23 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 template <typename Acc>
 __global__ void dense_backup_kernel(const float* __restrict__ p,
                                     const float* __restrict__ cost,
-                                    const Acc* __restrict__ v, Acc gamma,
+                                    const Acc* __restrict__ v,
+                                    const Acc* __restrict__ gammas,
                                     int64_t n, int32_t m, int64_t n_cols,
+                                    Lanes l, int64_t blocks,
                                     Acc* __restrict__ out_v,
                                     int32_t* __restrict__ out_pi) {
+  int32_t fleet_lane;
+  int64_t block;
+  lane_block(l, blocks, fleet_lane, block);
+  p += fleet_lane * l.val;
+  cost += fleet_lane * l.cost;
+  v += fleet_lane * l.vec;
+  out_v += fleet_lane * l.out;
+  out_pi += fleet_lane * l.out;
+  const Acc gamma = gammas[fleet_lane * l.gamma];
   const int lane = threadIdx.x % kWarp;
-  const int64_t row = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int64_t row = block * kWarpsPerBlock + threadIdx.x / kWarp;
   if (row >= n) return;  // whole warps leave together
   const int64_t span = (int64_t)kWarp * kUnroll;
   const int64_t main_end = n_cols - n_cols % span;
@@ -100,31 +118,46 @@ __global__ void dense_backup_kernel(const float* __restrict__ p,
 }
 
 template <typename Acc>
-int launch(const void* p, const void* cost, const void* v, Acc gamma,
-           long long n, int m, long long n_cols, void* out_v, void* out_pi,
-           void* stream) {
+int launch(const void* p, const void* cost, const void* v, const void* gamma,
+           long long n, int m, long long n_cols, const Lanes& l, void* out_v,
+           void* out_pi, void* stream) {
+  if (n < 0 || m < 1 || n_cols < 1 || l.count < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
   const long long blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  dense_backup_kernel<Acc><<<(unsigned int)blocks, kWarpsPerBlock * kWarp, 0,
+  const unsigned int grid = lane_grid(l, blocks);
+  if (grid == 0) return (int)cudaErrorInvalidConfiguration;
+  dense_backup_kernel<Acc><<<grid, kWarpsPerBlock * kWarp, 0,
                              (cudaStream_t)stream>>>(
-      (const float*)p, (const float*)cost, (const Acc*)v, gamma, (int64_t)n,
-      m, (int64_t)n_cols, (Acc*)out_v, (int32_t*)out_pi);
+      (const float*)p, (const float*)cost, (const Acc*)v,
+      (const Acc*)gamma, (int64_t)n, m, (int64_t)n_cols, l, (int64_t)blocks,
+      (Acc*)out_v, (int32_t*)out_pi);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// B lanes in one launch: `strides` holds the per-lane element strides of
+// p, cost, v (0: shared), the outputs and gamma (0: one gamma for every
+// lane), in that order; gamma points to Acc values already rounded to Acc.
 extern "C" int dense_backup_f32(const void* p, const void* cost,
-                                const void* v, float gamma, long long n,
-                                int m, long long n_cols, void* out_v,
-                                void* out_pi, void* stream) {
-  return launch<float>(p, cost, v, gamma, n, m, n_cols, out_v, out_pi,
+                                const void* v, const void* gamma,
+                                long long n, int m, long long n_cols,
+                                int lanes, const long long* strides,
+                                void* out_v, void* out_pi, void* stream) {
+  const Lanes l{lanes, 0, 0, strides[0], strides[1], strides[2], strides[3],
+                strides[4]};
+  return launch<float>(p, cost, v, gamma, n, m, n_cols, l, out_v, out_pi,
                        stream);
 }
 
 extern "C" int dense_backup_f64(const void* p, const void* cost,
-                                const void* v, double gamma, long long n,
-                                int m, long long n_cols, void* out_v,
-                                void* out_pi, void* stream) {
-  return launch<double>(p, cost, v, gamma, n, m, n_cols, out_v, out_pi,
+                                const void* v, const void* gamma,
+                                long long n, int m, long long n_cols,
+                                int lanes, const long long* strides,
+                                void* out_v, void* out_pi, void* stream) {
+  const Lanes l{lanes, 0, 0, strides[0], strides[1], strides[2], strides[3],
+                strides[4]};
+  return launch<double>(p, cost, v, gamma, n, m, n_cols, l, out_v, out_pi,
                         stream);
 }

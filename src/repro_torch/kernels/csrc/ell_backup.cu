@@ -19,7 +19,8 @@
 //     so the first minimum wins, a NaN Q(s, 0) stays the minimum and a
 //     later NaN is passed over, exactly as ref.rowmin_argmin.
 // Acc is float when v is float32, double when v is float64 (val and cost
-// are widened exactly); gamma arrives already rounded to Acc.
+// are widened exactly); gamma arrives already rounded to Acc, one value
+// a lane.
 //
 // What bounds it on the H100, at n = 10^6, m = 16, K = 8:
 //   * the table stream from HBM: n*m*K*8 bytes (idx + val) + n*m*4 (cost)
@@ -66,6 +67,10 @@
 // see locality, so no state takes one lane.
 // All row and slot offsets are 64-bit (n*m*K passes 2^31 at
 // n = 1.7*10^7, m = 16, K = 8).
+//
+// Fleets: one launch covers B lanes (lanes.cuh), each with its own val,
+// cost, outputs and gamma, and its own or a shared idx and v.  Each lane
+// runs the body above on its tables; an unbatched call is B = 1.
 
 #include "ell_common.cuh"
 
@@ -84,10 +89,21 @@ __global__ void __launch_bounds__(THREADS)
 ell_backup_kernel(const int32_t* __restrict__ idx,
                   const float* __restrict__ val,
                   const float* __restrict__ cost, const Acc* __restrict__ v,
-                  Acc gamma, int64_t n, int32_t m, int32_t k, Plan p,
+                  const Acc* __restrict__ gammas, int64_t n, int32_t m,
+                  int32_t k, Plan p, Lanes l, int64_t blocks,
                   Acc* __restrict__ out_v, int32_t* __restrict__ out_pi) {
+  int32_t fleet_lane;
+  int64_t block;
+  lane_block(l, blocks, fleet_lane, block);
+  idx += fleet_lane * l.idx;
+  val += fleet_lane * l.val;
+  cost += fleet_lane * l.cost;
+  v += fleet_lane * l.vec;
+  out_v += fleet_lane * l.out;
+  out_pi += fleet_lane * l.out;
+  const Acc gamma = gammas[fleet_lane * l.gamma];
   const int lane = threadIdx.x % WARP;
-  const int64_t tile = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / WARP;
+  const int64_t tile = (block * THREADS + threadIdx.x) / WARP;
   const int r = lane / p.g;           // this lane's row within a pass
   const int g = lane - r * p.g;       // its place within the row
   const int lead = lane - g;          // the row's leader lane
@@ -134,8 +150,9 @@ ell_backup_kernel(const int32_t* __restrict__ idx,
 
 template <typename Acc, int VEC>
 int launch_vec(const int32_t* idx, const float* val, const float* cost,
-               const Acc* v, Acc gamma, long long n, int m, int k,
-               Acc* out_v, int32_t* out_pi, cudaStream_t stream) {
+               const Acc* v, const Acc* gamma, long long n, int m, int k,
+               const Lanes& l, Acc* out_v, int32_t* out_pi,
+               cudaStream_t stream) {
   Plan p;
   row_lanes(k, VEC, p.g, p.chunks);
   const int rows = WARP / p.g;
@@ -145,43 +162,59 @@ int launch_vec(const int32_t* idx, const float* val, const float* cost,
   p.rows = p.states * p.apass;
   const long long warps = (n + p.states - 1) / p.states;
   const long long blocks = (warps + THREADS / WARP - 1) / (THREADS / WARP);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  ell_backup_kernel<Acc, VEC><<<(unsigned int)blocks, THREADS, 0, stream>>>(
-      idx, val, cost, v, gamma, (int64_t)n, m, k, p, out_v, out_pi);
+  const unsigned int grid = lane_grid(l, blocks);
+  if (grid == 0) return (int)cudaErrorInvalidConfiguration;
+  ell_backup_kernel<Acc, VEC><<<grid, THREADS, 0, stream>>>(
+      idx, val, cost, v, gamma, (int64_t)n, m, k, p, l, (int64_t)blocks,
+      out_v, out_pi);
   return (int)cudaGetLastError();
 }
 
 template <typename Acc>
 int launch(const void* idx, const void* val, const void* cost, const void* v,
-           Acc gamma, long long n, int m, int k, void* out_v, void* out_pi,
-           void* stream) {
-  if (n < 0 || m < 1 || k < 0) return (int)cudaErrorInvalidValue;
+           const void* gamma, long long n, int m, int k, const Lanes& l,
+           void* out_v, void* out_pi, void* stream) {
+  if (n < 0 || m < 1 || k < 0 || l.count < 1)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const auto* i = (const int32_t*)idx;
   const auto* w = (const float*)val;
   const auto* c = (const float*)cost;
+  const auto* g = (const Acc*)gamma;
   const auto s = (cudaStream_t)stream;
   return vector_width(idx, val, k) == 4
-             ? launch_vec<Acc, 4>(i, w, c, (const Acc*)v, gamma, n, m, k,
+             ? launch_vec<Acc, 4>(i, w, c, (const Acc*)v, g, n, m, k, l,
                                   (Acc*)out_v, (int32_t*)out_pi, s)
-             : launch_vec<Acc, 1>(i, w, c, (const Acc*)v, gamma, n, m, k,
+             : launch_vec<Acc, 1>(i, w, c, (const Acc*)v, g, n, m, k, l,
                                   (Acc*)out_v, (int32_t*)out_pi, s);
 }
 
 }  // namespace
 
+// B lanes in one launch: `strides` holds the per-lane element strides of
+// idx (0: shared), val, cost, v (0: shared), the outputs and gamma (0:
+// one gamma for every lane), in that order; gamma points to Acc values
+// already rounded to Acc.
 extern "C" int ell_backup_f32(const void* idx, const void* val,
-                              const void* cost, const void* v, float gamma,
-                              long long n, int m, int k, void* out_v,
+                              const void* cost, const void* v,
+                              const void* gamma, long long n, int m, int k,
+                              int lanes, int lane_fastest,
+                              const long long* strides, void* out_v,
                               void* out_pi, void* stream) {
-  return launch<float>(idx, val, cost, v, gamma, n, m, k, out_v, out_pi,
+  const Lanes l{lanes, lane_fastest, strides[0], strides[1], strides[2],
+                strides[3], strides[4], strides[5]};
+  return launch<float>(idx, val, cost, v, gamma, n, m, k, l, out_v, out_pi,
                        stream);
 }
 
 extern "C" int ell_backup_f64(const void* idx, const void* val,
-                              const void* cost, const void* v, double gamma,
-                              long long n, int m, int k, void* out_v,
+                              const void* cost, const void* v,
+                              const void* gamma, long long n, int m, int k,
+                              int lanes, int lane_fastest,
+                              const long long* strides, void* out_v,
                               void* out_pi, void* stream) {
-  return launch<double>(idx, val, cost, v, gamma, n, m, k, out_v, out_pi,
+  const Lanes l{lanes, lane_fastest, strides[0], strides[1], strides[2],
+                strides[3], strides[4], strides[5]};
+  return launch<double>(idx, val, cost, v, gamma, n, m, k, l, out_v, out_pi,
                         stream);
 }

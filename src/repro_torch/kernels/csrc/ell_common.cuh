@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lanes.cuh"
+
 namespace {
 
 constexpr int WARP = 32;
@@ -135,6 +137,9 @@ __host__ __forceinline__ void row_lanes(int k, int vec, int32_t& g,
 
 // The launchers take VEC = 4 (one 16-byte load of idx and of val a lane)
 // where K % 4 == 0 and both tables start 16-byte aligned, else VEC = 1.
+// A fleet's lane strides are whole tables (n*m*K or n*K elements, or 0),
+// multiples of 4 elements whenever K is, so every lane's base keeps the
+// alignment of the first.
 __host__ __forceinline__ int vector_width(const void* idx, const void* val,
                                           int k) {
   const bool aligned = (((uintptr_t)idx | (uintptr_t)val) & 15) == 0;

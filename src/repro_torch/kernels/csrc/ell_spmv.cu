@@ -48,6 +48,9 @@
 // 2) the kernel runs near its byte bound, with random idx it takes more
 // than twice as long, whatever the L1 policy of the gathers (PERF.md).
 // Row and slot offsets are 64-bit (n*K may pass 2^31).
+//
+// Fleets: one launch covers B lanes (lanes.cuh), each with its own val
+// and y and its own or a shared idx and x; an unbatched call is B = 1.
 
 #include "ell_common.cuh"
 
@@ -63,9 +66,17 @@ template <typename Acc, int VEC>
 __global__ void __launch_bounds__(THREADS)
 ell_spmv_kernel(const int32_t* __restrict__ idx,
                 const float* __restrict__ val, const Acc* __restrict__ x,
-                int64_t n, int32_t k, Plan p, Acc* __restrict__ y) {
+                int64_t n, int32_t k, Plan p, Lanes l, int64_t blocks,
+                Acc* __restrict__ y) {
+  int32_t fleet_lane;
+  int64_t block;
+  lane_block(l, blocks, fleet_lane, block);
+  idx += fleet_lane * l.idx;
+  val += fleet_lane * l.val;
+  x += fleet_lane * l.vec;
+  y += fleet_lane * l.out;
   const int lane = threadIdx.x % WARP;
-  const int64_t warp = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / WARP;
+  const int64_t warp = (block * THREADS + threadIdx.x) / WARP;
   const int r = lane / p.g;           // this lane's row within the warp
   const int g = lane - r * p.g;       // its place within the row
   const int lead = lane - g;          // the row's leader lane
@@ -86,39 +97,49 @@ ell_spmv_kernel(const int32_t* __restrict__ idx,
 
 template <typename Acc, int VEC>
 int launch_vec(const int32_t* idx, const float* val, const Acc* x,
-               long long n, int k, Acc* y, cudaStream_t stream) {
+               long long n, int k, const Lanes& l, Acc* y,
+               cudaStream_t stream) {
   Plan p;
   row_lanes(k, VEC, p.g, p.chunks);
   p.rows = WARP / p.g;
   const long long warps = (n + p.rows - 1) / p.rows;
   const long long blocks = (warps + THREADS / WARP - 1) / (THREADS / WARP);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  ell_spmv_kernel<Acc, VEC><<<(unsigned int)blocks, THREADS, 0, stream>>>(
-      idx, val, x, (int64_t)n, k, p, y);
+  const unsigned int grid = lane_grid(l, blocks);
+  if (grid == 0) return (int)cudaErrorInvalidConfiguration;
+  ell_spmv_kernel<Acc, VEC><<<grid, THREADS, 0, stream>>>(
+      idx, val, x, (int64_t)n, k, p, l, (int64_t)blocks, y);
   return (int)cudaGetLastError();
 }
 
 template <typename Acc>
 int launch(const void* idx, const void* val, const void* x, long long n,
-           int k, void* y, void* stream) {
-  if (n < 0 || k < 0) return (int)cudaErrorInvalidValue;
+           int k, const Lanes& l, void* y, void* stream) {
+  if (n < 0 || k < 0 || l.count < 1) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const auto* i = (const int32_t*)idx;
   const auto* w = (const float*)val;
   const auto s = (cudaStream_t)stream;
   return vector_width(idx, val, k) == 4
-             ? launch_vec<Acc, 4>(i, w, (const Acc*)x, n, k, (Acc*)y, s)
-             : launch_vec<Acc, 1>(i, w, (const Acc*)x, n, k, (Acc*)y, s);
+             ? launch_vec<Acc, 4>(i, w, (const Acc*)x, n, k, l, (Acc*)y, s)
+             : launch_vec<Acc, 1>(i, w, (const Acc*)x, n, k, l, (Acc*)y, s);
 }
 
 }  // namespace
 
+// B lanes in one launch: `strides` holds the per-lane element strides of
+// idx (0: shared), val, x (0: shared) and y, in that order.
 extern "C" int ell_spmv_f32(const void* idx, const void* val, const void* x,
-                            long long n, int k, void* y, void* stream) {
-  return launch<float>(idx, val, x, n, k, y, stream);
+                            long long n, int k, int lanes, int lane_fastest,
+                            const long long* strides, void* y, void* stream) {
+  const Lanes l{lanes, lane_fastest, strides[0], strides[1], 0, strides[2],
+                strides[3], 0};
+  return launch<float>(idx, val, x, n, k, l, y, stream);
 }
 
 extern "C" int ell_spmv_f64(const void* idx, const void* val, const void* x,
-                            long long n, int k, void* y, void* stream) {
-  return launch<double>(idx, val, x, n, k, y, stream);
+                            long long n, int k, int lanes, int lane_fastest,
+                            const long long* strides, void* y, void* stream) {
+  const Lanes l{lanes, lane_fastest, strides[0], strides[1], 0, strides[2],
+                strides[3], 0};
+  return launch<double>(idx, val, x, n, k, l, y, stream);
 }

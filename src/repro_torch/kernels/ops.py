@@ -10,6 +10,12 @@ tensors live:
   raise if they cannot build or launch.
 
 Nothing catches a kernel failure and falls back.
+
+Every MDP entry point also takes a fleet: a leading lane axis ``B`` on
+``val`` / ``cost`` / ``p``, ``idx`` ``(B, ...)`` or shared, ``v`` / ``x``
+``(B, n)`` or shared ``(n,)``, ``gamma`` a float or a ``(B,)`` tensor.
+On the card that is one launch of the kernel's lane axis, never a loop
+over lanes.
 """
 
 from __future__ import annotations
@@ -29,17 +35,18 @@ KERNELS = {"ell_backup": (bellman_ell, "launches"),
 
 
 def ell_backup(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
-               gamma: float, v: torch.Tensor) \
+               gamma, v: torch.Tensor) \
         -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused Bellman backup on an ELL block -> (v_new (n,), argmin (n,) int32)."""
+    """Fused Bellman backup on an ELL block -> (v_new ([B,] n), argmin
+    ([B,] n) int32)."""
     if v.device.type == "cpu":
         return ref.ell_backup(idx, val, cost, gamma, v)
     return bellman_ell.ell_backup(idx, val, cost, gamma, v)
 
 
 def ell_qvalues(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
-                gamma: float, v: torch.Tensor) -> torch.Tensor:
-    """Q table ``cost + gamma * P v`` (n, m) on an ELL block."""
+                gamma, v: torch.Tensor) -> torch.Tensor:
+    """Q table ``cost + gamma * P v`` ([B,] n, m) on an ELL block."""
     if v.device.type == "cpu":
         return ref.ell_qvalues(idx, val, cost, gamma, v)
     return bellman_ell.ell_qvalues(idx, val, cost, gamma, v)
@@ -47,16 +54,16 @@ def ell_qvalues(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
 
 def ell_matvec(idx: torch.Tensor, val: torch.Tensor,
                x: torch.Tensor) -> torch.Tensor:
-    """Policy-restricted SpMV y = P_pi @ x on (n, K) ELL rows."""
+    """Policy-restricted SpMV y = P_pi @ x on ([B,] n, K) ELL rows."""
     if x.device.type == "cpu":
         return ref.ell_matvec(idx, val, x)
     return spmv_ell.ell_matvec(idx, val, x)
 
 
-def dense_backup(p: torch.Tensor, cost: torch.Tensor, gamma: float,
+def dense_backup(p: torch.Tensor, cost: torch.Tensor, gamma,
                  v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused Bellman backup on a dense block -> (v_new (n,), argmin (n,)
-    int32)."""
+    """Fused Bellman backup on a dense block -> (v_new ([B,] n), argmin
+    ([B,] n) int32)."""
     if v.device.type == "cpu":
         return ref.dense_backup(p, cost, gamma, v)
     return dense_kernel.dense_backup(p, cost, gamma, v)

@@ -22,6 +22,13 @@ reproduce, so the dense versions agree with it to a tolerance.
 Products and adds are separate tensor ops, so no fused multiply-add can
 merge two roundings.
 
+Fleets: :func:`ell_backup`, :func:`ell_qvalues`, :func:`ell_matvec` and
+:func:`dense_backup` also take a leading lane axis ``B`` on ``val`` /
+``cost`` / ``p``, ``idx`` batched or shared, ``v`` / ``x`` batched or
+shared, and ``gamma`` a float or a ``(B,)`` tensor.  Each then is the
+unbatched plain version applied lane by lane, so lane ``b`` equals the
+unbatched call on its operands bit for bit, as the kernels' lane axis does.
+
 :func:`flash_attention` is the online-softmax scan over key chunks of the
 reference's ``models.attention.chunked_attention``, in f32 whatever the
 inputs.  Its CUDA kernel sums in another order, so the two agree to a
@@ -43,6 +50,24 @@ def acc_dtype(*tensors: torch.Tensor) -> torch.dtype:
     return torch.float32
 
 
+def _lane(x: torch.Tensor, b: int, batched_dims: int) -> torch.Tensor:
+    """Lane ``b`` of an operand that is batched (``batched_dims`` dims) or
+    shared by every lane."""
+    return x[b] if x.dim() == batched_dims else x
+
+
+def _lane_gamma(gamma, b: int):
+    return gamma[b] if isinstance(gamma, torch.Tensor) else gamma
+
+
+def _by_lane(fn, lanes: int):
+    """Stack ``fn(b)``'s outputs (a tensor or a tuple) over the lanes."""
+    outs = [fn(b) for b in range(lanes)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 def ell_gather_dot(idx: torch.Tensor, val: torch.Tensor,
                    v: torch.Tensor) -> torch.Tensor:
     """``sum_k val[..., k] * v[idx[..., k]]`` — the ELL row-gather dot.
@@ -61,9 +86,15 @@ def ell_gather_dot(idx: torch.Tensor, val: torch.Tensor,
 
 
 def ell_qvalues(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
-                gamma: float, v: torch.Tensor) -> torch.Tensor:
+                gamma, v: torch.Tensor) -> torch.Tensor:
     """Q(s, a) = g(s, a) + gamma * sum_{s'} P(s, a, s') v(s')."""
+    if val.dim() == 4:
+        return _by_lane(lambda b: ell_qvalues(
+            _lane(idx, b, 4), val[b], cost[b], _lane_gamma(gamma, b),
+            _lane(v, b, 2)), val.shape[0])
     pv = ell_gather_dot(idx, val, v)
+    if isinstance(gamma, torch.Tensor):
+        gamma = gamma.to(pv.dtype)
     return cost.to(pv.dtype) + gamma * pv
 
 
@@ -81,16 +112,23 @@ def rowmin_argmin(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def ell_backup(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
-               gamma: float, v: torch.Tensor) \
+               gamma, v: torch.Tensor) \
         -> tuple[torch.Tensor, torch.Tensor]:
     """Fused Bellman backup: (min_a Q, argmin_a Q) with smallest-index
     tie-break."""
+    if val.dim() == 4:
+        return _by_lane(lambda b: ell_backup(
+            _lane(idx, b, 4), val[b], cost[b], _lane_gamma(gamma, b),
+            _lane(v, b, 2)), val.shape[0])
     return rowmin_argmin(ell_qvalues(idx, val, cost, gamma, v))
 
 
 def ell_matvec(idx: torch.Tensor, val: torch.Tensor,
                x: torch.Tensor) -> torch.Tensor:
     """y(s) = sum_{s'} P_pi(s, s') x(s') on policy-restricted ELL rows (n, K)."""
+    if val.dim() == 3:
+        return _by_lane(lambda b: ell_matvec(
+            _lane(idx, b, 3), val[b], _lane(x, b, 2)), val.shape[0])
     return ell_gather_dot(idx, val, x)
 
 
@@ -116,17 +154,23 @@ def dense_dot(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return acc[..., 0]
 
 
-def dense_qvalues(p: torch.Tensor, cost: torch.Tensor, gamma: float,
+def dense_qvalues(p: torch.Tensor, cost: torch.Tensor, gamma,
                   v: torch.Tensor) -> torch.Tensor:
     """Dense-P Q table: ``cost + gamma * P @ v``, >= f32 accumulation."""
     pv = dense_dot(p, v)
+    if isinstance(gamma, torch.Tensor):
+        gamma = gamma.to(pv.dtype)
     return cost.to(pv.dtype) + gamma * pv
 
 
-def dense_backup(p: torch.Tensor, cost: torch.Tensor, gamma: float,
+def dense_backup(p: torch.Tensor, cost: torch.Tensor, gamma,
                  v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense Bellman backup: (min_a Q, argmin_a Q) with smallest-index
     tie-break."""
+    if p.dim() == 4:
+        return _by_lane(lambda b: dense_backup(
+            p[b], cost[b], _lane_gamma(gamma, b), _lane(v, b, 2)),
+            p.shape[0])
     return rowmin_argmin(dense_qvalues(p, cost, gamma, v))
 
 

@@ -19,9 +19,21 @@ reaches the whole registry and ``MADUPITE_OPTIONS`` is ingested first:
 ``--load`` reads the block-manifest format of :mod:`repro_torch.core.io`
 (either package's files); ``--ckpt-dir`` checkpoints between chunks and
 resumes from the newest step there; ``--monitor`` prints one line per
-outer iteration.  Fleets (``--batch``, ``--sweep-gamma``) and the mesh
-flags (``--layout``, ``--fleet``) are not yet ported and exit with an
-error that says so.  Exit code 0 iff converged.
+outer iteration.
+
+Fleet mode: ``--batch N`` solves N instances in one batched lockstep loop
+(``Session.solve_fleet``): a seed ensemble (seeds ``seed .. seed+N-1``),
+or with ``--sweep-gamma LO HI`` a gamma sweep over one instance,
+``gamma = 1 - geomspace(1-LO, 1-HI, N)``:
+
+    PYTHONPATH=src python -m repro_torch.launch.solve --instance garnet \
+        --n 1000000 --m 16 --k 8 --batch 4 --method ipi_gmres --atol 1e-8
+
+    PYTHONPATH=src python -m repro_torch.launch.solve --instance garnet \
+        --n 2000 --batch 8 --sweep-gamma 0.9 0.999 --device cpu
+
+The mesh flags (``--layout``, ``--fleet``) are not yet ported and exit
+with an error that says so.  Exit code 0 iff every instance converged.
 """
 
 from __future__ import annotations
@@ -29,7 +41,10 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
+
 from repro_torch.api import MDP, Options, Session
+from repro_torch.core import generators
 from repro_torch.device import DEVICES
 from repro_torch.kernels import ops
 
@@ -52,6 +67,20 @@ def build_instance(args) -> MDP:
     if args.load:
         return MDP.from_file(args.load)
     return MDP.from_generator(args.instance, **_gen_kwargs(args))
+
+
+def build_fleet(args) -> list:
+    """``--batch N`` fleet: seed ensemble, or a gamma sweep with
+    ``--sweep-gamma``."""
+    kw = _gen_kwargs(args)
+    sweep = None
+    if args.sweep_gamma is not None:
+        lo, hi = args.sweep_gamma
+        # log-spaced in (1 - gamma): resolves the conditioning ~ 1/(1-gamma)
+        sweep = {"gamma": list(1.0 - np.geomspace(1 - lo, 1 - hi,
+                                                  args.batch))}
+    return generators.generate_many(args.instance, args.batch, sweep=sweep,
+                                    **kw)
 
 
 def build_options(args) -> Options:
@@ -83,15 +112,19 @@ def build_options(args) -> Options:
 
 
 def _not_ported(args) -> str | None:
-    for flag, dest, unset in (("--batch", "batch", 1),
-                              ("--sweep-gamma", "sweep_gamma", None),
-                              ("--layout", "layout", None),
-                              ("--fleet", "fleet", None)):
-        if getattr(args, dest) != unset:
-            return (f"{flag} is not yet ported to repro_torch (this slice "
-                    f"solves one instance on one device); use the JAX "
+    for flag in ("layout", "fleet"):
+        if getattr(args, flag) is not None:
+            return (f"--{flag} is not yet ported to repro_torch (ROADMAP "
+                    f"queue 1 item 10: meshes and the fleet layouts; this "
+                    f"package solves on one device); use the JAX "
                     f"package's repro.launch.solve")
     return None
+
+
+def _launch_line(opts: Options) -> None:
+    if opts.get("-device") == "cuda":
+        counts = " ".join(f"{k}={v}" for k, v in ops.launch_counts().items())
+        print(f"[solve] kernel launches: {counts}")
 
 
 def main(argv=None):
@@ -121,9 +154,10 @@ def main(argv=None):
                     help="option -monitor (per-outer-iteration records)")
     ap.add_argument("--max-outer", type=int, default=None,
                     help="option -max_outer")
-    ap.add_argument("--layout", default=None, help="not yet ported")
+    ap.add_argument("--layout", default=None,
+                    help="not yet ported (ROADMAP queue 1 item 10)")
     ap.add_argument("--fleet", type=int, default=None,
-                    help="not yet ported")
+                    help="not yet ported (ROADMAP queue 1 item 10)")
     ap.add_argument("--dtype", default=None, help="option -dtype")
     ap.add_argument("--device", default=None, choices=list(DEVICES),
                     help="option -device (default cuda)")
@@ -136,16 +170,41 @@ def main(argv=None):
                     metavar="KEY=VALUE",
                     help="set any options-database key (repeatable; the "
                          "leading dash is optional)")
-    ap.add_argument("--batch", type=int, default=1, help="not yet ported")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="solve a fleet of N instances in one batched loop "
+                         "(seed ensemble unless --sweep-gamma)")
     ap.add_argument("--sweep-gamma", type=float, nargs=2, default=None,
-                    metavar=("LO", "HI"), help="not yet ported")
+                    metavar=("LO", "HI"),
+                    help="with --batch: gamma sweep over [LO, HI] instead "
+                         "of a seed ensemble")
     args = ap.parse_args(argv)
 
     err = _not_ported(args)
     if err:
         raise SystemExit(err)
+    if args.sweep_gamma is not None and args.batch <= 1:
+        raise SystemExit("--sweep-gamma needs --batch N (the sweep IS the "
+                         "fleet); e.g. --batch 8 --sweep-gamma 0.9 0.9999")
+    if args.batch > 1 and args.load:
+        raise SystemExit("--batch does not combine with --load")
     opts = build_options(args)
     with Session(opts) as session:
+        if args.batch > 1:
+            fleet = build_fleet(args)
+            print(f"[solve] fleet B={args.batch} instance={args.instance} "
+                  f"n={fleet[0].n_global} m={fleet[0].m_global} "
+                  f"gammas={[round(float(m.gamma), 6) for m in fleet]} "
+                  f"device={opts.get('-device')}")
+            t0 = time.time()
+            results = session.solve_fleet(fleet)
+            wall = time.time() - t0
+            for b, r in enumerate(results):
+                print(f"[solve] [{b}] {r.summary()}")
+            print(f"[solve] fleet wall={wall:.2f}s "
+                  f"({wall / args.batch:.2f}s/instance amortized)")
+            _launch_line(opts)
+            return 0 if all(r.converged for r in results) else 1
+
         mdp = build_instance(args)
         print(f"[solve] instance={args.instance} n={mdp.n} m={mdp.m} "
               f"gamma={mdp.gamma} mode={mdp.mode} "
@@ -153,10 +212,7 @@ def main(argv=None):
         t0 = time.time()
         r = session.solve(mdp)
         print(f"[solve] {r.summary()}  wall={time.time()-t0:.2f}s")
-        if opts.get("-device") == "cuda":
-            counts = " ".join(f"{k}={v}"
-                              for k, v in ops.launch_counts().items())
-            print(f"[solve] kernel launches: {counts}")
+        _launch_line(opts)
         print(f"[solve] ||v - v*||_inf <= {r.gap_bound:.3e} (certificate)")
         return 0 if r.converged else 1
 

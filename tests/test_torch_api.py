@@ -187,14 +187,18 @@ def test_cli_on_cpu(capsys):
     assert "(certificate)" in out and "kernel launches" not in out
 
 
-@pytest.mark.parametrize("flags", [["--batch", "2"], ["--layout", "1d"],
-                                   ["--batch", "3", "--load", "x"],
+@pytest.mark.parametrize("flags", [["--batch", "2", "--layout", "fleet"],
+                                   ["--layout", "1d"],
+                                   ["--batch", "3", "--fleet", "3"],
                                    ["--layout", "fleet", "--monitor"],
-                                   ["--sweep-gamma", "0.9", "0.99"],
+                                   ["--sweep-gamma", "0.9", "0.99",
+                                    "--layout", "fleet2d"],
                                    ["--fleet", "2"],
                                    ["--fleet", "4", "--ckpt-dir", "d"]])
 def test_cli_unported_flags_raise(flags):
-    with pytest.raises(SystemExit, match="not yet ported"):
+    # the mesh flags are still unported; --batch / --sweep-gamma are
+    # ported (tests/test_torch_fleet.py) and no longer raise on their own
+    with pytest.raises(SystemExit, match="not yet ported.*item 10"):
         tcli.main(["--device", "cpu", *flags])
 
 

@@ -497,3 +497,185 @@ def test_smoke_lm_on_the_card_matches_the_host(cuda, arch):
     assert torch.equal(runs["card"][0], runs["host"][0])
     for got, want in zip(runs["card"][1], runs["host"][1]):
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# --------------------------------------------------------------------------- #
+# Fleets: the kernels' lane axis                                              #
+# --------------------------------------------------------------------------- #
+
+FLEET_B = 3
+FLEET_GAMMAS = (0.9, 0.95, 0.997)
+LANE_CASES = [(dt, si, sv, g, order) for dt in (np.float32, np.float64)
+              for si in (True, False) for sv in (True, False)
+              for g in ("float", "lanes") for order in ("fastest", "slowest")]
+
+
+def _fleet_tables(n, m, k, v_dtype, device, shared_idx, shared_v, seed=13):
+    rng = np.random.default_rng(seed)
+    b = FLEET_B
+    idx = rng.integers(0, n, (n, m, k) if shared_idx else (b, n, m, k))
+    val = rng.random((b, n, m, k)).astype(np.float32)
+    cost = rng.random((b, n, m)).astype(np.float32)
+    v = (rng.random(n if shared_v else (b, n)) * 40.0 - 20.0).astype(v_dtype)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                 for x in (idx.astype(np.int32), val, cost, v))
+
+
+def _fleet_gamma(kind, dtype, device):
+    if kind == "float":
+        return GAMMA
+    return torch.tensor(FLEET_GAMMAS, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("v_dtype, shared_idx, shared_v, gamma, order",
+                         LANE_CASES)
+@pytest.mark.parametrize("shape", [(301, 5, 8), (130, 17, 3)],
+                         ids=["k8", "k3"])
+def test_lane_axis_bitmatches_plain_versions_and_lanes(
+        cuda, shape, v_dtype, shared_idx, shared_v, gamma, order):
+    """One launch for the fleet, in either grid order: bit for bit the
+    batched plain version and, lane by lane, the unbatched kernel."""
+    idx, val, cost, v = _fleet_tables(*shape, v_dtype, cuda, shared_idx,
+                                      shared_v)
+    g = _fleet_gamma(gamma, v.dtype, cuda)
+    before = ops.launch_counts()
+    tv, pi = bellman_ell.ell_backup(idx, val, cost, g, v, lane_order=order)
+    q = bellman_ell.ell_qvalues(idx, val, cost, g, v, lane_order=order)
+    rows_i = idx[..., 0, :].contiguous()
+    if rows_i.dim() == 2:
+        rows_i = rows_i.expand(FLEET_B, -1, -1).contiguous()
+    rows_v = val[:, :, 0].contiguous()
+    y = spmv_ell.ell_matvec(rows_i, rows_v, v, lane_order=order)
+    after = ops.launch_counts()
+    assert after["ell_backup"] == before["ell_backup"] + 1
+    assert after["ell_qvalues"] == before["ell_qvalues"] + 1
+    assert after["ell_matvec"] == before["ell_matvec"] + 1
+    want = ref.ell_backup(idx, val, cost, g, v)
+    assert _bitequal(tv, want[0]) and torch.equal(pi, want[1])
+    assert _bitequal(q, ref.ell_qvalues(idx, val, cost, g, v))
+    assert _bitequal(y, ref.ell_matvec(rows_i, rows_v, v))
+    for b in range(FLEET_B):
+        li = idx if shared_idx else idx[b]
+        lv = v if shared_v else v[b]
+        lg = g if gamma == "float" else FLEET_GAMMAS[b]
+        one = bellman_ell.ell_backup(li, val[b], cost[b], lg, lv)
+        assert _bitequal(tv[b], one[0]) and torch.equal(pi[b], one[1])
+        assert _bitequal(y[b], spmv_ell.ell_matvec(rows_i[b], rows_v[b], lv))
+
+
+@pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [4, 3])
+def test_lane_axis_reads_misaligned_fleet_tables(cuda, k, v_dtype):
+    """Fleet tables whose base starts 4 bytes past a 16-byte boundary put
+    every lane off it: the launcher takes the 4-byte path for the whole
+    fleet (K = 4 aligned takes the 16-byte one), bit for bit either way."""
+    idx, val, cost, v = _fleet_tables(33, 2, k, v_dtype, cuda, False, False)
+    want = ref.ell_backup(idx, val, cost, GAMMA, v)
+    for i, w in ((idx, val), (_misaligned(idx), val),
+                 (_misaligned(idx), _misaligned(val))):
+        got = bellman_ell.ell_backup(i, w, cost, GAMMA, v)
+        assert _bitequal(got[0], want[0]) and torch.equal(got[1], want[1])
+    rows_i, rows_v = idx[:, :, 0].contiguous(), val[:, :, 0].contiguous()
+    got = spmv_ell.ell_matvec(_misaligned(rows_i), _misaligned(rows_v), v)
+    assert _bitequal(got, ref.ell_matvec(rows_i, rows_v, v))
+
+
+@pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("gamma", ["float", "lanes"])
+@pytest.mark.parametrize("shared_v", [True, False])
+def test_dense_lane_axis_bitmatches_plain_versions(cuda, v_dtype, gamma,
+                                                   shared_v):
+    rng = np.random.default_rng(3)
+    n, m, n_cols = 40, 3, 300
+    p = torch.from_numpy(rng.random((FLEET_B, n, m, n_cols))
+                         .astype(np.float32)).to(cuda)
+    cost = torch.from_numpy(rng.random((FLEET_B, n, m))
+                            .astype(np.float32)).to(cuda)
+    v = torch.from_numpy((rng.random(n_cols if shared_v
+                                     else (FLEET_B, n_cols)) * 9.0)
+                         .astype(v_dtype)).to(cuda)
+    g = _fleet_gamma(gamma, v.dtype, cuda)
+    tv, pi = dense_backup.dense_backup(p, cost, g, v)
+    want = ref.dense_backup(p, cost, g, v)
+    assert _bitequal(tv, want[0]) and torch.equal(pi, want[1])
+    for b in range(FLEET_B):
+        one = dense_backup.dense_backup(
+            p[b], cost[b], GAMMA if gamma == "float" else FLEET_GAMMAS[b],
+            v if shared_v else v[b])
+        assert _bitequal(tv[b], one[0]) and torch.equal(pi[b], one[1])
+
+
+@pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
+def test_lane_axis_reads_strided_vector_lanes(cuda, v_dtype):
+    """A fleet's vector may be a view with contiguous rows at any lane
+    stride (GMRES hands the SpMV its basis column ``V[:, j]``): the
+    kernels read it through their lane stride, bit for bit."""
+    idx, val, cost, _ = _fleet_tables(200, 4, 8, v_dtype, cuda, False,
+                                      False)
+    basis = torch.from_numpy(np.random.default_rng(4).random(
+        (FLEET_B, 5, 200)).astype(v_dtype)).to(cuda)
+    x = basis[:, 3]
+    assert not x.is_contiguous() and x.stride() == (1000, 1)
+    rows_i, rows_v = idx[:, :, 1].contiguous(), val[:, :, 1].contiguous()
+    assert _bitequal(spmv_ell.ell_matvec(rows_i, rows_v, x),
+                     ref.ell_matvec(rows_i, rows_v, x.contiguous()))
+    got = bellman_ell.ell_backup(idx, val, cost, GAMMA, x)
+    want = ref.ell_backup(idx, val, cost, GAMMA, x.contiguous())
+    assert _bitequal(got[0], want[0]) and torch.equal(got[1], want[1])
+    p = torch.rand(FLEET_B, 7, 3, 200, device=cuda)
+    got = dense_backup.dense_backup(p, cost[:, :7, :3].contiguous(), GAMMA,
+                                    x)
+    want = ref.dense_backup(p, cost[:, :7, :3].contiguous(), GAMMA,
+                            x.contiguous())
+    assert _bitequal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_lane_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    idx, val, cost, v = _fleet_tables(50, 3, 4, np.float32, cuda, False,
+                                      False)
+    with pytest.raises(ValueError, match="lanes"):
+        bellman_ell.ell_backup(idx, val, cost,
+                               torch.tensor([0.9, 0.9], device=cuda), v)
+    with pytest.raises(ValueError, match="B lanes"):
+        bellman_ell.ell_backup(idx, val, cost, GAMMA, v[:2])
+    with pytest.raises(ValueError, match="shapes"):
+        bellman_ell.ell_backup(idx[:2], val, cost, GAMMA, v)
+    with pytest.raises(ValueError, match="lane order"):
+        bellman_ell.ell_backup(idx, val, cost, GAMMA, v, lane_order="x")
+    with pytest.raises(ValueError, match="contiguous rows"):
+        spmv_ell.ell_matvec(idx[:, :, 0].contiguous(),
+                            val[:, :, 0].contiguous(), v.t().contiguous().t())
+
+
+@pytest.mark.parametrize("method", ["vi", "mpi", "ipi_gmres",
+                                    "ipi_bicgstab", "ipi_chebyshev"])
+def test_gpu_fleet_matches_cpu_fleet_with_one_launch_a_step(cuda, method):
+    """A gamma sweep on the card: one launch of each kernel per step for
+    the fleet, the CPU fleet's policies and counts; vi / mpi lanes bit for
+    bit the card's unbatched solves."""
+    mdps = [generators.garnet(n=1500, m=5, k=4, gamma=g, seed=6)
+            for g in (0.9, 0.95, 0.99)]
+    opts = IPIOptions(method=method, dtype="float64", atol=1e-8)
+    ops.reset_launch_counts()
+    rg = driver.solve_many(mdps, opts, device=cuda)
+    fleet_launches = ops.launch_counts()
+    rc = driver.solve_many(mdps, opts, device="cpu")
+    ops.reset_launch_counts()
+    singles = [driver.solve(m, opts, device=cuda) for m in mdps]
+    single_launches = ops.launch_counts()
+    assert fleet_launches["ell_backup"] < single_launches["ell_backup"]
+    if method == "ipi_chebyshev":
+        # no batched form: each lane's own solve, its own launches
+        assert fleet_launches["ell_matvec"] == single_launches["ell_matvec"]
+    elif method != "vi":
+        assert 0 < fleet_launches["ell_matvec"] < \
+            single_launches["ell_matvec"]
+    for g, c, s in zip(rg, rc, singles):
+        np.testing.assert_array_equal(g.policy, c.policy)
+        assert (g.outer_iterations, g.inner_iterations) == \
+            (c.outer_iterations, c.inner_iterations)
+        if method in ("vi", "mpi", "ipi_chebyshev"):
+            np.testing.assert_array_equal(g.v, s.v)
+        else:
+            assert np.abs(g.v - c.v).max() <= max(
+                1e-10 * np.abs(c.v).max(), c.gap_bound)
