@@ -94,7 +94,29 @@ result) without them.  Phases, each of which raises on failure:
    with its unbatched solve's policy and counts; then ``dense_backup`` at
    B=2 against its plain version, timed as in (d) in its one grid order
    (lane-slowest);
-8. the LM serving path, minitron-8b (32 layers, d_model 4096, 32 query /
+8. (3m) sharded solves on ``torch.distributed``, after 3h on the phase-2
+   garnet: (a) a world of one rank on NCCL in this process (an explicit
+   store), ``driver.solve(mesh=, layout="1d")`` and ``"2d"`` (a ``(1, 1)``
+   mesh: every collective runs) in f64 ipi_gmres to ``1e-8``, each with
+   its launch counts (both ELL kernels), bit for bit the single-device
+   solve, which is bit for bit phase 3a's CLI solve; then the three solves
+   profiled in turns (single, 1d, 2d, 2d, 1d, single): wall, busy and
+   idle of each, the collective layer's overhead at world 1; (b)
+   ``maze2d(size=1000)`` (n = 10^6, m = 5, banded at 1000), f64 ipi_gmres
+   over its first 10 outer steps (its policy iteration takes ~2 x size of
+   them) four ways: ``-halo 0``, ``-halo 1000``, ``-comm_overlap on`` and
+   ``off``, each with its launch counts, all bitwise equal; then
+   ``async_vi -async_sweeps 8`` to ``1e-8``, certified by phase 3's
+   independent CPU backup; the group is torn down; (c) ``torchrun
+   --nproc-per-node <cards> -m repro_torch.launch.solve -- --instance
+   garnet --n 1000000 ... --layout 1d`` as a subprocess must exit 0, each
+   rank name its own card, and its value vector pass phase 3's CPU
+   backup; (d) with two or more cards, (a) and (b) over all of them
+   (``torchrun`` of this script's ``--ranks`` mode: 1d and 2d give the
+   single solve's policy and counts with values within 1e-10 |v|_inf,
+   the maze's four ways bitwise); on one card it says that the
+   multi-rank cases ran only in the CPU tests;
+9. the LM serving path, minitron-8b (32 layers, d_model 4096, 32 query /
    8 KV heads, d_head 128, vocab 256,000, bf16, random weights from a
    seed):
    (2f) ``flash_attention`` against its plain version at ``B=4, T=S=2048``
@@ -116,14 +138,15 @@ result) without them.  Phases, each of which raises on failure:
    (4f) GPU vs CPU parity: minitron-8b at full width but 2 layers, float32,
    the same weights on both, prompt 256, batch 2, 8 greedy tokens: logits
    within 1e-4 of their largest magnitude at every step, tokens equal;
-9. one JSON ``kernels`` line, then the ``ok`` line last.  An ELL kernel's
+10. one JSON ``kernels`` line, then the ``ok`` line last.  An ELL kernel's
    ``launches`` is its count in the CLI's ipi_gmres solve (a), the
    default method; ``dense_backup``'s is its count in the dense ipi_gmres
    solve (3d); ``ell_qvalues``'s its phase-2q count; ``flash_attention``'s
    its count in the serve_lm CLI run (3f).  ``launches_by_path`` gives
    each path's counts (the ELL kernels' include phase 3g's and 3h's
    paths).  Rows 1-4 carry ``batched``: phase 3h (d)'s rows, keyed by
-   ``idx`` kind and dtype.
+   ``idx`` kind and dtype; the ELL kernels' also carry phase 3m (a)'s
+   ``sharded_1d`` / ``sharded_2d`` counts.
 """
 
 from __future__ import annotations
@@ -132,6 +155,7 @@ import dataclasses
 import gc
 import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -160,6 +184,9 @@ ELL_KERNELS = ("ell_backup", "ell_matvec")
 FLEET_B = 4                         # phase 3h's ELL fleets
 FLEET_SWEEP = (0.9, 0.99)           # (b)'s gamma sweep, the CLI's LO HI
 DFN, DENSE_FLEET_B = 8_192, 2       # (c)'s dense garnets: 2 x 4.3 GB of P
+MAZE_SIZE = 1000                    # phase 3m (b): maze2d, n = 10^6, m = 5
+MAZE_OUTER = 10                     # (b)'s ipi_gmres trajectory (the
+                                    # maze's PI takes ~2 x size outer steps)
 LM_ARCH = "minitron-8b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 16
 # (name, H, KV, d) at B=4, T=S=2048: minitron-8b, stablelm-3b, granite-34b
@@ -445,11 +472,12 @@ def certify_on_cpu(mdp, v: np.ndarray, pi: np.ndarray, what: str,
     (plus 16 ulps of ``|v|_inf``) and the solve's greedy policy."""
     from repro_torch.kernels import ref
 
-    if v.shape != (N,) or v.dtype != np.float64 or not np.isfinite(v).all():
+    if v.shape != (mdp.n_global,) or v.dtype != np.float64 \
+            or not np.isfinite(v).all():
         raise AssertionError(f"{what}: value vector shape {v.shape} dtype "
                              f"{v.dtype}, finite={np.isfinite(v).all()}")
     host = mdp.to("cpu")
-    tv, tpi = ref.ell_backup(host.idx, host.val, host.cost, GAMMA,
+    tv, tpi = ref.ell_backup(host.idx, host.val, host.cost, mdp.gamma,
                              torch.from_numpy(v))
     res = float(torch.max(torch.abs(tv - torch.from_numpy(v))))
     slack = 16 * np.finfo(np.float64).eps * float(np.abs(v).max())
@@ -923,11 +951,304 @@ def fleet_gammas(lo: float, hi: float, b: int) -> list[float]:
 
 def timed_solve(fn) -> tuple:
     """``fn()`` and its wall in seconds, between device syncs."""
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - t0
+
+
+def same_bits(a, b) -> bool:
+    """Two solves' values, policies, counts and traces bit for bit."""
+    return (np.array_equal(np.asarray(a.v).view(np.uint64),
+                           np.asarray(b.v).view(np.uint64))
+            and np.array_equal(a.policy, b.policy)
+            and (a.outer_iterations, a.inner_iterations)
+            == (b.outer_iterations, b.inner_iterations)
+            and np.array_equal(a.trace_residual, b.trace_residual,
+                               equal_nan=True))
+
+
+def maze_cases(maze, mesh, device: str) -> dict:
+    """Phase 3m (b) on one mesh: maze2d's f64 ipi_gmres trajectory over
+    MAZE_OUTER outer steps four ways (``-halo 0`` / ``-halo`` the band,
+    ``-comm_overlap on`` / ``off``), each with its launch counts, all
+    bitwise equal; then ``async_vi -async_sweeps 8`` to 1e-8, certified
+    by phase 3's independent CPU backup."""
+    from repro_torch.core import driver
+    from repro_torch.core.ipi import IPIOptions
+    from repro_torch.kernels import ops
+
+    size = int(round(maze.n_global ** 0.5))
+    base = dict(method="ipi_gmres", dtype="float64", atol=1e-8,
+                max_outer=MAZE_OUTER)
+    ways = {"halo0": dict(halo=0), f"halo{size}": dict(halo=size),
+            "overlap_on": dict(comm_overlap="on"),
+            "overlap_off": dict(comm_overlap="off")}
+    runs, out = {}, {}
+    for name, extra in ways.items():
+        ops.reset_launch_counts()
+        r, wall = timed_solve(lambda: driver.solve(
+            maze, IPIOptions(**base, **extra), mesh=mesh, layout="1d",
+            device=device))
+        launches = ops.launch_counts()
+        if device == "cuda":
+            require_launched(f"3m (b) {name}", launches, ELL_KERNELS)
+        runs[name] = r
+        out[name] = dict(outer=r.outer_iterations, inner=r.inner_iterations,
+                         wall_s=wall, launches=launches)
+    bad = [k for k, r in runs.items() if not same_bits(r, runs["halo0"])]
+    if bad:
+        raise AssertionError(f"3m (b): {bad} differ from -halo 0 bit for "
+                             f"bit")
+    ops.reset_launch_counts()
+    ra, wall = timed_solve(lambda: driver.solve(
+        maze, IPIOptions(method="async_vi", async_sweeps=8, dtype="float64",
+                         atol=1e-8, max_outer=20_000),
+        mesh=mesh, layout="1d", device=device))
+    if not ra.converged:
+        raise AssertionError(f"3m (b) async_vi: {ra.summary()}")
+    res = certify_on_cpu(maze, ra.v, ra.policy, "3m (b) async_vi")
+    out["async_vi_8"] = dict(outer=ra.outer_iterations,
+                             inner=ra.inner_iterations, wall_s=wall,
+                             cpu_residual=res, launches=ops.launch_counts())
+    return out
+
+
+def sharded_paths(mdp, main: dict, device: str = "cuda",
+                  maze_size: int = MAZE_SIZE) -> dict:
+    """Phase 3m: the sharded solve path (``torch.distributed``) on the
+    card, at world size 1 in this process, then ``torchrun`` over every
+    card (module docstring)."""
+    import torch.distributed as dist
+    from repro_torch.core import driver, generators
+    from repro_torch.core.ipi import IPIOptions
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lm
+
+    out, launches = {}, {}
+    lm.init_distributed(device, store=dist.HashStore(), rank=0,
+                        world_size=1)
+    try:
+        meshes = {"1d": lm.make_host_mesh((1, 1), device=device),
+                  "2d": lm.make_host_mesh((1, 1), device=device)}
+        # (a) the phase-3 garnet, f64 ipi_gmres, 1d and 2d against the
+        # single-device solve (and the CLI's bits of phase 3a)
+        opts = IPIOptions(method="ipi_gmres", dtype="float64", atol=1e-8,
+                          max_outer=2000)
+        single = driver.solve(mdp, opts, device=device)
+        if main is not None and not (
+                np.array_equal(single.v.view(np.uint64),
+                               main["cli_v"].view(np.uint64))
+                and single.outer_iterations == main["cli_outer"]):
+            raise AssertionError("3m (a): the single-device solve is not "
+                                 "phase 3a's")
+        for layout, mesh in meshes.items():
+            ops.reset_launch_counts()
+            r = driver.solve(mdp, opts, mesh=mesh, layout=layout,
+                             device=device)
+            launches[f"sharded_{layout}"] = ops.launch_counts()
+            if device == "cuda":
+                require_launched(f"3m (a) {layout}", launches[
+                    f"sharded_{layout}"], ELL_KERNELS)
+            if not same_bits(r, single):
+                raise AssertionError(f"3m (a) {layout}: not bit for bit the "
+                                     f"single-device solve")
+        out["collectives"] = collective_costs(mdp, opts, meshes, device)
+        # the collective layer's overhead: each solve timed and profiled
+        # in turns (single, 1d, 2d, 2d, 1d, single)
+        solves = {"single": lambda: driver.solve(mdp, opts, device=device)}
+        for layout, mesh in meshes.items():
+            solves[layout] = (lambda mesh=mesh, layout=layout: driver.solve(
+                mdp, opts, mesh=mesh, layout=layout, device=device))
+        profs = {k: [] for k in solves}
+        for k in ("single", "1d", "2d", "2d", "1d", "single"):
+            profs[k].append(device_profile(solves[k])[1])
+        for k, ps in profs.items():
+            out[k] = dict(outer=single.outer_iterations,
+                          inner=single.inner_iterations,
+                          wall_ms=[p["wall_ms"] for p in ps],
+                          device_busy_ms=[p["device_busy_ms"] for p in ps],
+                          idle_share=[p["idle_share"] for p in ps],
+                          top=ps[0]["top"])
+            if k != "single":
+                log(f"[phase3m] (a) world=1 {k}: bitwise the single solve "
+                    f"({single.summary()}); launches "
+                    f"{launches[f'sharded_{k}']}")
+            log(f"[phase3m] (a) world=1 {k}: wall {out[k]['wall_ms']} ms, "
+                f"busy {out[k]['device_busy_ms']} ms, idle "
+                f"{out[k]['idle_share']}; top {json.dumps(out[k]['top'])}")
+        # (b) maze2d at n = 10^6, banded at its width
+        t0 = time.perf_counter()
+        maze = generators.maze2d(size=maze_size, gamma=GAMMA).to(device)
+        log(f"[phase3m] (b) maze2d size={maze_size} on the device in "
+            f"{time.perf_counter() - t0:.1f}s")
+        out["maze"] = maze_cases(maze, meshes["1d"], device)
+        log(f"[phase3m] (b) world=1: {json.dumps(out['maze'])}")
+        del maze
+    finally:
+        lm.shutdown()
+    # (c) the CLI under torchrun, one rank a card
+    out["torchrun"] = torchrun_cli(mdp, device)
+    # (d) (a) and (b) over every card, where there are several
+    n_dev = torch.cuda.device_count() if device == "cuda" else 1
+    if n_dev >= 2:
+        out["ranks"] = run_ranks(n_dev, device)
+    else:
+        log("[phase3m] (d) world=1: one card, so the multi-rank cases ran "
+            "only in the CPU tests (tests/test_torch_distributed.py, 4 "
+            "gloo ranks)")
+    return dict(launches=launches, **out)
+
+
+def collective_costs(mdp, opts, meshes, device: str,
+                     reps: int = 200) -> dict:
+    """Phase 3m (a): the collectives one sharded solve issues, by kind
+    (counted around ``torch.distributed``'s calls), and the host-clock
+    cost of one call of each kind at this solve's sizes (a 0-d float64
+    all-reduce, an all-gather of the float64 value vector), between
+    device syncs, over ``reps`` calls."""
+    import collections
+    import torch.distributed as dist
+    from repro_torch.core import comm, driver, partition
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out = {}
+    for layout, mesh in meshes.items():
+        calls = collections.Counter()
+        saved = dist.all_reduce, comm._all_gather
+
+        def count(kind, fn):
+            def wrapped(*a, **k):
+                calls[kind] += 1
+                return fn(*a, **k)
+            return wrapped
+        dist.all_reduce = count("all_reduce", saved[0])
+        comm._all_gather = count("all_gather", saved[1])
+        try:
+            driver.solve(mdp, opts, mesh=mesh, layout=layout, device=device)
+        finally:
+            dist.all_reduce, comm._all_gather = saved
+        out[f"calls_{layout}"] = dict(calls)
+    axes = partition.mesh_axes(meshes["1d"], "1d")
+    scalar = torch.ones((), dtype=torch.float64, device=device)
+    vec = torch.ones(mdp.n_global, dtype=torch.float64, device=device)
+    for kind, fn in (("all_reduce_0d_us", lambda: axes.psum_state(scalar)),
+                     ("all_gather_n_us", lambda: axes.allgather_state(vec))):
+        for _ in range(10):
+            fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        out[kind] = (time.perf_counter() - t0) / reps * 1e6
+    log(f"[phase3m] (a) collectives: {json.dumps(out)}")
+    return out
+
+
+def torchrun_cli(mdp, device: str) -> dict:
+    """Phase 3m (c): ``torchrun --nproc-per-node <cards>`` of the solve CLI
+    on the phase-3 garnet, ``--layout 1d``: exit 0, every rank on its own
+    card, the certificate held by phase 3's independent CPU backup."""
+    n_dev = torch.cuda.device_count() if device == "cuda" else 2
+    v_path, pi_path = OUT / "torchrun_v.npy", OUT / "torchrun_pi.npy"
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(n_dev), "-m", "repro_torch.launch.solve",
+            "--", "--instance", "garnet", "--n", str(mdp.n_global), "--m",
+            str(mdp.m_global), "--k", str(mdp.nnz_per_row), "--gamma",
+            str(GAMMA), "--method", "ipi_gmres", "--atol", "1e-8",
+            "--layout", "1d", "--device", device,
+            "--option", f"file_cost={v_path}",
+            "--option", f"file_policy={pi_path}"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    log("\n".join(ln for ln in proc.stdout.splitlines()
+                   if ln.startswith("[solve]")))
+    if proc.returncode != 0:
+        raise AssertionError(f"3m (c) torchrun CLI exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    ranks = re.findall(r"\[solve\] rank (\d+) of (\d+) on (\S+)",
+                       proc.stdout)
+    devices = {d for _, _, d in ranks}
+    if len(ranks) != n_dev or (device == "cuda" and len(devices) != n_dev):
+        raise AssertionError(f"3m (c): ranks {ranks}: want {n_dev} ranks "
+                             f"each on its own device")
+    res = certify_on_cpu(mdp, np.load(v_path), np.load(pi_path),
+                         "3m (c) torchrun CLI")
+    log(f"[phase3m] (c) torchrun --nproc-per-node {n_dev}: exit 0 in "
+        f"{wall:.1f}s, ranks on {sorted(devices)}, independent CPU "
+        f"residual {res:.3e}")
+    return dict(world=n_dev, wall_s=wall, devices=sorted(devices),
+                cpu_residual=res)
+
+
+def run_ranks(n_dev: int, device: str) -> dict:
+    """Phase 3m (d): ``torchrun`` of this script's ``--ranks`` mode over
+    ``n_dev`` cards (:func:`ranks_main`); its JSON line back."""
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(n_dev), str(ROOT / "chip_smoke.py"),
+            "--ranks", device, str(N), str(MAZE_SIZE)]
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"3m (d) exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("[phase3m] (d)")][-1]
+    log(line)
+    return json.loads(line.split(" ", 3)[3])
+
+
+def ranks_main(device: str, n: int = N, maze_size: int = MAZE_SIZE) -> int:
+    """``--ranks``: one rank of phase 3m (d), under ``torchrun``.  (a)'s
+    garnet over the world, ``1d`` and ``2d`` (``(world // 2, 2)``), must
+    give the single-device solve's policy and counts with values within
+    1e-10 |v|_inf; (b)'s four maze trajectories must be bitwise equal and
+    its async_vi solve certified.  Rank 0 prints one JSON line."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import driver, generators
+    from repro_torch.core.ipi import IPIOptions
+    from repro_torch.launch import mesh as lm
+
+    dev = lm.init_distributed(device)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    try:
+        mdp = generators.garnet(n=n, m=M, k=K, gamma=GAMMA, seed=0).to(dev)
+        opts = IPIOptions(method="ipi_gmres", dtype="float64", atol=1e-8,
+                          max_outer=2000)
+        single, wall = timed_solve(lambda: driver.solve(mdp, opts,
+                                                        device=dev))
+        out = dict(world=world, single_wall_s=wall)
+        shapes = {"1d": (world, 1), "2d": (world // 2, 2) if world % 2 == 0
+                  else (world, 1)}
+        for layout, shape in shapes.items():
+            mesh = lm.make_host_mesh(shape, device=device)
+            r, wall = timed_solve(lambda: driver.solve(
+                mdp, opts, mesh=mesh, layout=layout, device=dev))
+            dv = float(np.abs(r.v - single.v).max())
+            if not (np.array_equal(r.policy, single.policy)
+                    and r.outer_iterations == single.outer_iterations
+                    and r.inner_iterations == single.inner_iterations
+                    and dv <= 1e-10 * float(np.abs(single.v).max())):
+                raise AssertionError(f"3m (d) {layout}: {r.summary()} "
+                                     f"against {single.summary()}, dv {dv}")
+            out[layout] = dict(shape=shape, wall_s=wall, max_abs_dv=dv)
+        maze = generators.maze2d(size=maze_size, gamma=GAMMA).to(dev)
+        out["maze"] = maze_cases(maze, lm.make_host_mesh((world, 1),
+                                                         device=device),
+                                 device)
+        if rank == 0:
+            print(f"[phase3m] (d) world={world} {json.dumps(out)}",
+                  flush=True)
+    finally:
+        lm.shutdown()
+    return 0
 
 
 def fleet_paths(mdp) -> dict:
@@ -1578,6 +1899,8 @@ def main() -> int:
     parity()
     fleet = fleet_paths(mdp)
     path["launches"].update(fleet["launches"])
+    sharded = sharded_paths(mdp, path)
+    path["launches"].update(sharded["launches"])
     del mdp
     torch.cuda.empty_cache()
 
@@ -1678,4 +2001,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ranks"]:
+        # --ranks DEVICE [N MAZE_SIZE]: one rank of phase 3m (d)
+        sys.exit(ranks_main(sys.argv[2], *map(int, sys.argv[3:5])))
     sys.exit(main())

@@ -17,8 +17,10 @@ counterpart is easy to find:
   the LM substrate's dense family, served by batched prefill and greedy
   decode.
 
-The port covers the single-device solve of one materialized ELL or dense
-MDP and the serving path of the dense LMs.  Every entry point takes a
+The port covers the solve of one materialized ELL or dense MDP, on one
+device, as a fleet on one device, or sharded over the ranks of a
+``torch.distributed`` world (:mod:`repro_torch.launch.mesh`), and the
+serving path of the dense LMs.  Every entry point takes a
 ``device`` (default ``"cuda"``); asking for ``cuda`` without a visible GPU
 raises instead of running on the host.
 """

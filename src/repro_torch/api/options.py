@@ -11,10 +11,12 @@ Ported keys: the solver keys of ``IPIOptions`` (``-method``, ``-mode``,
 ``-max_inner``, ``-inner_forcing``, ``-restart``, ``-omega``,
 ``-mpi_sweeps``, ``-anderson_window``, ``-monitor``, ``-monitor_mode``,
 ``-safeguard``, ``-deterministic_dots``, ``-pc_type``, ``-pc_block``,
-``-divtol``, ``-dtype``), the solve loop's ``-chunk``, ``-checkpoint_dir`` and
-``-verbose``, fleets' ``-fleet_bucketing``, the outputs ``-file_stats`` /
+``-divtol``, ``-dtype``, ``-halo``, ``-gather_dtype``, ``-comm_overlap``,
+``-async_sweeps``), the solve loop's ``-chunk``, ``-checkpoint_dir`` and
+``-verbose``, the placement's ``-layout`` (``auto|single|1d|2d``; the fleet
+layouts raise) and ``-fleet_bucketing``, the outputs ``-file_stats`` /
 ``-file_stats_format`` / ``-file_policy`` / ``-file_cost``, and the port's
-own ``-device``.  The reference's mesh keys ``-layout`` / ``-fleet`` /
+own ``-device``.  The reference's fleet-mesh keys ``-fleet`` /
 ``-pad_fleet`` raise, naming the ROADMAP item that ports them.
 :func:`option_table` renders the registry as the README's table.
 """
@@ -41,7 +43,27 @@ _SOURCES = {"default": 0, "env": 1, "cli": 2, "user": 3}
 
 # the reference's keys this package does not take yet, and the ROADMAP
 # queue 1 item that ports each
-NOT_PORTED_OPTIONS = {"-layout": 10, "-fleet": 10, "-pad_fleet": 10}
+NOT_PORTED_OPTIONS = {"-fleet": 10, "-pad_fleet": 10}
+
+_LAYOUT_CHOICES = ("auto", "single", "1d", "2d", "fleet", "fleet2d")
+
+
+def _ported_layout(v) -> str | None:
+    if v in ("fleet", "fleet2d"):
+        return (f"layout {v!r} shards the fleet (instance) dim, which is "
+                f"not yet ported to repro_torch (ROADMAP queue 1 item 10: "
+                f"the fleet layouts); use auto, single, 1d or 2d")
+    return None
+
+
+def _gather_dtype(v) -> str | None:
+    if v is None:
+        return None
+    try:
+        IPIOptions(gather_dtype=v, dtype="float64")
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 
@@ -232,10 +254,32 @@ _SPECS = [
                else f"must be > 1, got {v}"),
     OptionSpec("-dtype", str, "float32", "value-vector dtype",
                choices=("float32", "float64")),
+    OptionSpec("-halo", int, 0,
+               "banded layout: exchange only +-halo boundary entries",
+               validate=_non_negative),
+    OptionSpec("-gather_dtype", str, None,
+               "compressed (inexact) gather wire dtype for inner matvecs",
+               nullable=True, validate=_gather_dtype),
+    OptionSpec("-comm_overlap", str, "auto",
+               "overlap the value-window gather with interior-row backup "
+               "compute and shrink the collective to the frontier reach "
+               "when -halo is 0 (bitwise-identical to the synchronous "
+               "path); auto enables it when the interior covers >= half "
+               "the shard",
+               choices=("auto", "on", "off")),
+    OptionSpec("-async_sweeps", int, 1,
+               "method=async_vi: local Bellman sweeps per value exchange "
+               "(1 = synchronous VI)",
+               validate=_positive),
     # ---- placement and driver ----------------------------------------------
     OptionSpec("-device", str, "cuda",
                "device the solve runs on; cuda raises when no GPU is "
                "visible (nothing falls back to the CPU)", choices=DEVICES),
+    OptionSpec("-layout", str, "auto",
+               "mesh layout; 'auto' picks 1d over the torch.distributed "
+               "world when it has more than one rank, 'single' forces "
+               "single-device (the fleet layouts are not yet ported)",
+               choices=_LAYOUT_CHOICES, validate=_ported_layout),
     OptionSpec("-chunk", int, 64,
                "outer iterations per chunk between progress reports",
                validate=_positive),
@@ -274,6 +318,8 @@ _IPI_FIELDS = {
     "-safeguard": "safeguard", "-deterministic_dots": "deterministic_dots",
     "-dtype": "dtype", "-monitor_mode": "monitor_mode",
     "-pc_type": "pc_type", "-pc_block": "pc_block", "-divtol": "divtol",
+    "-halo": "halo", "-gather_dtype": "gather_dtype",
+    "-comm_overlap": "comm_overlap", "-async_sweeps": "async_sweeps",
 }
 
 
@@ -285,8 +331,8 @@ def _normalize(key: Any) -> str:
     if name in NOT_PORTED_OPTIONS:
         raise UnknownOptionError(
             f"option {name!r} is not yet ported to repro_torch (ROADMAP "
-            f"queue 1 item {NOT_PORTED_OPTIONS[name]}: meshes and the fleet "
-            f"layouts); this package solves on one device")
+            f"queue 1 item {NOT_PORTED_OPTIONS[name]}: the fleet layouts); "
+            f"this package shards one MDP under -layout 1d|2d")
     if name not in OPTION_SPECS:
         raise UnknownOptionError(
             f"unknown option {key!r}{_methods.suggest(name, OPTION_SPECS)} "

@@ -17,7 +17,11 @@ per-solve statistics (:attr:`Session.stats`) and writes the
                                                   k=8, gamma=g)
                                for g in (0.9, 0.99, 0.999)])
 
-Meshes (and with them the fleet-sharded layouts and their device-fleet
+Under ``torch.distributed`` (``torchrun``, or
+:func:`repro_torch.launch.mesh.init_distributed`) :meth:`Session.placement`
+shards a single solve over the world (``-layout auto|1d|2d``); every rank
+calls ``solve`` with the same MDP and gets the same result, and only rank
+0 writes the outputs.  The fleet-sharded layouts (with their device-fleet
 cache) and ``-method auto`` are not ported yet.
 """
 
@@ -31,6 +35,7 @@ import weakref
 from typing import Any, Mapping, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.api.fleet import bucket_indices
 from repro_torch.api.mdp import MDP
@@ -50,15 +55,20 @@ class Session:
     ``options`` may be an :class:`Options` database, a plain mapping of
     option keys, or ``None`` (registry defaults + ``MADUPITE_OPTIONS``).
     The device named by ``-device`` is checked here, so asking for
-    ``cuda`` without a GPU fails when the session opens.
+    ``cuda`` without a GPU fails when the session opens.  ``mesh`` (a
+    ``torch.distributed`` device mesh) overrides the automatic placement
+    of :meth:`placement`.
     """
 
-    def __init__(self, options: Options | Mapping[str, Any] | None = None):
+    def __init__(self, options: Options | Mapping[str, Any] | None = None,
+                 *, mesh=None):
         if isinstance(options, Options):
             self.options = options
         else:
             self.options = Options.from_sources(options)
         resolve_device(self.options.get("-device"))
+        self._mesh_override = mesh
+        self._mesh_cache: dict = {}
         self._stats: list[dict] = []
         # per -file_stats path: (format, entries already on disk) — jsonl
         # appends only the entries written since the last solve
@@ -88,6 +98,45 @@ class Session:
         """Accumulated per-solve statistics."""
         return list(self._stats)
 
+    # ---- placement ---------------------------------------------------------
+    def placement(self, opts: Options | None = None):
+        """``(mesh, layout)`` for a solve: auto-built unless overridden.
+
+        Auto policy: no ``torch.distributed`` process group, or a world of
+        one rank -> single-device (no mesh); otherwise the paper-faithful
+        ``1d`` layout over every rank.  ``-layout`` forces a layout:
+        ``single`` no mesh, ``1d`` / ``2d`` a mesh over the world (a world
+        of one included; ``2d`` is ``(world // 2, 2)``, or ``(world, 1)``
+        for an odd world), which needs a process group.  A mesh given to
+        the session is used as it is.
+        """
+        opts = opts or self.options
+        layout = opts.get("-layout")
+        if layout == "single":
+            return None, "1d"
+        if self._mesh_override is not None:
+            return self._mesh_override, "1d" if layout == "auto" else layout
+        up = dist.is_available() and dist.is_initialized()
+        world = dist.get_world_size() if up else 1
+        if layout == "auto":
+            if world == 1:
+                return None, "1d"
+            layout = "1d"
+        if not up:
+            raise ValueError(
+                f"-layout {layout} shards over the ranks of a "
+                f"torch.distributed process group, and none is up: launch "
+                f"under torchrun, or call repro_torch.launch.mesh."
+                f"init_distributed() first (or use -layout single)")
+        shape = (world // 2, 2) if layout == "2d" and world % 2 == 0 \
+            else (world, 1)
+        device = opts.get("-device")
+        key = (shape, device)
+        if key not in self._mesh_cache:
+            from repro_torch.launch.mesh import make_host_mesh
+            self._mesh_cache[key] = make_host_mesh(shape, device=device)
+        return self._mesh_cache[key], layout
+
     # ---- solving -----------------------------------------------------------
     def solve(self, mdp: MDP | CoreMDP, *, monitor=None, stop_criterion=None,
               **overrides) -> SolveResult:
@@ -114,17 +163,19 @@ class Session:
         if not opts.is_set("-mode") and ipi.mode != mdp.mode:
             ipi = dataclasses.replace(ipi, mode=mdp.mode)
         device = opts.get("-device")
-        core = mdp.build(device)
+        mesh, layout = self.placement(opts)
+        # a sharded solve places its blocks from the MDP where it was built
+        core = mdp.build(device if mesh is None else "cpu")
         self._solved.add(mdp)
         t0 = time.time()
-        r = driver.solve(core, ipi,
+        r = driver.solve(core, ipi, mesh=mesh, layout=layout,
                          checkpoint_dir=opts.get("-checkpoint_dir"),
                          chunk=opts.get("-chunk"),
                          verbose=opts.get("-verbose"), monitor=mon_cb,
                          device=device)
         wall = time.time() - t0
         self._record([r], [mdp], ipi, opts, device, wall, fleet=None,
-                     monitor=mon_records)
+                     monitor=mon_records, mesh=mesh, layout=layout)
         self._write_outputs([r], opts)
         return r
 
@@ -152,6 +203,12 @@ class Session:
             raise ValueError(f"solve_fleet needs one shared mode, got "
                              f"{sorted(modes)}; solve mixed-mode instances "
                              f"separately")
+        if self.placement(opts)[0] is not None:
+            raise NotImplementedError(
+                "solve_fleet over a mesh (the fleet layouts, and fleets "
+                "replicated over 1d/2d shards) is not yet ported to "
+                "repro_torch (ROADMAP queue 1 item 10); use -layout single "
+                "or solve each instance with Session.solve")
         ipi = opts.to_ipi()
         mode = modes.pop()
         if not opts.is_set("-mode") and ipi.mode != mode:
@@ -228,14 +285,16 @@ class Session:
                         f"EllMDP/DenseMDP), got {type(mdp).__name__}")
 
     def _record(self, results, mdps, ipi, opts: Options, device: str,
-                wall: float, *, fleet, monitor=None) -> None:
+                wall: float, *, fleet, monitor=None, mesh=None,
+                layout: str = "1d") -> None:
         entry = {
             "method": ipi.method,
             "mode": ipi.mode,
             "stop_criterion": ipi.stop_criterion,
-            # the reference's single-device keys: no mesh
-            "layout": "single",
-            "mesh": None,
+            # the reference's keys: "single" and no mesh on one device
+            "layout": "single" if mesh is None else layout,
+            "mesh": None if mesh is None else dict(zip(
+                mesh.mesh_dim_names, (int(d) for d in mesh.shape))),
             "device": device,
             "options": opts.as_dict(explicit_only=True),
             "wall_s": round(wall, 6),
@@ -263,7 +322,12 @@ class Session:
     def _write_outputs(self, results, opts: Options) -> None:
         """``-file_stats``, then ``-file_policy`` / ``-file_cost``: one
         ``.npy`` for a single solve, one ``.npz`` of ``instance_{i}``
-        arrays for a fleet, as the reference writes them."""
+        arrays for a fleet, as the reference writes them.  Under
+        ``torch.distributed`` only rank 0 writes (every rank holds the
+        same results)."""
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_rank() != 0:
+            return
         self._write_stats(opts)
         for key, field in (("-file_policy", "policy"), ("-file_cost", "v")):
             path = opts.get(key)

@@ -1,4 +1,6 @@
-"""Solver core of the torch port (single-device subset of :mod:`repro.core`).
+"""Solver core of the torch port (the materialized subset of
+:mod:`repro.core`: one device, fleets on one device, or one MDP sharded
+over a ``torch.distributed`` world).
 
 As in the reference's package, the engine entry points :func:`solve` and
 :func:`solve_many` and the fleet container builder :func:`stack_mdps` are

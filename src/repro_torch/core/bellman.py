@@ -1,15 +1,18 @@
-"""Bellman operators, single-device ELL and dense subset.
+"""Bellman operators on a rank's block of a (possibly sharded) MDP.
 
 Counterpart of :mod:`repro.core.bellman`.  Functions take a local MDP
 block plus the :class:`~repro_torch.core.comm.Axes` it is sharded over
-(always ``Axes()`` in this slice: every collective is the identity), so
-the signatures match the reference's and a sharded layout can slot in.
+(``Axes()`` on one device: every collective is the identity).
 
 Conventions
 -----------
-* ``v_local``  — (n_local,) owned slice of the value vector.
-* ``v_global`` — (n_global,) gathered value vector.
-* ``pi``       — (n_local,) int32 of **global** action ids.
+* ``v_local``  — ([B,] n_local) owned slice of the value vector.
+* ``window``   — the value window the local rows read: the gathered
+  ([B,] n_global) vector, or with ``halo`` the ``[start - halo, stop +
+  halo)`` window (:func:`gather_v`).  An ELL block's ``idx`` is already in
+  the window's coordinates (:func:`repro_torch.core.partition.place_block`
+  shifts it once, where the reference shifts it in every backup).
+* ``pi``       — ([B,] n_local) int32 of **global** action ids.
 
 Batched fleets
 --------------
@@ -33,10 +36,27 @@ from repro_torch.core.comm import Axes
 from repro_torch.core.mdp import MDP, DenseMDP, EllMDP, batch_parts
 from repro_torch.kernels import ops
 
+# the dtype the reference stores transition tables in
+TABLE_DTYPE = torch.float32
 
-def gather_v(v_local: torch.Tensor, axes: Axes) -> torch.Tensor:
-    """The column window the local rows reference (the full vector)."""
-    return axes.allgather_state(v_local)
+
+# --------------------------------------------------------------------------- #
+# Value-vector movement (all-gather vs banded halo exchange)                   #
+# --------------------------------------------------------------------------- #
+
+def gather_v(v_local: torch.Tensor, axes: Axes, *, halo: int = 0,
+             dtype=None) -> torch.Tensor:
+    """The column window the local rows reference: the full gathered
+    vector (``halo=0``) or the banded ``[start-halo, stop+halo)`` window.
+    ``dtype`` is the wire format of a compressed gather."""
+    if halo:
+        return axes.halo_exchange(v_local, halo, dtype)
+    return axes.allgather_state(v_local, dtype)
+
+
+def window_offset(mdp: MDP, axes: Axes, halo: int) -> int:
+    """Where the block's own rows sit in its value window."""
+    return halo if halo else axes.state_index() * mdp.n_local
 
 
 # --------------------------------------------------------------------------- #
@@ -56,50 +76,130 @@ def fleet_gamma(mdp: MDP, gamma_t: torch.Tensor | None,
     return mdp.gamma if g is None else g
 
 
-def backup(mdp: MDP, v_global: torch.Tensor, axes: Axes, *,
+def backup(mdp: MDP, window: torch.Tensor, axes: Axes, *,
            mode: str = "mincost", gamma_t: torch.Tensor | None = None) \
         -> tuple[torch.Tensor, torch.Tensor]:
     """One Bellman backup: ``(Tv ([B,] n_local), pi ([B,] n_local)
-    int32)``.
+    int32)`` of the local rows against their value ``window``.
 
     ``mode="maxreward"`` reads ``cost`` as a reward and takes the argmax
     backup by negation: the backup runs on ``(-cost, -v)`` and the result
     is negated, so a maxreward solve is bit-for-bit the negation of the
-    mincost solve on negated costs (IEEE negation is exact).  ``gamma_t``
-    is a fleet's per-lane discount tensor (module docstring).
+    mincost solve on negated costs (IEEE negation is exact), and the
+    action-axis reduction is reused unchanged.  ``gamma_t`` is a fleet's
+    per-lane discount tensor (module docstring).
     """
     neg = mode == "maxreward"
     cost = -mdp.cost if neg else mdp.cost
     if neg:
-        v_global = -v_global
-    gamma = fleet_gamma(mdp, gamma_t, v_global.dtype)
+        window = -window
+    gamma = fleet_gamma(mdp, gamma_t, window.dtype)
     if isinstance(mdp, EllMDP):
-        vmin, amin = ops.ell_backup(mdp.idx, mdp.val, cost, gamma, v_global)
+        vmin, amin = ops.ell_backup(mdp.idx, mdp.val, cost, gamma, window)
     else:
-        vmin, amin = ops.dense_backup(mdp.p, cost, gamma, v_global)
+        vmin, amin = ops.dense_backup(mdp.p, cost, gamma, window)
+    return _finish_argmin(vmin, amin, mdp, axes, neg)
+
+
+def _finish_argmin(vmin: torch.Tensor, amin: torch.Tensor, mdp: MDP,
+                   axes: Axes, neg: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Complete a per-shard (min, argmin) into the global ``(Tv, pi)``:
+    lift local action ids to global ids, reduce over the action axis with a
+    deterministic smallest-global-id tie-break, and undo the maxreward
+    negation."""
     a_glob = amin + mdp.m_local * axes.action_index()
-    return (-vmin if neg else vmin), a_glob
+    if axes.action is None:
+        return (-vmin if neg else vmin), a_glob
+    tv = axes.pmin_action(vmin)
+    # argmin across shards: owner shards (vmin == tv exactly, since the MIN
+    # picks one of the exact local minima) propose their id, others
+    # propose m_global
+    cand = torch.where(vmin == tv, a_glob,
+                       torch.full_like(a_glob, mdp.m_global))
+    pi = axes.pmin_action(cand)
+    return (-tv if neg else tv), pi
 
 
 def gather_backup(mdp: MDP, v_local: torch.Tensor, axes: Axes, *,
+                  plan: tuple[int, int] | None = None, halo: int = 0,
                   mode: str = "mincost",
                   gamma_t: torch.Tensor | None = None) \
         -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gather the value window and run one Bellman backup; returns
-    ``(tv, pi, window)`` (the synchronous path of the reference)."""
-    w = gather_v(v_local, axes)
+    ``(tv, pi, window)``.
+
+    ``plan=(f_lo, f_hi)`` (from :func:`repro_torch.core.partition.
+    overlap_margins`) switches to the communication-overlapped path
+    (:func:`backup_overlapped`); ``plan=None`` is the synchronous
+    gather-then-backup reference.  Both give identical results."""
+    if plan is not None:
+        return backup_overlapped(mdp, v_local, axes, plan=plan, halo=halo,
+                                 mode=mode, gamma_t=gamma_t)
+    w = gather_v(v_local, axes, halo=halo)
     tv, pi = backup(mdp, w, axes, mode=mode, gamma_t=gamma_t)
     return tv, pi, w
 
 
+def backup_overlapped(mdp: MDP, v_local: torch.Tensor, axes: Axes, *,
+                      plan: tuple[int, int], halo: int = 0,
+                      mode: str = "mincost",
+                      gamma_t: torch.Tensor | None = None) \
+        -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Communication-overlapped Bellman backup; returns ``(tv, pi,
+    window)``.
+
+    Starts the value-window collective (:meth:`Axes.gather_start`, an
+    asynchronous all-gather or ring exchange), backs up the *interior*
+    rows ``[f_lo, n_local - f_hi)`` — whose nonzero-weight successors are
+    all locally owned — against ``v_local`` (through the block's
+    ``own_idx``) while the window is in flight, then waits for it and
+    finishes the frontier rows.  The kernels are row-independent and the
+    interior rows read the same values through ``v_local`` as through the
+    window, so the result is bit for bit that of :func:`gather_backup`
+    without a plan (zero-weight fill entries are clamped and contribute
+    exactly 0 on both paths)."""
+    if not isinstance(mdp, EllMDP):
+        raise ValueError("comm overlap requires the ELL representation; "
+                         "DenseMDP rows always reference global columns")
+    f_lo, f_hi = plan
+    n_loc = mdp.n_local
+    pending = axes.gather_start(v_local, halo=halo)
+
+    neg = mode == "maxreward"
+    cost = -mdp.cost if neg else mdp.cost
+    v_own = -v_local if neg else v_local
+    gamma = fleet_gamma(mdp, gamma_t, v_local.dtype)
+    rows = lambda t, lo, hi, d: t.narrow(t.dim() - d, lo, hi - lo) \
+        .contiguous()
+    part = lambda idx, lo, hi, v: ops.ell_backup(
+        idx, rows(mdp.val, lo, hi, 3), rows(cost, lo, hi, 2), gamma, v)
+
+    parts = []
+    # interior rows: no data dependence on the in-flight window
+    if f_lo + f_hi < n_loc:
+        parts.append(part(mdp.own_idx, f_lo, n_loc - f_hi, v_own))
+    # frontier rows: wait for the window, then finish the edges
+    win = axes.gather_finish(pending)
+    v_win = -win if neg else win
+    if f_lo:
+        parts.insert(0, part(rows(mdp.idx, 0, f_lo, 3), 0, f_lo, v_win))
+    if f_hi:
+        parts.append(part(rows(mdp.idx, n_loc - f_hi, n_loc, 3),
+                          n_loc - f_hi, n_loc, v_win))
+    vmin = torch.cat([p[0] for p in parts], dim=-1)
+    amin = torch.cat([p[1] for p in parts], dim=-1)
+    tv, pi = _finish_argmin(vmin, amin, mdp, axes, neg)
+    return tv, pi, win
+
+
 def residual_norm(mdp: MDP, v_local: torch.Tensor,
-                  v_global: torch.Tensor, axes: Axes, *,
+                  window: torch.Tensor, axes: Axes, *,
                   mode: str = "mincost",
                   gamma_t: torch.Tensor | None = None) -> torch.Tensor:
     """Sup-norm Bellman residual ``||T v - v||_inf`` (the optimality gap
     certificate: ``||v - v*||_inf <= residual / (1 - gamma)``); ``(B,)``
     per-lane residuals for a fleet."""
-    tv, _ = backup(mdp, v_global, axes, mode=mode, gamma_t=gamma_t)
+    tv, _ = backup(mdp, window, axes, mode=mode, gamma_t=gamma_t)
     return axes.norm_inf(tv - v_local)
 
 
@@ -130,19 +230,27 @@ class PolicyRows:
 
 def policy_rows(mdp: MDP, pi: torch.Tensor, axes: Axes, *,
                 dtype: torch.dtype = torch.float32,
-                gamma_t: torch.Tensor | None = None) -> PolicyRows:
+                gamma_t: torch.Tensor | None = None,
+                gather_dtype: torch.dtype | None = None) -> PolicyRows:
     """Extract the ``P_pi`` rows for a (global-id) policy ``pi``
     (``(B, n)`` for a fleet, whose rows then carry a leading ``B``).
 
-    On one device every row owns its greedy action, so the reference's
-    ownership mask is all ones (multiplying by it is exact) and is left
-    out.  ``dtype`` is the value vector's: dense rows are cast once here to
-    the accumulation dtype (exact), where the reference casts them in
-    every matvec — at n = 16,384 a float64 ``P_pi`` is 2.1 GB."""
-    a_sel = torch.clamp(pi - mdp.m_local * axes.action_index(), 0,
-                        mdp.m_local - 1).long()
+    With an action axis each action shard owns the rows whose greedy
+    action falls in its slice: the others are masked to zero and the
+    matvec's action-axis sum completes them (the 2-D layout).  Without
+    one every row owns its action, and the all-ones mask is left out
+    (multiplying by it is exact).  ``dtype`` is the value vector's: dense
+    rows are cast once here to the product's dtype (exact), where the
+    reference casts them in every matvec — at n = 16,384 a float64
+    ``P_pi`` is 2.1 GB.  A ``gather_dtype`` narrows that product as the
+    reference's dtype promotion does."""
+    a_rel = pi - mdp.m_local * axes.action_index()
+    a_sel = torch.clamp(a_rel, 0, mdp.m_local - 1).long()
+    own = None if axes.action is None \
+        else ((a_rel >= 0) & (a_rel < mdp.m_local))[..., None]
+    mask = lambda t: t if own is None else t * own.to(t.dtype)
     gamma = fleet_gamma(mdp, gamma_t, dtype)
-    g_pi = torch.gather(mdp.cost, -1, a_sel[..., None])[..., 0]
+    g_pi = mask(torch.gather(mdp.cost, -1, a_sel[..., None]))[..., 0]
     if isinstance(mdp, DenseMDP):
         rows = torch.arange(mdp.n_local, device=a_sel.device)
         if mdp.batch is None:
@@ -150,8 +258,10 @@ def policy_rows(mdp: MDP, pi: torch.Tensor, axes: Axes, *,
         else:
             lanes = torch.arange(mdp.batch, device=a_sel.device)
             p_pi = mdp.p[lanes[:, None], rows[None, :], a_sel]
-        dt = torch.promote_types(p_pi.dtype, dtype)
-        return PolicyRows(idx=None, val=None, p=p_pi.to(dt), g=g_pi,
+        wire = dtype if gather_dtype is None \
+            else torch.promote_types(TABLE_DTYPE, gather_dtype)
+        dt = torch.promote_types(p_pi.dtype, wire)
+        return PolicyRows(idx=None, val=None, p=mask(p_pi).to(dt), g=g_pi,
                           gamma=gamma)
     k = mdp.nnz_per_row
     sel = a_sel[..., None, None].expand(*a_sel.shape, 1, k)
@@ -163,15 +273,16 @@ def policy_rows(mdp: MDP, pi: torch.Tensor, axes: Axes, *,
         t = t.expand(*lead, *t.shape[-3:])
         return torch.gather(t, -2, sel)[..., 0, :].contiguous()
 
-    return PolicyRows(idx=take(mdp.idx), val=take(mdp.val), p=None, g=g_pi,
-                      gamma=gamma)
+    return PolicyRows(idx=take(mdp.idx), val=mask(take(mdp.val)), p=None,
+                      g=g_pi, gamma=gamma)
 
 
 def _p_pi_matvec(rows: PolicyRows, x_eff: torch.Tensor,
                  axes: Axes) -> torch.Tensor:
     """(P_pi @ x) on local rows, reduced over action shards.
 
-    Dense rows take a plain product (the reference's ``jnp.dot`` at
+    ``x_eff`` is the window the rows' ``idx`` (or columns) address.  Dense
+    rows take a plain product (the reference's ``jnp.dot`` at
     ``Precision.HIGHEST``, outside any kernel; a batched product for a
     fleet), in the accumulation dtype and never in TF32."""
     if rows.p is None:
@@ -211,22 +322,37 @@ def _fma(a: torch.Tensor, y: torch.Tensor, scale) -> torch.Tensor:
     return torch.addcmul(a.to(y.dtype), y, s)
 
 
-def t_pi(rows: PolicyRows, x_local: torch.Tensor,
-         axes: Axes) -> torch.Tensor:
+def _window(x_local: torch.Tensor, axes: Axes, halo: int,
+            gather_dtype) -> torch.Tensor:
+    """The matvec's value window; a compressed gather is rounded through
+    its wire dtype, then widened to float32 at least: the kernels take
+    float32/float64 operands, and the reference's product with the
+    float32 tables promotes to that dtype (the widening is exact)."""
+    x_eff = gather_v(x_local, axes, halo=halo, dtype=gather_dtype)
+    if gather_dtype is None:
+        return x_eff
+    return x_eff.to(torch.promote_types(TABLE_DTYPE, x_eff.dtype))
+
+
+def t_pi(rows: PolicyRows, x_local: torch.Tensor, axes: Axes, *,
+         halo: int = 0, gather_dtype=None) -> torch.Tensor:
     """Policy-restricted Bellman operator ``T_pi x = g_pi + gamma P_pi x``."""
-    y = _p_pi_matvec(rows, gather_v(x_local, axes), axes)
+    y = _p_pi_matvec(rows, _window(x_local, axes, halo, gather_dtype), axes)
     return _fma(axes.psum_action(rows.g), y, rows.gamma)
 
 
-def a_pi_matvec(rows: PolicyRows, x_local: torch.Tensor,
-                axes: Axes) -> torch.Tensor:
+def a_pi_matvec(rows: PolicyRows, x_local: torch.Tensor, axes: Axes, *,
+                halo: int = 0, gather_dtype=None) -> torch.Tensor:
     """Policy-evaluation system operator ``A_pi x = (I - gamma P_pi) x``.
 
     The matvec handed to the inner (Krylov) solvers; the value function of
     ``pi`` solves ``A_pi v = g_pi``.  XLA:CPU contracts the reference's
     ``x - gamma * y`` into one fused multiply-add, and so does this one.
+    ``gather_dtype`` turns on the compressed (inexact) gather — safe here
+    because the outer iPI loop's forcing term bounds the tolerable
+    inner-system perturbation.
     """
-    y = _p_pi_matvec(rows, gather_v(x_local, axes), axes)
+    y = _p_pi_matvec(rows, _window(x_local, axes, halo, gather_dtype), axes)
     return _fma(x_local, y.to(x_local.dtype), -rows.gamma)
 
 

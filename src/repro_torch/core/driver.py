@@ -24,8 +24,20 @@ counts are padded and the results trimmed; per-lane gammas run as a
 leaves with a leading ``B``, unpadded, so it too crosses between the
 packages.
 
-The adaptive supervisor hook and meshes (with the fleet-sharded layouts,
-ROADMAP queue 1 item 10) are not ported yet.
+Sharded solves — ``solve(mdp, opts, mesh=, layout=)``
+-----------------------------------------------------
+With a ``torch.distributed`` device mesh (:mod:`repro_torch.launch.mesh`)
+every rank pads the MDP to the mesh's multiples, keeps its own block on its
+own device (:mod:`repro_torch.core.partition`, the ``1d`` or ``2d``
+layout), resolves the halo and the communication-overlap plan, and runs
+the same host loop; the collectives behind :class:`Axes` keep the ranks in
+lockstep.  Every rank returns the global, unpadded :class:`SolveResult`.
+Checkpoints stay mesh-agnostic: rank 0 writes the unpadded global state
+and any world size (or one device) resumes it.  Monitors and progress
+lines come from rank 0 only.
+
+The adaptive supervisor hook and the fleet-sharded layouts (``solve_many``
+over a mesh, ROADMAP queue 1 item 10) are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +47,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import ipi, methods
+import torch.distributed as dist
+
+from repro_torch.core import ipi, methods, partition
 from repro_torch.core.comm import Axes
 from repro_torch.core.ipi import IPIOptions, SolveState
 from repro_torch.core.mdp import (MDP, DenseMDP, EllMDP, as_fleet, gammas_of,
@@ -216,14 +230,15 @@ def _state_from_leaves(leaves, dev: torch.device) -> SolveState:
 
 
 def _restore_or_init(init, like, dev: torch.device, checkpoint_dir,
-                     verbose: bool, expect=None,
-                     single: bool = False) -> SolveState:
+                     verbose: bool, expect=None, single: bool = False,
+                     rows: slice = slice(None)) -> SolveState:
     """The state restored from ``checkpoint_dir``'s newest valid step, or
     ``init()``.  ``expect`` maps checkpoint-meta keys (``n``) to the
     values this solve requires — a mismatch means the directory holds
     another problem's checkpoint, which zero-padding would otherwise
     silently absorb.  ``single``: the checkpoint holds one instance's
-    unbatched leaves, restored as the fleet of one."""
+    unbatched leaves, restored as the fleet of one.  ``rows``: the states
+    this rank holds of the (zero-padded) global vectors."""
     if checkpoint_dir and ckpt.latest_step(checkpoint_dir) is not None:
         restored = ckpt.restore(checkpoint_dir, len(like))
         if restored is not None:
@@ -238,6 +253,7 @@ def _restore_or_init(init, like, dev: torch.device, checkpoint_dir,
             leaves = _pad_restored(leaves, like)
             if single:
                 leaves = [a[None] for a in leaves]
+            leaves[:3] = [a[..., rows] for a in leaves[:3]]
             state = _state_from_leaves(leaves, dev)
             if verbose:
                 print(f"[driver] resumed at outer k={np.max(state.k)}")
@@ -275,7 +291,106 @@ def _drive(dev_mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
         stop, res, div = ipi.stop_flags(state)
 
 
-def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, v0=None,
+def _validate_banded(mdp: MDP, halo: int, axes: Axes,
+                     n_shards: int | None) -> None:
+    """The halo layout is only exact when every transition stays within
+    +-halo of its source row (matrix bandwidth <= halo) and the halo fits
+    in one shard.  ``mdp`` is the unpadded MDP, or this rank's block with
+    ``axes`` its placement; ``n_shards`` the state-shard count of a mesh
+    (``None`` on one device).  Raises ``ValueError`` (not assert: must
+    survive -O)."""
+    if not isinstance(mdp, EllMDP):
+        raise ValueError("halo>0 requires the ELL representation; DenseMDP "
+                         "columns are global — drop halo or convert the MDP")
+    rows = axes.state_index() * mdp.n_local + torch.arange(
+        mdp.n_local, device=mdp.device)
+    band = torch.amax(torch.abs(mdp.idx.long() - rows[:, None, None])) \
+        if mdp.idx.numel() else torch.zeros((), dtype=torch.long,
+                                            device=mdp.device)
+    band = int(axes.pmax_action(axes.pmax_state(band)))
+    if band > halo:
+        raise ValueError(
+            f"matrix bandwidth {band} exceeds halo {halo}: the banded "
+            f"exchange would silently drop transitions; set halo >= {band} "
+            f"or use the all-gather layout (halo=0)")
+    if n_shards is not None:
+        n_local = -(-mdp.n_global // n_shards)
+        if halo > n_local:
+            raise ValueError(
+                f"halo {halo} exceeds the per-shard state count {n_local} "
+                f"({n_shards} shards x {mdp.n_global} states): boundary "
+                f"exchange would need >1 ring hop; use fewer shards or a "
+                f"smaller halo")
+
+
+def _resolve_overlap(opts: IPIOptions, block: MDP, axes: Axes,
+                     sharded: bool) -> IPIOptions:
+    """Resolve ``-comm_overlap auto|on|off`` into the interior/frontier
+    plan ``opts.overlap_plan`` of this solve (the same on every rank).
+
+    ``on`` overlaps whenever a contiguous interior core exists (banded /
+    stencil instances); ``auto`` also requires the core to cover at least
+    half the local rows.  Dense-random instances have no interior core and
+    stay on the synchronous path.  When a plan exists and the user left
+    ``-halo 0``, the planner also shrinks the collective: the solve runs on
+    the halo layout at exactly the frontier reach
+    (:func:`partition.frontier_reach`), a ``2 * reach`` ring exchange
+    instead of the ``n_global`` all-gather (exact by construction)."""
+    plan, halo = None, opts.halo
+    if opts.comm_overlap != "off" and sharded:
+        n_shards = axes.state_size()
+        n_local = block.n_global // n_shards
+        plan = partition.overlap_margins(block, n_shards, axes)
+        if plan is not None and opts.comm_overlap == "auto":
+            if n_local - plan[0] - plan[1] < n_local // 2:
+                plan = None
+        if plan is not None and opts.halo == 0:
+            reach = partition.frontier_reach(block, n_shards, axes)
+            # the ring exchange reaches one neighbour: the reach must fit
+            # a shard (half — beyond that the window nears the gather)
+            if reach is not None and reach <= n_local // 2:
+                halo = max(int(reach), 1)
+    if plan == opts.overlap_plan and halo == opts.halo:
+        return opts
+    return dataclasses.replace(opts, overlap_plan=plan, halo=halo)
+
+
+def _with_window(state: SolveState, opts: IPIOptions,
+                 n_win: int) -> SolveState:
+    """A restored state of an asynchronous method gets its exchanged
+    window back as zeros of length ``n_win`` — the k=0 iterate, a valid
+    (stale) window — as the reference restores its empty leaf."""
+    if methods.get_method(opts.method).outer is None \
+            or state.win is not None:
+        return state
+    return dataclasses.replace(state, win=torch.zeros(
+        (state.v.shape[0], n_win), dtype=state.v.dtype,
+        device=state.v.device))
+
+
+def _global_state(state: SolveState, axes: Axes) -> SolveState:
+    """``state`` with its per-state vectors gathered over the state shards
+    (every other field is the same on every rank)."""
+    if axes.state is None:
+        return state
+    return dataclasses.replace(
+        state, v=axes.allgather_state(state.v),
+        tv=axes.allgather_state(state.tv),
+        pi=axes.allgather_state(state.pi))
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """This rank's device under ``mesh``: its card (the one the launcher
+    set current) or the host, which ``device`` must name too."""
+    want = resolve_device(device)
+    if want.type != mesh.device_type:
+        raise ValueError(f"device {str(device)!r} does not match the mesh's "
+                         f"device type {mesh.device_type!r}")
+    return want
+
+
+def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, mesh=None,
+          layout: str = "1d", v0=None,
           checkpoint_dir: str | None = None, chunk: int = 64,
           checkpoint_mode: str = "chunk", verbose: bool = False,
           monitor=None, device: str | torch.device = "cuda") -> SolveResult:
@@ -285,11 +400,17 @@ def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, v0=None,
     The MDP's tables move to ``device`` if they are elsewhere; ``device``
     defaults to ``"cuda"`` and raises when no GPU is visible.
 
+    ``mesh`` (a ``torch.distributed`` device mesh, every rank calling with
+    the same MDP and options) shards the solve under ``layout`` (``"1d"``
+    or ``"2d"``, :mod:`repro_torch.core.partition`); ``device`` must then
+    name the mesh's device type, and each rank works on its own card.
+    Every rank returns the same global result.
+
     ``monitor`` (used when ``opts.monitor`` is set) is a callable receiving
     one dict per outer iteration — ``{"k", "res", "inner", "diverged",
     "elapsed"}``; without one, records print PETSc-style
     (:func:`repro_torch.core.methods.print_monitor`).  The first record is
-    the k=0 (or resume-point) one.
+    the k=0 (or resume-point) one.  Under a mesh only rank 0 emits them.
 
     ``checkpoint_dir`` persists the state in the reference's format and
     resumes from its newest valid step.  ``checkpoint_mode="chunk"``
@@ -308,30 +429,60 @@ def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, v0=None,
     if checkpoint_mode not in ("chunk", "interrupt"):
         raise ValueError(f"checkpoint_mode={checkpoint_mode!r}: expected "
                          f"'chunk' or 'interrupt'")
-    dev = resolve_device(device)
-    dev_mdp = as_fleet(mdp.to(dev))
-    axes = Axes()
+    if layout in partition.FLEET_LAYOUTS:
+        raise ValueError(f"layout={layout!r} shards the fleet (instance) "
+                         "dim, which a single solve() does not have; use "
+                         "solve_many() or layout='1d'/'2d'")
     n_orig = mdp.n_global
-    v0 = None if v0 is None else torch.as_tensor(v0)[None]
+    if mesh is None:
+        dev = resolve_device(device)
+        axes = Axes()
+        block = mdp.to(dev)
+        if opts.halo:
+            _validate_banded(block, opts.halo, axes, None)
+    else:
+        dev = _mesh_device(mesh, device)
+        placed = partition.already_placed(mdp, mesh, layout, dev)
+        block, axes, _ = partition.shard_mdp(mdp, mesh, layout,
+                                             mode=opts.mode, device=dev)
+        if opts.halo:
+            _validate_banded(block if placed else mdp, opts.halo,
+                             axes if placed else Axes(), axes.state_size())
+    opts = _resolve_overlap(opts, block, axes, mesh is not None)
+    dev_mdp = as_fleet(partition.place_block(block, axes, halo=opts.halo,
+                                             plan=opts.overlap_plan))
+    lead = mesh is None or dist.get_rank() == 0
+    n_pad, n_loc = block.n_global, block.n_local
+    rows = slice(axes.state_index() * n_loc, (axes.state_index() + 1) * n_loc)
+    if v0 is not None:
+        v0 = torch.nn.functional.pad(torch.as_tensor(v0),
+                                     (0, n_pad - n_orig))[rows][None]
     state = _restore_or_init(
-        lambda: ipi.init_state(dev_mdp, axes, opts, v0),
-        _state_like(n_orig, opts), dev, checkpoint_dir, verbose,
-        expect=dict(n=n_orig), single=True)
+        lambda: ipi.init_state(dev_mdp, axes, opts, v0, n_true=[n_orig]),
+        _state_like(n_pad, opts), dev, checkpoint_dir, verbose and lead,
+        expect=dict(n=n_orig), single=True, rows=rows)
+    state = _with_window(state, opts,
+                         n_loc + 2 * opts.halo if opts.halo else n_pad)
     save_each = bool(checkpoint_dir) and checkpoint_mode == "chunk"
 
     def save_state(state: SolveState) -> None:
-        ckpt.save(checkpoint_dir, int(state.k[0]),
-                  [a[0] for a in _trim_ckpt_state(state, n_orig, 1)],
-                  meta=dict(method=opts.method, n=n_orig),
-                  treedef=_CKPT_TREEDEF)
+        # every rank gathers; rank 0 writes; all wait for the file
+        leaves = _trim_ckpt_state(_global_state(state, axes), n_orig, 1)
+        if lead:
+            ckpt.save(checkpoint_dir, int(state.k[0]),
+                      [a[0] for a in leaves],
+                      meta=dict(method=opts.method, n=n_orig),
+                      treedef=_CKPT_TREEDEF)
+        if mesh is not None:
+            dist.barrier()
 
     def report(state, res, div, done) -> None:
-        if verbose:
+        if verbose and lead:
             print(f"[driver] k={state.k[0]} residual={res[0]:.3e}"
                   + (" DIVERGED" if div[0] else ""))
 
     mid = 0
-    if opts.monitor:
+    if opts.monitor and lead:
         mid = methods.monitor_handle(monitor or methods.print_monitor)
     emit = lambda k, res, inner, div: methods.emit_host(
         mid, np.max(k), res[0], inner[0], div[0])
@@ -347,7 +498,7 @@ def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, v0=None,
     finally:
         if mid:
             methods.monitor_release(mid)
-    return _result(state, 0, opts, mdp.gamma)
+    return _result(_global_state(state, axes), 0, opts, mdp.gamma, n_orig)
 
 
 def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
@@ -426,6 +577,7 @@ def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
         lambda: ipi.init_state(dev_mdp, axes, opts, v0, n_true=nt),
         _state_like(batched.n_global, opts, batched.batch), dev,
         checkpoint_dir, verbose, expect=dict(n=n_true, batch=b_true))
+    state = _with_window(state, opts, batched.n_global)
 
     def report(state, res, div, done) -> None:
         if verbose:

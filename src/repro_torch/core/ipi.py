@@ -1,4 +1,4 @@
-"""Inexact policy iteration (iPI) — the outer loop, single device.
+"""Inexact policy iteration (iPI) — the outer loop.
 
 Counterpart of :mod:`repro.core.ipi`.  Every outer iteration does one
 Bellman backup (greedy step + residual) and one inexact solve of ``(I -
@@ -44,10 +44,19 @@ DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _TOL_FLOOR = float(np.float32(1e-30))
 
 
+def wire_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a ``gather_dtype`` name (``"bfloat16"``, ...)."""
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"gather_dtype {name!r} is not a dtype: no torch "
+                         f"dtype of that name")
+    return dt
+
+
 @dataclasses.dataclass(frozen=True)
 class IPIOptions:
-    """Solver options (the reference's, less its kernel, layout and
-    adaptive fields)."""
+    """Solver options (the reference's, less its kernel and adaptive
+    fields)."""
 
     method: str = "ipi_gmres"   # any name in the live method registry
     mode: str = "mincost"       # "mincost" (argmin backup) | "maxreward"
@@ -74,6 +83,20 @@ class IPIOptions:
     pc_block: int = 32          # bjacobi tile size
     divtol: float = 1e4         # declare divergence when the residual
                                 # exceeds divtol * (initial residual)
+    halo: int = 0               # banded layout: exchange only +-halo
+                                # boundary entries instead of gathering v
+    gather_dtype: str | None = None  # compressed (inexact) gather for the
+                                # INNER matvecs only; backups stay exact
+    comm_overlap: str = "auto"  # overlap the backup's window movement with
+                                # interior-row compute: "on" whenever an
+                                # interior core exists, "auto" when it
+                                # covers >= half the local rows, "off"
+    async_sweeps: int = 1       # async_vi: local Bellman sweeps per value
+                                # exchange (1 == synchronous vi)
+    overlap_plan: tuple | None = None  # resolved (f_lo, f_hi) frontier
+                                # margins (driver-set from
+                                # partition.overlap_margins; not a user
+                                # option)
 
     def __post_init__(self):
         # Raised (not assert'd): option validation must survive `python -O`.
@@ -144,9 +167,44 @@ class IPIOptions:
         if self.anderson_window < 1:
             raise ValueError(f"anderson_window must be >= 1, "
                              f"got {self.anderson_window}")
+        if not isinstance(self.halo, int) or self.halo < 0:
+            raise ValueError(f"halo must be a non-negative int (0 disables "
+                             f"the banded layout), got {self.halo!r}")
+        if self.comm_overlap not in ("auto", "on", "off"):
+            raise ValueError(f"comm_overlap must be 'auto', 'on' or 'off', "
+                             f"got {self.comm_overlap!r}")
+        if not isinstance(self.async_sweeps, int) or self.async_sweeps < 1:
+            raise ValueError(f"async_sweeps must be an int >= 1 (1 == "
+                             f"synchronous vi), got {self.async_sweeps!r}")
         if self.monitor_mode not in ("stream", "chunk"):
             raise ValueError(f"monitor_mode must be 'stream' or 'chunk', "
                              f"got {self.monitor_mode!r}")
+        if self.overlap_plan is not None and (
+                not isinstance(self.overlap_plan, tuple)
+                or len(self.overlap_plan) != 2
+                or not all(isinstance(x, int) and x >= 0
+                           for x in self.overlap_plan)):
+            raise ValueError(f"overlap_plan is driver-internal: None or a "
+                             f"(f_lo, f_hi) tuple of ints >= 0, got "
+                             f"{self.overlap_plan!r}")
+        if self.gather_dtype is not None:
+            gd = wire_dtype(self.gather_dtype)
+            if not gd.is_floating_point:
+                raise ValueError(f"gather_dtype must be a floating dtype "
+                                 f"(wire format for v), got "
+                                 f"{self.gather_dtype}")
+            if gd.itemsize > DTYPES[self.dtype].itemsize:
+                raise ValueError(
+                    f"gather_dtype {self.gather_dtype} is wider than the "
+                    f"value dtype {self.dtype}: the compressed gather would "
+                    f"silently upcast the wire format; drop gather_dtype or "
+                    f"widen dtype")
+
+    @property
+    def wire(self) -> torch.dtype | None:
+        """The inner matvecs' gather dtype, or ``None``."""
+        return None if self.gather_dtype is None \
+            else wire_dtype(self.gather_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,45 +228,56 @@ class SolveState:
     done: torch.Tensor         # (B,) bool, stop criterion satisfied
     diverged: torch.Tensor     # (B,) bool (sticky): NaN or > divtol * res0
     n_true: torch.Tensor       # (B,) int32 unpadded state counts
+    win: torch.Tensor | None = None  # (B, window) the last exchanged value
+                               # window of an asynchronous method
+                               # (invariant: win == gather_v(v) at outer
+                               # steps); None for the synchronous ones.
+                               # Checkpointed empty, restored as zeros —
+                               # the k=0 iterate, a valid stale window
 
 
-def _span_of(d: torch.Tensor, opts: IPIOptions,
+def _span_of(d: torch.Tensor, axes: Axes, opts: IPIOptions,
              n_true: torch.Tensor) -> torch.Tensor:
     """Span seminorms ``sp(d) = max(d) - min(d)`` of the lanes of ``(B,
     n)`` ``d`` — computed only when the stop criterion declared
     ``needs_span``, else a free ``+inf`` — over each lane's true states:
     rows ``>= n_true`` (a ragged fleet's padding) are masked out as the
-    reference masks them.  (One device holds no mesh-pad rows.)"""
+    reference masks them, and so are mesh-pad rows (global ids
+    ``>= n_true``); the extremes are reduced over the state shards."""
     if not methods.get_stop(opts.stop_criterion).needs_span:
         return torch.full(d.shape[:-1], float("inf"), dtype=d.dtype,
                           device=d.device)
-    rows = torch.arange(d.shape[-1], device=d.device)
+    n_loc = d.shape[-1]
+    rows = axes.state_index() * n_loc + torch.arange(n_loc, device=d.device)
     valid = rows[None, :] < n_true[:, None]
     ninf = torch.tensor(-float("inf"), dtype=d.dtype, device=d.device)
-    dmax = torch.amax(torch.where(valid, d, ninf), dim=-1)
-    dmin = -torch.amax(torch.where(valid, -d, ninf), dim=-1)
-    return dmax - dmin
+    ext = axes.pmax_state(torch.stack([
+        torch.amax(torch.where(valid, d, ninf), dim=-1),
+        torch.amax(torch.where(valid, -d, ninf), dim=-1)]))
+    return ext[0] + ext[1]
 
 
 def init_state(mdp: MDP, axes: Axes, opts: IPIOptions,
                v0: torch.Tensor | None = None, *,
                n_true=None) -> SolveState:
-    """The k = 0 state of a batched MDP: one backup of ``v0`` (``(B, n)``,
-    zeros if not given).  ``n_true`` holds the lanes' unpadded state
-    counts (default: all ``n``)."""
+    """The k = 0 state of a batched MDP: one backup of ``v0`` (``(B,
+    n_local)``, zeros if not given).  ``n_true`` holds the lanes' unpadded
+    state counts (default: all ``n_global``)."""
     dt = DTYPES[opts.dtype]
     dev = mdp.device
     batch = mdp.batch
     v = torch.zeros((batch, mdp.n_local), dtype=dt, device=dev) \
         if v0 is None else torch.as_tensor(v0).to(device=dev, dtype=dt)
     gamma_t = batch_parts(mdp, dt)
-    tv, pi, _ = bellman.gather_backup(mdp, v, axes, mode=opts.mode,
-                                      gamma_t=gamma_t)
+    tv, pi, win = bellman.gather_backup(mdp, v, axes,
+                                        plan=opts.overlap_plan,
+                                        halo=opts.halo, mode=opts.mode,
+                                        gamma_t=gamma_t)
     tv = tv.to(dt)
     res = axes.norm_inf(tv - v)
-    nt = torch.tensor([mdp.n_local] * batch if n_true is None
+    nt = torch.tensor([mdp.n_global] * batch if n_true is None
                       else list(n_true), dtype=torch.int32, device=dev)
-    span = _span_of(tv - v, opts, nt)
+    span = _span_of(tv - v, axes, opts, nt)
     done = methods.stop_done(
         opts, res=res, span=span, res0=res,
         k=torch.zeros((batch,), dtype=torch.int32, device=dev),
@@ -222,7 +291,8 @@ def init_state(mdp: MDP, axes: Axes, opts: IPIOptions,
         trace_inner=torch.full((batch, opts.max_outer), -1,
                                dtype=torch.int32, device=dev),
         res0=res, span=span, done=done, diverged=torch.isnan(res),
-        n_true=nt)
+        n_true=nt,
+        win=win.to(dt) if methods.get_method(opts.method).outer else None)
 
 
 def stop_flags(state: SolveState) -> tuple:
@@ -240,14 +310,24 @@ def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
     """One outer iteration of every lane minus the k/trace bookkeeping.
     Lanes outside ``act`` (``None``: all lanes are active) are computed
     but not solved for, and their results are dropped by the caller.
-    Returns ``(v1, tv1, pi1, res1, span1, inner_iters (B,) int32)``."""
+    Methods with a custom ``outer`` (``async_vi``) replace the
+    inner-solve/backup core.  Returns ``(v1, tv1, pi1, res1, span1,
+    inner_iters (B,) int32, win1)``."""
     spec = methods.get_method(opts.method)
+    if spec.outer is not None:
+        v1, tv1, pi1, res1, inner, win1 = spec.outer(mdp, state, opts, axes,
+                                                     gamma_t)
+        span1 = _span_of(tv1 - v1, axes, opts, state.n_true)
+        return v1, tv1, pi1, res1, span1, inner, win1
     dt = state.tv.dtype
     gammas = gammas_of(mdp)
+    wire = opts.wire
     rows = bellman.policy_rows(mdp, state.pi, axes, dtype=dt,
-                               gamma_t=gamma_t)
+                               gamma_t=gamma_t, gather_dtype=wire)
     b = bellman.b_pi(rows, axes).to(dt)
-    matvec = lambda x: bellman.a_pi_matvec(rows, x, axes)
+    mv = lambda r: (lambda x: bellman.a_pi_matvec(
+        r, x, axes, halo=opts.halo, gather_dtype=wire))
+    matvec = mv(rows)
     tol = torch.maximum(opts.forcing_eta * state.res,
                         torch.tensor(_TOL_FLOOR, dtype=state.res.dtype,
                                      device=state.res.device))
@@ -257,26 +337,30 @@ def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
     if opts.pc_type != "none" and spec.ksp is not None:
         # rebuilt every outer step, per lane with the lane's gamma, from
         # the policy rows the matvec holds
+        row0 = bellman.window_offset(mdp, axes, opts.halo)
         for i in live:
             lane_pcs[i] = build_precond(
                 rows.lane(i, gammas[i]), axes=axes, n_local=mdp.n_local,
                 gamma=gammas[i], pc_type=opts.pc_type, block=opts.pc_block,
-                dtype=dt)
+                dtype=dt, row0=row0)
         precond = lambda x: torch.stack(
             [x[i] if pc is None else pc(x[i])
              for i, pc in enumerate(lane_pcs)])
 
     def lane(i):
-        rows_i = rows.lane(i, gammas[i])
-        return (lambda x: bellman.a_pi_matvec(rows_i, x, axes),
-                dict(gamma=gammas[i]), lane_pcs[i])
+        return mv(rows.lane(i, gammas[i])), dict(gamma=gammas[i]), \
+            lane_pcs[i]
 
     v1, inner = methods.inner_solve(
         opts, matvec, b, state.tv, tol, axes, live=act, live_lanes=live,
         lane=lane, precond=precond)
 
     def eval_at(v):
-        tv, pi, _ = bellman.gather_backup(mdp, v, axes, mode=opts.mode,
+        # exact window; the overlap plan switches in the communication-
+        # overlapped (result-identical) backup
+        tv, pi, _ = bellman.gather_backup(mdp, v, axes,
+                                          plan=opts.overlap_plan,
+                                          halo=opts.halo, mode=opts.mode,
                                           gamma_t=gamma_t)
         return v, tv, pi, axes.norm_inf(tv - v)
 
@@ -284,7 +368,8 @@ def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
     if opts.safeguard and spec.safeguarded and spec.ksp is not None:
         # Krylov-type steps are not contractions: a step that increases a
         # lane's Bellman residual is replaced by its VI step, computed
-        # only when some active lane rejects
+        # only when some active lane rejects.  The residuals are
+        # all-reduced, so every rank takes the same branch
         reject = ~(cand[3] <= state.res)
         if act is not None:
             reject = reject & act
@@ -296,8 +381,8 @@ def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
             cand = tuple(torch.where(reject.view(-1, *[1] * (c.dim() - 1)),
                                      f, c) for c, f in zip(cand, fall))
     v1, tv1, pi1, res1 = cand
-    span1 = _span_of(tv1 - v1, opts, state.n_true)
-    return v1, tv1, pi1, res1, span1, inner
+    span1 = _span_of(tv1 - v1, axes, opts, state.n_true)
+    return v1, tv1, pi1, res1, span1, inner, state.win
 
 
 def solve_chunk(mdp: MDP, state: SolveState, k_hi: int,
@@ -319,7 +404,7 @@ def solve_chunk(mdp: MDP, state: SolveState, k_hi: int,
             return state
         # with every lane active no lane is masked, and nothing is copied
         act = None if act_h.all() else lanes.to_device(act_h, dev)
-        v1, tv1, pi1, res1, span1, inner = _outer_core(
+        v1, tv1, pi1, res1, span1, inner, win1 = _outer_core(
             mdp, state, opts, axes, gamma_t, act, act_h)
         k1 = state.k + act_h
         done1 = methods.stop_done(
@@ -352,6 +437,7 @@ def solve_chunk(mdp: MDP, state: SolveState, k_hi: int,
             inner_total=state.inner_total + inner_h,
             trace_res=state.trace_res, trace_inner=state.trace_inner,
             res0=state.res0, span=sel(span1, state.span), done=done,
-            diverged=div1, n_true=state.n_true)
+            diverged=div1, n_true=state.n_true,
+            win=None if win1 is None else sel(win1, state.win))
         if on_step is not None:
             on_step(k_col, flags[1], inner_h, flags[2] != 0)

@@ -48,6 +48,13 @@ class EllMDP:
     batch dim; ``idx`` is either batched ``(B, n, m, K)`` or shared
     ``(n, m, K)`` (one topology for every instance); ``gamma`` is a float
     or a length-B tuple of per-instance floats.
+
+    A rank's block of a sharded MDP (:func:`repro_torch.core.partition.
+    shard_mdp`) holds its rows; after :func:`~repro_torch.core.partition.
+    place_block` its ``idx`` is in the coordinates of the value window its
+    backups read, and ``own_idx`` (``(n_int, m, K)``, or ``None``) holds
+    the interior rows' successors in the block's own coordinates for the
+    communication-overlapped backup.
     """
 
     idx: torch.Tensor
@@ -56,6 +63,7 @@ class EllMDP:
     gamma: float | tuple
     n_global: int
     m_global: int
+    own_idx: torch.Tensor | None = None
 
     @property
     def batch(self) -> int | None:
@@ -110,9 +118,10 @@ class EllMDP:
         dev = resolve_device(device)
         if self.device == dev:
             return self
+        own = None if self.own_idx is None else self.own_idx.to(dev)
         return dataclasses.replace(self, idx=self.idx.to(dev),
                                    val=self.val.to(dev),
-                                   cost=self.cost.to(dev))
+                                   cost=self.cost.to(dev), own_idx=own)
 
     def validate(self) -> None:
         """Host-side sanity checks (probability rows, index ranges)."""

@@ -48,9 +48,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.comm import Axes
-from repro_torch.core.solvers import (anderson, bicgstab, bicgstab_fleet,
-                                      chebyshev, gmres, gmres_fleet,
-                                      richardson, richardson_fleet)
+from repro_torch.core.solvers import (anderson, async_vi_outer, bicgstab,
+                                      bicgstab_fleet, chebyshev, gmres,
+                                      gmres_fleet, richardson,
+                                      richardson_fleet)
 
 __all__ = [
     "KSPSpec", "MethodSpec", "StopMetrics", "StopSpec",
@@ -68,7 +69,7 @@ INNER_POLICIES = ("none", "forcing", "sweeps", "tight")
 
 # the reference's builtin methods that this package does not run yet, and
 # the ROADMAP queue 1 item that ports each
-NOT_PORTED_METHODS = {"async_vi": 10, "auto": 12}
+NOT_PORTED_METHODS = {"auto": 12}
 
 
 # --------------------------------------------------------------------------- #
@@ -111,6 +112,10 @@ class MethodSpec:
     #                              steps are not contractions)
     doc: str = ""
     builtin: bool = False
+    outer: Callable | None = None  # custom outer iteration replacing the
+    #                                inner-solve/backup core (async_vi):
+    #                                outer(mdp, state, opts, axes, gamma_t)
+    #                                -> (v1, tv1, pi1, res1, inner, win1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,23 +243,29 @@ def register_ksp(name: str, fn: Callable | None = None, *, doc: str = "",
 
 def register_method(name: str, *, ksp: str | None, inner: str = "forcing",
                     safeguarded: bool = True, doc: str = "",
+                    outer: Callable | None = None,
                     overwrite: bool = False, _builtin: bool = False) \
         -> MethodSpec:
     """Register an outer method: which KSP runs the policy-evaluation step
-    and under which inner-stopping policy (see :data:`INNER_POLICIES`).
-    The reference's custom outer iterations (``outer=``) and virtual
-    methods are not ported."""
+    and under which inner-stopping policy (see :data:`INNER_POLICIES`) —
+    or, with ``outer``, a full custom outer iteration (e.g. ``async_vi``)
+    that replaces the inner-solve/backup core entirely.  The reference's
+    virtual methods are not ported."""
     _check_free(_METHODS, "method", name, overwrite)
     if inner not in INNER_POLICIES:
         raise ValueError(f"inner policy must be one of {INNER_POLICIES}, "
                          f"got {inner!r}")
     if ksp is not None and ksp not in _KSPS:
         raise ValueError(check_ksp(ksp))
+    if outer is not None and ksp is not None:
+        raise ValueError(f"method {name!r}: a custom outer iteration "
+                         f"replaces the inner solve — pass ksp=None")
     if (ksp is None) != (inner == "none"):
         raise ValueError(f"method {name!r}: ksp=None requires inner='none' "
                          f"(and vice versa), got ksp={ksp!r} inner={inner!r}")
     spec = MethodSpec(name=name, ksp=ksp, inner=inner,
-                      safeguarded=safeguarded, doc=doc, builtin=_builtin)
+                      safeguarded=safeguarded, doc=doc, builtin=_builtin,
+                      outer=outer)
     _METHODS[name] = spec
     return spec
 
@@ -651,6 +662,11 @@ register_method("ipi_chebyshev", ksp="chebyshev", inner="forcing",
                 _builtin=True)
 register_method("ipi_anderson", ksp="anderson", inner="forcing",
                 safeguarded=True, doc="iPI + Anderson-accelerated VI",
+                _builtin=True)
+register_method("async_vi", ksp=None, inner="none", safeguarded=False,
+                outer=async_vi_outer,
+                doc="asynchronous VI: async_sweeps stale local sweeps per "
+                    "value exchange (span-certified)",
                 _builtin=True)
 
 

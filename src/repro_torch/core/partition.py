@@ -1,0 +1,344 @@
+"""Partitioning of a global MDP over the ranks of a device mesh.
+
+Counterpart of :mod:`repro.core.partition`.  madupite/PETSc row-partitions
+states over MPI ranks (1-D).  The port has that layout and the reference's
+beyond-paper 2-D (state x action) layout, over a
+``torch.distributed.device_mesh.DeviceMesh``:
+
+* ``layout="1d"`` — states sharded over *all* mesh axes (paper-faithful);
+* ``layout="2d"`` — states over all-but-last axis, actions over the last;
+  the greedy min and the policy-evaluation matvec gain a reduction over
+  the action axis (see :mod:`repro_torch.core.bellman`).
+
+The fleet-sharded layouts (``fleet``, ``fleet2d``) and with them
+``fleet_padded_batch`` / ``pad_fleet_dim`` are not ported yet, nor
+matrix-free placement (ROADMAP queue 1 items 10 and 11).
+
+Padding: states are padded with absorbing zero-cost self-loops (their value
+is identically 0 and they are unreachable, so the solution and residuals on
+real states are untouched); actions are padded with cost ``±BIG`` rows that
+can never be greedy.
+
+Each rank holds only its own block (:func:`shard_mdp`): the rows of its
+state shard and the columns of its action shard, on its own device.  An
+ELL block's successor ids are rewritten once, at placement, into the
+coordinates of the value window its backups read (the gathered vector, or
+the halo window), so no backup shifts ``idx`` again.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core.comm import Axes, FLEET_ITEM
+from repro_torch.core.mdp import MDP, DenseMDP, EllMDP
+
+_BIG_COST = 1e30
+
+LAYOUTS = ("1d", "2d", "fleet", "fleet2d")
+FLEET_LAYOUTS = ("fleet", "fleet2d")
+
+# process groups spanning several dims of a mesh, built once per mesh
+_GROUPS: dict = {}
+
+
+def layout_dims(mesh, layout: str) -> tuple[tuple, tuple]:
+    """The mesh dimension names ``(state, action)`` that ``layout`` shards
+    over (the reference's :func:`mesh_axes`, by name).  ``mesh`` needs only
+    ``mesh_dim_names``."""
+    # Raised (not assert'd): layout validation must survive `python -O`.
+    names = tuple(mesh.mesh_dim_names)
+    need = {"1d": 1, "2d": 2, "fleet": 2, "fleet2d": 3}.get(layout)
+    if need is None:
+        raise ValueError(f"unknown layout {layout!r}; pick one of {LAYOUTS}")
+    if layout in FLEET_LAYOUTS:
+        raise NotImplementedError(
+            f"layout {layout!r} shards the fleet (instance) dim, which is "
+            f"not yet ported to repro_torch (ROADMAP queue 1 item "
+            f"{FLEET_ITEM}); use layout '1d' or '2d'")
+    if len(names) < need:
+        raise ValueError(f"layout {layout!r} needs >= {need} mesh axes, "
+                         f"got {names}")
+    if layout == "1d":
+        return names, ()
+    return names[:-1], names[-1:]
+
+
+def _group(mesh, names: tuple):
+    """One process group spanning the mesh dims ``names`` (``None`` for
+    none): a dim's own group, the world's when ``names`` are every dim of
+    a mesh over the whole world, else the mesh's groups along ``names``
+    built on every rank in one order."""
+    if not names:
+        return None
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    import torch.distributed as dist
+    all_dims = tuple(mesh.mesh_dim_names)
+    if names == all_dims and mesh.size() == dist.get_world_size():
+        return dist.group.WORLD
+    key = (id(mesh), names)
+    if key not in _GROUPS:
+        ids = mesh.mesh
+        keep = [all_dims.index(n) for n in names]
+        rest = [i for i in range(ids.dim()) if i not in keep]
+        blocks = ids.permute(*rest, *keep).reshape(-1, math.prod(
+            ids.shape[i] for i in keep))
+        _GROUPS[key] = dist.new_subgroups_by_enumeration(blocks.tolist())[0]
+    return _GROUPS[key]
+
+
+def mesh_axes(mesh, layout: str) -> Axes:
+    """The :class:`Axes` (process groups) of ``layout`` on ``mesh``."""
+    s, a = layout_dims(mesh, layout)
+    return Axes(state=_group(mesh, s), action=_group(mesh, a))
+
+
+def _axis_size(mesh, names) -> int:
+    dims = tuple(mesh.mesh_dim_names)
+    return math.prod(mesh.shape[dims.index(n)] for n in names)
+
+
+def padded_extents(mesh, layout: str, n: int, m: int) -> tuple[int, int]:
+    """Global (state, action) extents after padding ``(n, m)`` up to the
+    mesh's shard multiples under ``layout`` — the shapes a shard-locally
+    materialized MDP must be built at."""
+    s, a = layout_dims(mesh, layout)
+    ns, ms = _axis_size(mesh, s), _axis_size(mesh, a)
+    return -(-n // ns) * ns, -(-m // ms) * ms
+
+
+def shard_block(index, shape) -> tuple[tuple[int, int], ...]:
+    """Concrete per-dim ``(start, stop)`` ranges of one shard, from the
+    slice tuple that names it in a global ``shape``."""
+    out = []
+    for sl, dim in zip(index, shape):
+        lo, hi, step = sl.indices(dim)
+        if step != 1:
+            raise ValueError(f"shard_block expects contiguous shards, got "
+                             f"step={step}")
+        out.append((lo, hi))
+    return tuple(out)
+
+
+def pad_mdp(mdp: MDP, n_mult: int, m_mult: int, *,
+            mode: str = "mincost") -> MDP:
+    """Pad to state/action multiples, exact-solution preserving, on the
+    tables' own device; an MDP that needs no padding is returned as it is.
+
+    Padded actions carry cost ``+BIG`` under the argmin (``"mincost"``)
+    backup and ``-BIG`` under the argmax (``"maxreward"``) one, and move to
+    state 0 with probability 1, so they are never greedy.  Padded states
+    are zero-cost absorbing self-loops (value identically 0) under every
+    action.  Unbatched ELL and dense containers."""
+    if mdp.batch is not None:
+        raise NotImplementedError(
+            f"padding a fleet for a mesh layout is not yet ported to "
+            f"repro_torch (ROADMAP queue 1 item {FLEET_ITEM})")
+    big = _BIG_COST if mode == "mincost" else -_BIG_COST
+    n, m = mdp.n_global, mdp.m_global
+    n_pad, m_pad = (-n) % n_mult, (-m) % m_mult
+    if not (n_pad or m_pad):
+        return mdp
+    m_tot = m + m_pad
+    cost = mdp.cost
+    dev = cost.device
+    if m_pad:
+        cost = torch.cat([cost, torch.full((n, m_pad), big,
+                                           dtype=cost.dtype, device=dev)], 1)
+    if n_pad:
+        # zero cost on the absorbing self-loop -> v_pad == 0 exactly; big
+        # cost on padded actions stays (still never greedy)
+        pad_cost = torch.zeros((n_pad, m_tot), dtype=cost.dtype, device=dev)
+        pad_cost[:, m:] = big
+        cost = torch.cat([cost, pad_cost])
+    pad_rows = torch.arange(n, n + n_pad, device=dev)
+    if isinstance(mdp, EllMDP):
+        idx, val = mdp.idx, mdp.val
+        k = idx.shape[-1]
+        if m_pad:
+            idx = torch.cat([idx, torch.zeros((n, m_pad, k), dtype=idx.dtype,
+                                              device=dev)], 1)
+            pv = torch.zeros((n, m_pad, k), dtype=val.dtype, device=dev)
+            pv[..., 0] = 1.0     # to state 0 (the row sums to 1)
+            val = torch.cat([val, pv], 1)
+        if n_pad:
+            pad_idx = torch.zeros((n_pad, m_tot, k), dtype=idx.dtype,
+                                  device=dev)
+            pad_idx[..., 0] = pad_rows.to(idx.dtype)[:, None]
+            pad_val = torch.zeros((n_pad, m_tot, k), dtype=val.dtype,
+                                  device=dev)
+            pad_val[..., 0] = 1.0
+            idx, val = torch.cat([idx, pad_idx]), torch.cat([val, pad_val])
+        return EllMDP(idx=idx, val=val, cost=cost, gamma=mdp.gamma,
+                      n_global=n + n_pad, m_global=m_tot)
+    p = mdp.p
+    if m_pad:
+        pp = torch.zeros((n, m_pad, n), dtype=p.dtype, device=dev)
+        pp[..., 0] = 1.0
+        p = torch.cat([p, pp], 1)
+    if n_pad:
+        p = torch.cat([p, torch.zeros((n, m_tot, n_pad), dtype=p.dtype,
+                                      device=dev)], 2)
+        pad_p = torch.zeros((n_pad, m_tot, n + n_pad), dtype=p.dtype,
+                            device=dev)
+        pad_p[torch.arange(n_pad, device=dev), :, pad_rows] = 1.0
+        p = torch.cat([p, pad_p])
+    return DenseMDP(p=p, cost=cost, gamma=mdp.gamma, n_global=n + n_pad,
+                    m_global=m_tot)
+
+
+def _eff_extents(idx: torch.Tensor, val: torch.Tensor, n: int):
+    """Per-row ``(min, max)`` *nonzero-weight* ELL successor ids, reduced
+    over (action, slot) — the effective column extents the communication
+    planner reasons about.  Rows with no nonzero successors report the
+    empty extents ``(n, -1)``."""
+    nz = val != 0
+    idx = idx.long()
+    eff_max = torch.amax(torch.where(nz, idx, -1), dim=(-2, -1))
+    eff_min = torch.amin(torch.where(nz, idx, n), dim=(-2, -1))
+    return eff_min, eff_max
+
+
+def _block_frontier(mdp: EllMDP, n_shards: int, axes: Axes):
+    """``(reach, lo_bad, hi_bad)`` of the rows ``mdp`` holds (the whole
+    MDP, or with ``axes`` this rank's block of global row ids ``start ..``),
+    reduced over the ranks of ``axes``: how far any row's nonzero
+    successors reach past its shard, and the last bad row of each shard's
+    low half / the first of its high half."""
+    n_local = mdp.n_global // n_shards
+    dev = mdp.val.device
+    eff_min, eff_max = _eff_extents(mdp.idx, mdp.val, mdp.n_global)
+    g = axes.state_index() * mdp.n_local + torch.arange(mdp.n_local,
+                                                        device=dev)
+    i_loc = g % n_local
+    start = g - i_loc
+    reach = torch.maximum(torch.amax(start - eff_min),
+                          torch.amax(eff_max - (start + n_local) + 1))
+    bad = ~((eff_min >= start) & (eff_max < start + n_local))
+    half = n_local // 2
+    lo_bad = torch.amax(torch.where(bad & (i_loc < half), i_loc, -1))
+    hi_bad = torch.amin(torch.where(bad & (i_loc >= half), i_loc, n_local))
+    out = torch.stack([reach, lo_bad, -hi_bad])
+    out = axes.pmax_action(axes.pmax_state(out)).tolist()
+    return out[0], out[1], -out[2]
+
+
+def frontier_reach(mdp: MDP, n_shards: int, axes: Axes = Axes()) \
+        -> int | None:
+    """Smallest halo ``h`` such that every row's nonzero-weight successors
+    fall inside the owning shard's ``[start - h, stop + h)`` window — the
+    exchange width that makes the banded halo layout exact for this matrix
+    at this shard count.  ``0`` means the partition is block-diagonal;
+    ``None`` when the reach is undefined (dense representation, single
+    shard, ragged partition).
+
+    ``mdp`` is the whole MDP, or this rank's block with ``axes`` its
+    placement (every rank then gets the global answer)."""
+    if not isinstance(mdp, EllMDP) or n_shards <= 1:
+        return None
+    if mdp.n_global % n_shards:
+        return None
+    reach, _, _ = _block_frontier(mdp, n_shards, axes)
+    return max(int(reach), 0)
+
+
+def overlap_margins(mdp: MDP, n_shards: int, axes: Axes = Axes()) \
+        -> tuple[int, int] | None:
+    """Frontier margins ``(f_lo, f_hi)`` for the communication-overlapped
+    backup, or ``None`` when no contiguous interior core exists.
+
+    A row is *interior* when every nonzero-weight ELL successor falls inside
+    the owning shard's ``[start, stop)`` range — its backup can run against
+    ``v_local`` before the window arrives.  The margins are the smallest
+    ``(f_lo, f_hi)`` such that local rows ``[f_lo, n_local - f_hi)`` are
+    interior on *every* shard.  ``mdp`` and ``axes`` as in
+    :func:`frontier_reach`; call after padding."""
+    if not isinstance(mdp, EllMDP) or n_shards <= 1:
+        return None
+    if mdp.n_global % n_shards:
+        return None
+    n_local = mdp.n_global // n_shards
+    _, lo_bad, hi_bad = _block_frontier(mdp, n_shards, axes)
+    f_lo, f_hi = int(lo_bad) + 1, n_local - int(hi_bad)
+    if f_lo + f_hi >= n_local:
+        return None
+    return f_lo, f_hi
+
+
+def already_placed(mdp: MDP, mesh, layout: str,
+                   device: torch.device) -> bool:
+    """True when ``mdp`` is already this rank's block under ``layout`` on
+    ``device``: its rows and actions are one shard's worth of its global
+    extents and need no padding — an MDP materialized shard-locally, or a
+    world of one, where the whole MDP is the one block.
+    :func:`shard_mdp` then slices and copies nothing."""
+    s, a = layout_dims(mesh, layout)
+    ns, ms = _axis_size(mesh, s), _axis_size(mesh, a)
+    return (mdp.n_global % ns == 0 and mdp.m_global % ms == 0
+            and mdp.n_local * ns == mdp.n_global
+            and mdp.m_local * ms == mdp.m_global and mdp.device == device)
+
+
+def window_idx(idx: torch.Tensor, axes: Axes, n_local: int,
+               halo: int) -> torch.Tensor:
+    """Global successor ids -> the coordinates of the value window the
+    backups read: unchanged for the gathered vector, shifted into the
+    ``[start - halo, stop + halo)`` window (clamped: zero-weight ELL fill
+    may name columns outside the band, and must read a defined value so
+    ``0 * v[i]`` stays exactly 0) for the halo layout."""
+    if not halo:
+        return idx
+    row_start = axes.state_index() * n_local
+    return torch.clamp(idx - row_start + halo, 0,
+                       n_local + 2 * halo - 1).to(idx.dtype)
+
+
+def shard_mdp(mdp: MDP, mesh, layout: str = "1d", *,
+              mode: str = "mincost", device: torch.device):
+    """Pad and place this rank's block of a global MDP on ``device``.
+
+    Returns ``(block, axes, n_orig)``: the rows of this rank's state shard
+    and the actions of its action shard (the ``2d`` layout), contiguous on
+    ``device``, successor ids still global (:func:`place_block` moves them
+    into window coordinates once the solve's halo is known).  An MDP that
+    is already this rank's block (:func:`already_placed`) is not copied."""
+    axes = mesh_axes(mesh, layout)
+    ns, ms = axes.state_size(), axes.action_size()
+    if already_placed(mdp, mesh, layout, device):
+        return mdp, axes, mdp.n_global
+    padded = pad_mdp(mdp, ns, ms, mode=mode)
+    n_loc, m_loc = padded.n_global // ns, padded.m_global // ms
+    r, c = axes.state_index() * n_loc, axes.action_index() * m_loc
+    cut = lambda t: t[r:r + n_loc, c:c + m_loc].contiguous().to(device)
+    if isinstance(padded, EllMDP):
+        block = EllMDP(idx=cut(padded.idx), val=cut(padded.val),
+                       cost=cut(padded.cost), gamma=padded.gamma,
+                       n_global=padded.n_global, m_global=padded.m_global)
+    else:
+        block = DenseMDP(p=cut(padded.p), cost=cut(padded.cost),
+                         gamma=padded.gamma, n_global=padded.n_global,
+                         m_global=padded.m_global)
+    return block, axes, mdp.n_global
+
+
+def place_block(block: MDP, axes: Axes, *, halo: int = 0,
+                plan: tuple[int, int] | None = None) -> MDP:
+    """``block`` with its ELL successor ids in window coordinates for
+    ``halo`` and, for an overlap ``plan``, its interior rows' ids in its
+    own coordinates (``own_idx``)."""
+    if not isinstance(block, EllMDP) or not (halo or plan):
+        return block
+    n_loc = block.n_local
+    own = None
+    if plan is not None:
+        f_lo, f_hi = plan
+        row_start = axes.state_index() * n_loc
+        own = torch.clamp(block.idx[f_lo:n_loc - f_hi] - row_start, 0,
+                          n_loc - 1).to(block.idx.dtype).contiguous()
+    return dataclasses.replace(
+        block, idx=window_idx(block.idx, axes, n_loc, halo).contiguous(),
+        own_idx=own)

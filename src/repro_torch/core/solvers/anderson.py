@@ -31,13 +31,13 @@ _TINY = 1e-30
 
 def _det_gram(axes: Axes, df: torch.Tensor) -> torch.Tensor:
     """``DF DF^T`` one (i, j) lane pair at a time."""
-    return axes.psum_state(torch.stack([
+    return axes.psum_ordered(torch.stack([
         torch.stack([torch.sum(di * dj) for dj in df]) for di in df]))
 
 
 def _det_rhs(axes: Axes, df: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """``DF r`` one lane at a time."""
-    return axes.psum_state(torch.stack([torch.sum(di * r) for di in df]))
+    return axes.psum_ordered(torch.stack([torch.sum(di * r) for di in df]))
 
 
 def _det_combine(w: torch.Tensor, dx: torch.Tensor, df: torch.Tensor,

@@ -20,7 +20,10 @@ every accumulation order instead, as the reference's does: each
 projection is a loop of one elementwise-multiply-and-sum per basis lane,
 each basis combination an ordered AXPY loop, and the Hessenberg solve an
 explicit back-substitution.  No BLAS product is left whose blocking could
-depend on the library or the shape.
+depend on the library or the shape, and the partial sums of the state
+shards are added in rank order (:meth:`~repro_torch.core.comm.Axes.
+psum_ordered`), whatever order the collective library reduces in: the
+reference's "exactness at equal state-shard count".
 
 :func:`gmres_fleet` is the batched form for a fleet of ``(B, n)``
 systems, with ``vmap`` semantics: each lane has its own tolerance, step
@@ -46,8 +49,8 @@ _TINY = 1e-30
 
 def _det_dot(axes: Axes, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """<x, y> as an elementwise multiply and one reduction (never a BLAS
-    dot), then the sum over state shards."""
-    return axes.psum_state(torch.sum(x * y))
+    dot), then the sum over state shards in rank order."""
+    return axes.psum_ordered(torch.sum(x * y))
 
 
 def _det_norm2(axes: Axes, x: torch.Tensor) -> torch.Tensor:
@@ -57,7 +60,7 @@ def _det_norm2(axes: Axes, x: torch.Tensor) -> torch.Tensor:
 def _det_projections(axes: Axes, V: torch.Tensor,
                      w: torch.Tensor) -> torch.Tensor:
     """The CGS2 projection ``V @ w`` one basis lane at a time."""
-    return axes.psum_state(torch.stack([torch.sum(vj * w) for vj in V]))
+    return axes.psum_ordered(torch.stack([torch.sum(vj * w) for vj in V]))
 
 
 def _det_combine(h: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
@@ -215,7 +218,7 @@ def _det_projections_lanes(axes: Axes, V: torch.Tensor,
                            w: torch.Tensor) -> torch.Tensor:
     """Batched :func:`_det_projections`: ``(B, restart + 1)``, one
     multiply-and-sum per basis lane."""
-    return axes.psum_state(torch.stack(
+    return axes.psum_ordered(torch.stack(
         [torch.sum(V[:, j] * w, dim=-1) for j in range(V.shape[1])], dim=1))
 
 
@@ -248,7 +251,7 @@ def _arnoldi_cycle_fleet(matvec, b, x, *, restart: int, tol, axes: Axes,
     M = precond if precond is not None else (lambda v: v)
     if deterministic:
         norm2 = lambda v: torch.sqrt(torch.clamp_min(
-            axes.psum_state(torch.sum(v * v, dim=-1)), 0.0))
+            axes.psum_ordered(torch.sum(v * v, dim=-1)), 0.0))
     else:
         norm2 = axes.norm2_lanes
     r = b - matvec(x)
@@ -349,7 +352,7 @@ def gmres_fleet(matvec, b: torch.Tensor, x0: torch.Tensor, *, tol,
     r0 = b - matvec(x0)
     if deterministic:
         res = torch.sqrt(torch.clamp_min(
-            axes.psum_state(torch.sum(r0 * r0, dim=-1)), 0.0))
+            axes.psum_ordered(torch.sum(r0 * r0, dim=-1)), 0.0))
     else:
         res = axes.norm2_lanes(r0)
     x = x0

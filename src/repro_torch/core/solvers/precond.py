@@ -43,9 +43,9 @@ PC_TYPES = ("none", "jacobi", "bjacobi")
 _TABLE_DTYPE = torch.float32
 
 
-def _diag_p_pi(rows, axes: Axes, n_local: int) -> torch.Tensor:
-    """Local diagonal of ``P_pi`` (reduced over action shards)."""
-    row0 = axes.state_index() * n_local
+def _diag_p_pi(rows, axes: Axes, n_local: int, row0: int) -> torch.Tensor:
+    """Local diagonal of ``P_pi`` (reduced over action shards); ``row0``
+    is the position of the first local row among the rows' column ids."""
     if rows.idx is not None:
         dev = rows.idx.device
         gids = row0 + torch.arange(n_local, device=dev)
@@ -60,11 +60,10 @@ def _diag_p_pi(rows, axes: Axes, n_local: int) -> torch.Tensor:
     return axes.psum_action(d)
 
 
-def _block_rows_p_pi(rows, axes: Axes, n_local: int,
-                     block: int) -> torch.Tensor:
+def _block_rows_p_pi(rows, axes: Axes, n_local: int, block: int,
+                     row0: int) -> torch.Tensor:
     """``(n_local, block)`` strip: column ``c`` of row ``i`` holds
     ``P_pi[i, (i // block) * block + c]`` in local ids (zeros elsewhere)."""
-    row0 = axes.state_index() * n_local
     if rows.idx is not None:
         dev = rows.idx.device
         li = torch.arange(n_local, device=dev)
@@ -96,15 +95,20 @@ def _block_rows_p_pi(rows, axes: Axes, n_local: int,
 
 def build_precond(rows, *, axes: Axes, n_local: int, gamma: float,
                   pc_type: str, block: int = 32,
-                  dtype: torch.dtype | None = None) \
+                  dtype: torch.dtype | None = None,
+                  row0: int | None = None) \
         -> Callable[[torch.Tensor], torch.Tensor] | None:
     """An approximate inverse ``M ~= A_pi^-1`` for the current policy:
     an apply ``x -> M x`` (local rows in, local rows out), or ``None``
-    for ``pc_type='none'``."""
+    for ``pc_type='none'``.  ``row0`` is where the local rows sit in the
+    window the rows' ``idx`` address (default: the shard's first global
+    row, for global ids; :func:`repro_torch.core.bellman.window_offset`)."""
     if pc_type == "none":
         return None
+    if row0 is None:
+        row0 = axes.state_index() * n_local
     if pc_type == "jacobi":
-        diag = _diag_p_pi(rows, axes, n_local)
+        diag = _diag_p_pi(rows, axes, n_local, row0)
         d = _fma(torch.ones_like(diag), diag, -gamma)
         inv_d = 1.0 / torch.where(torch.abs(d) > _TINY, d,
                                   torch.ones_like(d))
@@ -113,7 +117,7 @@ def build_precond(rows, *, axes: Axes, n_local: int, gamma: float,
         return lambda x: x * inv_d.to(x.dtype)
     if pc_type == "bjacobi":
         b = int(block)
-        strip = _block_rows_p_pi(rows, axes, n_local, b)
+        strip = _block_rows_p_pi(rows, axes, n_local, b, row0)
         nb = -(-n_local // b)
         pad = nb * b - n_local
         if pad:

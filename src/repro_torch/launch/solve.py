@@ -32,21 +32,39 @@ or with ``--sweep-gamma LO HI`` a gamma sweep over one instance,
     PYTHONPATH=src python -m repro_torch.launch.solve --instance garnet \
         --n 2000 --batch 8 --sweep-gamma 0.9 0.999 --device cpu
 
-The mesh flags (``--layout``, ``--fleet``) are not yet ported and exit
-with an error that says so.  Exit code 0 iff every instance converged.
+Sharded (``--layout 1d|2d``), one process a card under ``torchrun``, or
+gloo ranks on the host with ``--device cpu``:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.solve \
+        -- --instance garnet --n 1000000 --m 16 --k 8 --layout 1d
+
+(the ``--`` keeps torchrun from reading ``--n`` / ``--m`` as abbreviations
+of its own options; the CLI drops it).
+
+Every rank builds the instance, keeps its block and prints one ``[solve]
+rank`` line naming its device; rank 0 prints the rest.  Under torchrun the
+layout defaults to ``1d`` over the world (``-layout auto``).  The fleet
+layouts (``--layout fleet|fleet2d``, ``--fleet``) are not yet ported and
+exit with an error that says so.  Exit code 0 iff every instance
+converged, on every rank.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.api import MDP, Options, Session
 from repro_torch.core import generators
 from repro_torch.device import DEVICES
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as launch_mesh
 
 
 def _gen_kwargs(args) -> dict:
@@ -92,7 +110,7 @@ def build_options(args) -> Options:
                 "atol": "-atol", "stop_criterion": "-stop_criterion",
                 "max_outer": "-max_outer", "dtype": "-dtype",
                 "ckpt_dir": "-checkpoint_dir", "mode": "-mode",
-                "device": "-device"}
+                "device": "-device", "layout": "-layout"}
     for flag, key in flag_map.items():
         val = getattr(args, flag)
         if val is not None:
@@ -112,19 +130,48 @@ def build_options(args) -> Options:
 
 
 def _not_ported(args) -> str | None:
-    for flag in ("layout", "fleet"):
-        if getattr(args, flag) is not None:
-            return (f"--{flag} is not yet ported to repro_torch (ROADMAP "
-                    f"queue 1 item 10: meshes and the fleet layouts; this "
-                    f"package solves on one device); use the JAX "
-                    f"package's repro.launch.solve")
+    if args.fleet is not None or args.layout in ("fleet", "fleet2d"):
+        flag = "--fleet" if args.fleet is not None \
+            else f"--layout {args.layout}"
+        return (f"{flag} is not yet ported to repro_torch (ROADMAP queue 1 "
+                f"item 10: the fleet layouts; this package shards one MDP "
+                f"under --layout 1d|2d); use the JAX package's "
+                f"repro.launch.solve")
     return None
 
 
-def _launch_line(opts: Options) -> None:
+def _start_ranks(args, opts: Options) -> tuple[bool, bool]:
+    """Bring the process group up under torchrun (``WORLD_SIZE`` set) or
+    for a forced ``1d`` / ``2d`` layout, unless one is up already:
+    ``(lead, started)``, lead when this process is rank 0 (or alone).
+    Each rank names its device."""
+    if dist.is_initialized():
+        return dist.get_rank() == 0, False
+    if "WORLD_SIZE" not in os.environ and args.layout not in ("1d", "2d"):
+        return True, False
+    dev = launch_mesh.init_distributed(opts.get("-device"))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
+    print(f"[solve] rank {rank} of {world} on {dev} ({name})", flush=True)
+    return rank == 0, True
+
+
+def _all_ranks(ok: bool, device: str) -> bool:
+    """``ok`` on every rank (a MIN all-reduce; the value itself when no
+    process group is up)."""
+    if not dist.is_initialized():
+        return ok
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device == "cuda" else torch.device("cpu")
+    flag = torch.tensor([int(ok)], dtype=torch.int32, device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def _launch_line(opts: Options, say=print) -> None:
     if opts.get("-device") == "cuda":
         counts = " ".join(f"{k}={v}" for k, v in ops.launch_counts().items())
-        print(f"[solve] kernel launches: {counts}")
+        say(f"[solve] kernel launches: {counts}")
 
 
 def main(argv=None):
@@ -155,7 +202,11 @@ def main(argv=None):
     ap.add_argument("--max-outer", type=int, default=None,
                     help="option -max_outer")
     ap.add_argument("--layout", default=None,
-                    help="not yet ported (ROADMAP queue 1 item 10)")
+                    choices=["auto", "single", "1d", "2d", "fleet",
+                             "fleet2d"],
+                    help="option -layout (1d/2d shard over the "
+                         "torch.distributed world; fleet layouts not yet "
+                         "ported, ROADMAP queue 1 item 10)")
     ap.add_argument("--fleet", type=int, default=None,
                     help="not yet ported (ROADMAP queue 1 item 10)")
     ap.add_argument("--dtype", default=None, help="option -dtype")
@@ -164,8 +215,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None,
                     help="option -checkpoint_dir")
     ap.add_argument("--single-device", action="store_true",
-                    help="accepted for compatibility: the port always "
-                         "solves on one device")
+                    help="option -layout single")
     ap.add_argument("--option", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="set any options-database key (repeatable; the "
@@ -177,6 +227,12 @@ def main(argv=None):
                     metavar=("LO", "HI"),
                     help="with --batch: gamma sweep over [LO, HI] instead "
                          "of a seed ensemble")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--"]:
+        # torchrun ... -m repro_torch.launch.solve -- --n ...: the launcher
+        # hands on the separator that keeps it from reading --n / --m as
+        # abbreviations of its own options
+        argv = argv[1:]
     args = ap.parse_args(argv)
 
     err = _not_ported(args)
@@ -187,34 +243,46 @@ def main(argv=None):
                          "fleet); e.g. --batch 8 --sweep-gamma 0.9 0.9999")
     if args.batch > 1 and args.load:
         raise SystemExit("--batch does not combine with --load")
+    if args.single_device:
+        args.layout = "single"
     opts = build_options(args)
-    with Session(opts) as session:
-        if args.batch > 1:
-            fleet = build_fleet(args)
-            print(f"[solve] fleet B={args.batch} instance={args.instance} "
-                  f"n={fleet[0].n_global} m={fleet[0].m_global} "
-                  f"gammas={[round(float(m.gamma), 6) for m in fleet]} "
-                  f"device={opts.get('-device')}")
-            t0 = time.time()
-            results = session.solve_fleet(fleet)
-            wall = time.time() - t0
-            for b, r in enumerate(results):
-                print(f"[solve] [{b}] {r.summary()}")
-            print(f"[solve] fleet wall={wall:.2f}s "
-                  f"({wall / args.batch:.2f}s/instance amortized)")
-            _launch_line(opts)
-            return 0 if all(r.converged for r in results) else 1
+    lead, started = _start_ranks(args, opts)
+    say = print if lead else (lambda *a, **k: None)
+    try:
+        with Session(opts) as session:
+            if args.batch > 1:
+                fleet = build_fleet(args)
+                say(f"[solve] fleet B={args.batch} instance={args.instance} "
+                    f"n={fleet[0].n_global} m={fleet[0].m_global} "
+                    f"gammas={[round(float(m.gamma), 6) for m in fleet]} "
+                    f"device={opts.get('-device')}")
+                t0 = time.time()
+                results = session.solve_fleet(fleet)
+                wall = time.time() - t0
+                for b, r in enumerate(results):
+                    say(f"[solve] [{b}] {r.summary()}")
+                say(f"[solve] fleet wall={wall:.2f}s "
+                    f"({wall / args.batch:.2f}s/instance amortized)")
+                _launch_line(opts, say)
+                return 0 if all(r.converged for r in results) else 1
 
-        mdp = build_instance(args)
-        print(f"[solve] instance={args.instance} n={mdp.n} m={mdp.m} "
-              f"gamma={mdp.gamma} mode={mdp.mode} "
-              f"device={opts.get('-device')}")
-        t0 = time.time()
-        r = session.solve(mdp)
-        print(f"[solve] {r.summary()}  wall={time.time()-t0:.2f}s")
-        _launch_line(opts)
-        print(f"[solve] ||v - v*||_inf <= {r.gap_bound:.3e} (certificate)")
-        return 0 if r.converged else 1
+            mdp = build_instance(args)
+            mesh, layout = session.placement()
+            where = "single" if mesh is None else \
+                f"{layout} over {dist.get_world_size()} ranks"
+            say(f"[solve] instance={args.instance} n={mdp.n} m={mdp.m} "
+                f"gamma={mdp.gamma} mode={mdp.mode} "
+                f"device={opts.get('-device')} layout={where}")
+            t0 = time.time()
+            r = session.solve(mdp)
+            say(f"[solve] {r.summary()}  wall={time.time()-t0:.2f}s")
+            _launch_line(opts, say)
+            say(f"[solve] ||v - v*||_inf <= {r.gap_bound:.3e} (certificate)")
+            ok = _all_ranks(bool(r.converged), opts.get("-device"))
+            return 0 if ok else 1
+    finally:
+        if started:
+            launch_mesh.shutdown()
 
 
 if __name__ == "__main__":

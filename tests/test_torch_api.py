@@ -104,7 +104,7 @@ def test_unknown_keys_and_devices_raise():
     with pytest.raises(topts.OptionTypeError, match="'-device' must be"):
         Options({"-device": "tpu"})
     with pytest.raises(topts.OptionTypeError, match="'-method'"):
-        Options({"-method": "async_vi"})
+        Options({"-method": "auto"})
     assert Options().get("-device") == "cuda"
 
 
@@ -188,7 +188,7 @@ def test_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--batch", "2", "--layout", "fleet"],
-                                   ["--layout", "1d"],
+                                   ["--layout", "fleet2d"],
                                    ["--batch", "3", "--fleet", "3"],
                                    ["--layout", "fleet", "--monitor"],
                                    ["--sweep-gamma", "0.9", "0.99",
@@ -196,8 +196,9 @@ def test_cli_on_cpu(capsys):
                                    ["--fleet", "2"],
                                    ["--fleet", "4", "--ckpt-dir", "d"]])
 def test_cli_unported_flags_raise(flags):
-    # the mesh flags are still unported; --batch / --sweep-gamma are
-    # ported (tests/test_torch_fleet.py) and no longer raise on their own
+    # the fleet-mesh flags are still unported (--layout 1d / 2d are,
+    # tests/test_torch_distributed.py); --batch / --sweep-gamma are ported
+    # (tests/test_torch_fleet.py) and no longer raise on their own
     with pytest.raises(SystemExit, match="not yet ported.*item 10"):
         tcli.main(["--device", "cpu", *flags])
 

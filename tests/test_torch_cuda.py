@@ -679,3 +679,84 @@ def test_gpu_fleet_matches_cpu_fleet_with_one_launch_a_step(cuda, method):
         else:
             assert np.abs(g.v - c.v).max() <= max(
                 1e-10 * np.abs(c.v).max(), c.gap_bound)
+
+
+# --------------------------------------------------------------------------- #
+# Sharded solves on the card (torch.distributed over NCCL)                    #
+# --------------------------------------------------------------------------- #
+
+@pytest.fixture
+def nccl_world1(cuda):
+    """A process group of one rank on NCCL in this process, torn down
+    after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as lm
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    lm.init_distributed("cuda", store=dist.HashStore(), rank=0,
+                        world_size=1)
+    try:
+        yield lm
+    finally:
+        lm.shutdown()
+
+
+def _same_bits(a, b):
+    return (np.array_equal(a.v.view(np.uint64), b.v.view(np.uint64))
+            and np.array_equal(a.policy, b.policy)
+            and (a.outer_iterations, a.inner_iterations)
+            == (b.outer_iterations, b.inner_iterations))
+
+
+@pytest.mark.parametrize("layout", ["1d", "2d"])
+@pytest.mark.parametrize("dense", [False, True])
+def test_world1_nccl_solve_is_the_single_solve(nccl_world1, layout, dense):
+    """World size 1 runs every collective through NCCL: the sharded solve
+    is bit for bit the single-device one, and the kernels launch."""
+    mdp = generators.garnet(n=3001, m=7, k=5, gamma=0.99, seed=3)
+    if dense:
+        mdp = mdp.as_dense()
+    opts = IPIOptions(method="ipi_gmres", dtype="float64", atol=1e-9)
+    single = driver.solve(mdp, opts, device="cuda")
+    mesh = nccl_world1.make_host_mesh((1, 1), device="cuda")
+    ops.reset_launch_counts()
+    r = driver.solve(mdp, opts, mesh=mesh, layout=layout, device="cuda")
+    counts = ops.launch_counts()
+    assert r.converged and _same_bits(r, single)
+    assert counts["dense_backup" if dense else "ell_backup"] > 0
+
+
+@pytest.mark.parametrize("method", ["vi", "ipi_gmres", "async_vi"])
+def test_halo_solve_is_the_all_gather_solve_on_the_card(nccl_world1,
+                                                        method):
+    maze = generators.maze2d(size=40, gamma=0.99)
+    common = dict(method=method, dtype="float64", atol=1e-8,
+                  max_outer=20 if method == "ipi_gmres" else 5000)
+    base = driver.solve(maze, IPIOptions(**common), device="cuda")
+    halo = driver.solve(maze, IPIOptions(halo=40, **common), device="cuda")
+    assert _same_bits(halo, base)
+    mesh = nccl_world1.make_host_mesh((1, 1), device="cuda")
+    for extra in (dict(halo=40), dict(comm_overlap="on")):
+        r = driver.solve(maze, IPIOptions(**extra, **common), mesh=mesh,
+                         layout="1d", device="cuda")
+        assert _same_bits(r, base)
+
+
+def test_multi_card_ranks_match_the_single_solve(cuda):
+    """Over every card (``torchrun`` of chip_smoke's phase 3m (d) at a
+    small size): 1d / 2d give the single solve's policy and counts, the
+    maze trajectories are bitwise across halo and overlap."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        pytest.skip("needs two or more CUDA devices (one rank a card)")
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n_dev), str(root / "chip_smoke.py"),
+         "--ranks", "cuda", "20000", "60"], capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"[phase3m] (d) world={n_dev}" in proc.stdout

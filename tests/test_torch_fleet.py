@@ -373,9 +373,12 @@ def test_session_solve_fleet_guards():
             s.solve_fleet(mdps)
         with pytest.raises(tapi.OptionTypeError, match="queue 1 item 12"):
             s.solve_fleet(mdps[:1], method="auto")
-    for key in ("-layout", "-fleet", "-pad_fleet"):
+    for key in ("-fleet", "-pad_fleet"):
         with pytest.raises(tapi.UnknownOptionError, match="queue 1 item 10"):
             tapi.Options({key: "fleet"})
+    # -layout is a key now (1d / 2d are ported); its fleet values are not
+    with pytest.raises(tapi.OptionTypeError, match="queue 1 item 10"):
+        tapi.Options({"-layout": "fleet"})
 
 
 def test_cli_gamma_sweep_on_cpu(capsys):

@@ -9,10 +9,11 @@
 * Unknown-name and duplicate-name messages equal the reference's, with
   the hint naming this package's ``repro_torch.api`` where the
   reference's names ``repro.api``; the registered-name lists lack the
-  reference's two methods this package does not run yet (``async_vi``,
-  ``auto``), which raise a message naming their ROADMAP queue item.
+  reference's one method this package does not run yet (``auto``), which
+  raises a message naming its ROADMAP queue item; ``async_vi``, once in
+  that list, is registered as the reference registers it.
 * ``method_table``, ``ksp_table`` and ``stop_table`` equal the
-  reference's, less the ``async_vi`` and ``auto`` rows.
+  reference's, less the ``auto`` row.
 
 Registries are process-global: every test that registers a name
 unregisters it in its fixture's teardown.
@@ -35,7 +36,7 @@ from repro_torch.core import methods as tmethods
 jax.config.update("jax_enable_x64", True)
 
 GARNET = dict(n=97, m=5, k=3, gamma=0.95, seed=1)
-NOT_PORTED = ("async_vi", "auto")
+NOT_PORTED = ("auto",)
 SWEEPS = 3
 
 
@@ -221,9 +222,19 @@ def test_duplicate_name_messages_match_reference(kind, name):
     assert msgs[1] == msgs[0]
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
+@pytest.mark.parametrize("name", ("async_vi",) + NOT_PORTED)
 def test_unported_methods_name_their_queue_item(name):
     assert name in jmethods.method_names()
+    if name not in NOT_PORTED:
+        # ported since (ROADMAP queue 1 item 10): registered as the
+        # reference registers it
+        spec, jspec = tmethods.get_method(name), jmethods.get_method(name)
+        assert tmethods.check_method(name) is None
+        assert (spec.ksp, spec.inner, spec.safeguarded, spec.doc) == \
+            (jspec.ksp, jspec.inner, jspec.safeguarded, jspec.doc)
+        assert spec.outer is not None
+        assert tapi.Options({"-method": name}).get("-method") == name
+        return
     msg = tmethods.check_method(name)
     item = {"async_vi": 10, "auto": 12}[name]
     assert f"ROADMAP queue 1 item {item}" in msg and "not yet ported" in msg
@@ -265,5 +276,5 @@ def test_option_table_rows_match_reference_types_and_defaults():
         jtyp, jdefault = jrows[key]
         assert default == jdefault, key
         if key == "`-method`":
-            jtyp = jtyp.replace(" \\| `async_vi` \\| `auto`", "")
+            jtyp = jtyp.replace(" \\| `auto`", "")
         assert typ == jtyp, key
