@@ -116,6 +116,37 @@ result) without them.  Phases, each of which raises on failure:
    single solve's policy and counts with values within 1e-10 |v|_inf,
    the maze's four ways bitwise); on one card it says that the
    multi-rank cases ran only in the CPU tests;
+   (3n) function-backed MDPs, after 3m (b) on its process group: (a)
+   ``MDP.from_generator("garnet", deferred=True, n=10^6, m=16, k=8,
+   gamma=0.99, seed=0)`` — one rebuild of every row timed (ms per 10^6
+   rows) in chunks of half the chunk rule's rows, of the rule's and of
+   all rows, with one chunk's measured transient (the rule's under the
+   cap); ``ops.ell_backup_chunk`` (the ``ell_backup`` kernel) on one
+   rebuilt chunk of the rule's rows against a value vector of 10^6 and
+   against four of them with (c)'s gammas over the shared tables, both
+   dtypes, bit for bit the plain version on the CPU copies and timed;
+   the host's build of the same constructors bit for bit the card's —
+   then solved through a ``Session`` with ``-mdp_materialize
+   device`` and ``matrix_free``, f64 ``ipi_gmres`` to ``1e-8`` and f32
+   ``mpi`` to ``1e-4``: each pair bit for bit (values, policy, counts,
+   trace), each solve with its launch counts (matrix-free: the
+   materialized solve's ``ell_backup`` launches times the chunks, the
+   same ``ell_matvec`` launches), its peak device memory above the
+   baseline (``max_memory_allocated``; matrix-free at least the table's
+   bytes less the chunk cap below materialized) beside ``table_bytes`` /
+   ``operator_bytes``, its wall, and its first outer step profiled
+   (busy, idle; the constructors' share of device time as 1 - busy
+   materialized / busy matrix-free); the f64 matrix-free values pass
+   phase 3's CPU backup over the host's tables; (b) maze2d by
+   constructors (size 1000, band 1000), matrix-free under
+   ``driver.solve(mesh=<3m's world-1 mesh>, layout="1d")``, f64
+   ``ipi_gmres`` over 10 outer steps four ways (``-halo 0`` / ``1000`` x
+   ``-comm_overlap on`` / ``off``), each bit for bit the
+   device-materialized single solve, with its launch counts; (c)
+   ``Session.solve_fleet`` of a matrix-free gamma sweep (B = 4, gamma = 1
+   - geomspace(0.1, 0.01, 4)) in f32 ``mpi``: each lane bit for bit its
+   unbatched matrix-free solve, one ``ell_backup`` launch a chunk for the
+   lanes, fewer than the four solves', walls beside each other;
 9. the LM serving path, minitron-8b (32 layers, d_model 4096, 32 query /
    8 KV heads, d_head 128, vocab 256,000, bf16, random weights from a
    seed):
@@ -146,7 +177,7 @@ result) without them.  Phases, each of which raises on failure:
    each path's counts (the ELL kernels' include phase 3g's and 3h's
    paths).  Rows 1-4 carry ``batched``: phase 3h (d)'s rows, keyed by
    ``idx`` kind and dtype; the ELL kernels' also carry phase 3m (a)'s
-   ``sharded_1d`` / ``sharded_2d`` counts.
+   ``sharded_1d`` / ``sharded_2d`` counts and phase 3n's ``mf_*`` paths.
 """
 
 from __future__ import annotations
@@ -714,30 +745,33 @@ def device_profile(fn) -> tuple:
 
 
 def profile_once(fn, wall_ms: float) -> tuple:
-    """``fn()`` once under torch.profiler: its result, and its device time
-    by entry with the idle share against ``wall_ms`` (a plain run's wall)
-    and against the profiled run's own wall."""
-    from torch.autograd import DeviceType
+    """``fn()`` once under torch.profiler (CUDA activity only): its
+    result, and its device time by kernel (kernels, copies and sets, summed
+    from the profiler's own chrome trace, which stays quick at hundreds of
+    thousands of launches where ``key_averages()`` takes minutes), with
+    the idle share against ``wall_ms`` (a plain run's wall) and against
+    the profiled run's own wall."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        # device-side entries only (kernels, copies): host ops report the
-        # device time of the kernels they launch, which would count twice
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / f"profile_{os.getpid()}.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    by_name: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                    "gpu_memset"):
+            ms, count = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (ms + e.get("dur", 0) / 1e3, count + 1)
+    rows = sorted(((ms, c, k) for k, (ms, c) in by_name.items()),
+                  reverse=True)
     busy_ms = sum(ms for ms, _, _ in rows)
     return result, dict(
         wall_ms=wall_ms, profiled_wall_ms=prof_wall_ms,
@@ -1018,10 +1052,11 @@ def maze_cases(maze, mesh, device: str) -> dict:
 
 
 def sharded_paths(mdp, main: dict, device: str = "cuda",
-                  maze_size: int = MAZE_SIZE) -> dict:
+                  maze_size: int = MAZE_SIZE, then=None) -> dict:
     """Phase 3m: the sharded solve path (``torch.distributed``) on the
     card, at world size 1 in this process, then ``torchrun`` over every
-    card (module docstring)."""
+    card (module docstring).  ``then(meshes)``, if given, runs after (b)
+    on the same process group (phase 3n), its result under ``"then"``."""
     import torch.distributed as dist
     from repro_torch.core import driver, generators
     from repro_torch.core.ipi import IPIOptions
@@ -1088,6 +1123,8 @@ def sharded_paths(mdp, main: dict, device: str = "cuda",
         out["maze"] = maze_cases(maze, meshes["1d"], device)
         log(f"[phase3m] (b) world=1: {json.dumps(out['maze'])}")
         del maze
+        if then is not None:
+            out["then"] = then(meshes)
     finally:
         lm.shutdown()
     # (c) the CLI under torchrun, one rank a card
@@ -1100,6 +1137,284 @@ def sharded_paths(mdp, main: dict, device: str = "cuda",
         log("[phase3m] (d) world=1: one card, so the multi-rank cases ran "
             "only in the CPU tests (tests/test_torch_distributed.py, 4 "
             "gloo ranks)")
+    return dict(launches=launches, **out)
+
+
+def rebuild_rate(spec, n: int, bn: int, device: str) -> dict:
+    """Phase 3n (a): one rebuild of every row of ``spec`` in chunks of
+    ``bn`` rows (the matrix-free backup's constructor work, without the
+    backup), in milliseconds per 10^6 rows (CUDA events, median of 3), and
+    one chunk's measured transient against the cap."""
+    from repro_torch.kernels import matrix_free
+
+    acts = tuple(range(spec.m))
+
+    def rebuild():
+        for lo in range(0, n, bn):
+            rows = torch.arange(lo, min(lo + bn, n), dtype=torch.int32,
+                                device=device)
+            matrix_free.build_rows_block(spec, rows, acts, "mincost",
+                                         check=False)
+
+    ms = time_ms(rebuild, reps=3)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    chunk = matrix_free.build_rows_block(
+        spec, torch.arange(bn, dtype=torch.int32, device=device), acts,
+        "mincost", check=False)
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - base
+    del chunk
+    return dict(chunk_rows=bn, chunks=-(-n // bn), rebuild_ms=ms,
+                ms_per_1e6_rows=ms * 1e6 / n, chunk_transient_bytes=transient,
+                chunk_cap_bytes=matrix_free.CHUNK_BYTES)
+
+
+def chunk_kernel_checks(spec, n: int, bn: int, gammas, device: str) -> list:
+    """Phase 3n (a): ``ops.ell_backup_chunk`` on one rebuilt chunk of
+    ``bn`` rows against a whole value vector: unbatched (``v`` (n,)) and in
+    a matrix-free fleet's shared-table form (``v`` (B, n), one gamma a
+    lane), in both dtypes, bit for bit against the plain version on the
+    CPU copies of the same inputs; timed beside the byte bound."""
+    from repro_torch.kernels import matrix_free, ops, ref
+
+    idx, val, cost, _ = matrix_free.build_rows_block(
+        spec, torch.arange(bn, dtype=torch.int32, device=device),
+        tuple(range(spec.m)), "mincost", check=False)
+    tables = (idx, val, cost)
+    on_cpu = tuple(t.cpu() for t in tables)
+    gen = np.random.default_rng(3)
+    out = []
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).replace("torch.", "")
+        for lanes in (None, len(gammas)):
+            shape = (n,) if lanes is None else (lanes, n)
+            v = torch.from_numpy(gen.random(shape) * 50.0).to(device, dt)
+            g = GAMMA if lanes is None else torch.tensor(gammas, dtype=dt,
+                                                         device=device)
+            got = ops.ell_backup_chunk(*tables, g, v)
+            want = ref.ell_backup(*on_cpu, g if lanes is None else g.cpu(),
+                                  v.cpu())
+            got = tuple(t.cpu() for t in got)
+            diff = max_abs_diff(got[0], want[0])
+            if not (bits_equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(
+                    f"3n (a) ell_backup_chunk {name} v {shape}: kernel != "
+                    f"plain version on the CPU (max |diff| {diff}, argmin "
+                    f"mismatches {int((got[1] != want[1]).sum())})")
+            b = lanes or 1
+            nbytes = (idx.nbytes + val.nbytes + cost.nbytes + v.nbytes
+                      + b * bn * (v.element_size() + 4))
+            b_ms, b_by = bound_ms(nbytes, b * idx.numel() * 2
+                                  + b * cost.numel() * 3, dt)
+            row = dict(dtype=name, v_shape=list(shape), chunk_rows=bn,
+                       max_abs_err=diff,
+                       ms=time_ms(lambda: ops.ell_backup_chunk(*tables, g,
+                                                               v)),
+                       bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+            out.append(row)
+            log(f"[phase3n] (a) ell_backup_chunk: {json.dumps(row)}; bit "
+                f"for bit the plain version on the CPU")
+    return out
+
+
+def bits_same(a, b) -> bool:
+    """Two solves' values (either float dtype), policies, counts and
+    residual traces bit for bit."""
+    va, vb = np.asarray(a.v), np.asarray(b.v)
+    ints = {4: np.int32, 8: np.int64}[va.dtype.itemsize]
+    return (va.dtype == vb.dtype and np.array_equal(va.view(ints),
+                                                    vb.view(ints))
+            and np.array_equal(a.policy, b.policy)
+            and (a.outer_iterations, a.inner_iterations)
+            == (b.outer_iterations, b.inner_iterations)
+            and np.array_equal(a.trace_residual, b.trace_residual,
+                               equal_nan=True))
+
+
+def matrix_free_paths(meshes, device: str = "cuda", n: int = N,
+                      maze_size: int = MAZE_SIZE) -> dict:
+    """Phase 3n: function-backed MDPs, materialized on the card and
+    matrix-free (module docstring), on phase 3m's process group."""
+    from repro_torch.api import MDP, madupite_session
+    from repro_torch.core import driver
+    from repro_torch.core.ipi import IPIOptions
+    from repro_torch.kernels import matrix_free, ops
+
+    out, launches = {}, {}
+    garnet = MDP.from_generator("garnet", deferred=True, n=n, m=M, k=K,
+                                gamma=GAMMA, seed=0)
+    spec = garnet._row_spec()
+    table = matrix_free.table_bytes(n, M, K)
+    rule = matrix_free.chunk_rows(spec, M)
+    rates = [rebuild_rate(spec, n, bn, device) for bn in (rule // 2, rule, n)]
+    out["rebuild"] = rate = rates[1]
+    out["rebuild_by_chunk_rows"] = rates
+    for r in rates:
+        log(f"[phase3n] (a) one rebuild of garnet n={n} m={M} k={K} on the "
+            f"card{' (the rule)' if r is rate else ''}: {json.dumps(r)}")
+    if rate["chunk_transient_bytes"] > matrix_free.CHUNK_BYTES:
+        raise AssertionError(f"3n (a): one chunk's transient "
+                             f"{rate['chunk_transient_bytes']} bytes is over "
+                             f"the cap {matrix_free.CHUNK_BYTES}")
+    gammas = fleet_gammas(0.9, 0.99, FLEET_B)
+    out["chunk_kernel"] = chunk_kernel_checks(spec, n, rule, gammas, device)
+    # the host's tables, by the same constructors, certify the card's
+    t0 = time.perf_counter()
+    host = garnet.build("cpu")
+    t_host = time.perf_counter() - t0
+    card = garnet.build(device)
+    for f in ("idx", "val", "cost"):
+        if not bits_equal(getattr(card, f).cpu(), getattr(host, f)):
+            raise AssertionError(f"3n (a): the card's {f} is not the "
+                                 f"host's bit for bit")
+    garnet.evict()
+    del card
+    log(f"[phase3n] (a) the host built the same tables bit for bit in "
+        f"{t_host:.1f}s")
+
+    chunks = rate["chunks"]
+    solves = {"ipi_gmres_f64": {"-method": "ipi_gmres", "-dtype": "float64",
+                                "-atol": 1e-8},
+              "mpi_f32": {"-method": "mpi", "-dtype": "float32",
+                          "-atol": 1e-4}}
+    results = {}
+    for tag, opts in solves.items():
+        rows = {}
+        for mat in ("device", "matrix_free"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            with madupite_session({**opts, "-mdp_materialize": mat}) as s:
+                r, wall = timed_solve(lambda: s.solve(garnet))
+                peak = torch.cuda.max_memory_allocated() - base
+                c = ops.launch_counts()
+                # busy and idle over the first outer step (a whole
+                # matrix-free solve launches millions of kernels)
+                prefix = lambda: s.solve(garnet, max_outer=1)
+                _, w_prefix = timed_solve(prefix)
+                _, prof = profile_once(prefix, w_prefix * 1e3)
+            require_launched(f"3n (a) {tag} {mat}", c, ELL_KERNELS)
+            if not r.converged:
+                raise AssertionError(f"3n (a) {tag} {mat}: {r.summary()}")
+            launches[f"mf_{tag}_{mat}"] = c
+            results[(tag, mat)] = r
+            rows[mat] = dict(outer=r.outer_iterations,
+                             inner=r.inner_iterations, wall_s=wall,
+                             peak_bytes=peak, launches=c,
+                             first_step_profile=prof)
+        dev, mf = results[(tag, "device")], results[(tag, "matrix_free")]
+        if not bits_same(dev, mf):
+            raise AssertionError(f"3n (a) {tag}: matrix-free is not the "
+                                 f"device-materialized solve bit for bit")
+        c_dev, c_mf = rows["device"]["launches"], rows["matrix_free"][
+            "launches"]
+        if c_mf["ell_backup"] != c_dev["ell_backup"] * chunks \
+                or c_mf["ell_matvec"] != c_dev["ell_matvec"]:
+            raise AssertionError(f"3n (a) {tag}: launches {c_mf} against "
+                                 f"{c_dev} in {chunks} chunks")
+        saved = rows["device"]["peak_bytes"] - rows["matrix_free"][
+            "peak_bytes"]
+        if saved < table - matrix_free.CHUNK_BYTES:
+            raise AssertionError(f"3n (a) {tag}: matrix-free peak only "
+                                 f"{saved} bytes below the materialized one")
+        b_dev = rows["device"]["first_step_profile"]["device_busy_ms"]
+        b_mf = rows["matrix_free"]["first_step_profile"]["device_busy_ms"]
+        rows["constructor_share_of_device_time"] = 1.0 - b_dev / b_mf
+        rows["table_bytes"] = table
+        rows["operator_bytes"] = matrix_free.operator_bytes(
+            n, K, krylov=True)
+        out[tag] = rows
+        log(f"[phase3n] (a) {tag}: matrix-free bit for bit the "
+            f"device-materialized solve ({mf.summary()}); "
+            f"{json.dumps(rows)}")
+    # the value vector against the host's tables, by one plain backup
+    r64 = results[("ipi_gmres_f64", "matrix_free")]
+    out["cpu_residual"] = certify_on_cpu(host, r64.v, r64.policy,
+                                         "3n (a) matrix-free ipi_gmres")
+    del host
+    log(f"[phase3n] (a) independent CPU residual {out['cpu_residual']:.3e} "
+        f"<= 1e-8")
+
+    # (b) maze2d by constructors, matrix-free under the world-1 mesh
+    maze = MDP.from_generator("maze2d", deferred=True, size=maze_size,
+                              gamma=GAMMA)
+    base = dict(method="ipi_gmres", dtype="float64", atol=1e-8,
+                max_outer=MAZE_OUTER)
+    single = driver.solve(maze.build(device), IPIOptions(**base),
+                          device=device)
+    mf_maze = maze.build(device, materialize="matrix_free")
+    ways = {}
+    for halo in (0, maze_size):
+        for ov in ("on", "off"):
+            ops.reset_launch_counts()
+            r, wall = timed_solve(lambda: driver.solve(
+                mf_maze, IPIOptions(**base, halo=halo, comm_overlap=ov),
+                mesh=meshes["1d"], layout="1d", device=device))
+            c = ops.launch_counts()
+            require_launched(f"3n (b) halo {halo} overlap {ov}", c,
+                             ELL_KERNELS)
+            if not bits_same(r, single):
+                raise AssertionError(f"3n (b) halo {halo} overlap {ov}: not "
+                                     f"the device-materialized single "
+                                     f"solve bit for bit")
+            launches[f"mf_maze_halo{halo}_{ov}"] = c
+            ways[f"halo{halo}/{ov}"] = dict(wall_s=wall, launches=c)
+    maze.evict()
+    out["maze"] = dict(outer=single.outer_iterations,
+                       inner=single.inner_iterations, ways=ways)
+    log(f"[phase3n] (b) maze2d size={maze_size} matrix-free, world=1 mesh, "
+        f"four ways bit for bit the materialized single solve: "
+        f"{json.dumps(out['maze'])}")
+
+    # (c) a matrix-free gamma sweep: one spec, one rebuild a chunk for the
+    # lanes
+    sweep = [MDP.from_generator("garnet", deferred=True, n=n, m=M, k=K,
+                                gamma=g, seed=0) for g in gammas]
+    opts = {**solves["mpi_f32"], "-mdp_materialize": "matrix_free"}
+    with madupite_session(opts) as s:
+        ops.reset_launch_counts()
+        fleet, t_fleet = timed_solve(lambda: s.solve_fleet(sweep))
+        c_fleet = ops.launch_counts()
+        solo, walls, c_solo = [], [], []
+        for g, m in zip(gammas, sweep):
+            if g == GAMMA:      # (a)'s matrix-free mpi solve: this lane
+                solo.append(results[("mpi_f32", "matrix_free")])
+                walls.append(out["mpi_f32"]["matrix_free"]["wall_s"])
+                c_solo.append(out["mpi_f32"]["matrix_free"]["launches"])
+                continue
+            ops.reset_launch_counts()
+            r, wall = timed_solve(lambda m=m: s.solve(m))
+            solo.append(r)
+            walls.append(wall)
+            c_solo.append(ops.launch_counts())
+    require_launched("3n (c) fleet", c_fleet, ELL_KERNELS)
+    for b, (f, r) in enumerate(zip(fleet, solo)):
+        if not (f.converged and bits_same(f, r)):
+            raise AssertionError(f"3n (c) lane {b} (gamma {gammas[b]}): "
+                                 f"{f.summary()} not bit for bit its "
+                                 f"unbatched {r.summary()}")
+    solo_backups = sum(c["ell_backup"] for c in c_solo)
+    if c_fleet["ell_backup"] % chunks or c_fleet["ell_backup"] \
+            >= solo_backups:
+        raise AssertionError(f"3n (c): fleet launches {c_fleet} against "
+                             f"{solo_backups} unbatched backups")
+    launches["mf_session_fleet_mpi"] = c_fleet
+    out["sweep"] = dict(gammas=gammas, wall_s=t_fleet, launches=c_fleet,
+                        solo_wall_s=walls, solo_launches=c_solo,
+                        lanes=[dict(outer=f.outer_iterations,
+                                    inner=f.inner_iterations)
+                               for f in fleet])
+    log(f"[phase3n] (c) matrix-free gamma sweep {gammas} mpi f32: fleet "
+        f"wall {t_fleet:.2f}s against {sum(walls):.2f}s for the four "
+        f"solves, each lane bit for bit its unbatched solve; launches "
+        f"{c_fleet} against {c_solo}")
     return dict(launches=launches, **out)
 
 
@@ -1899,8 +2214,9 @@ def main() -> int:
     parity()
     fleet = fleet_paths(mdp)
     path["launches"].update(fleet["launches"])
-    sharded = sharded_paths(mdp, path)
+    sharded = sharded_paths(mdp, path, then=matrix_free_paths)
     path["launches"].update(sharded["launches"])
+    path["launches"].update(sharded["then"]["launches"])
     del mdp
     torch.cuda.empty_cache()
 

@@ -1,7 +1,9 @@
 """repro_torch.api — the user surface of the torch port (madupite-style).
 
-* :class:`MDP` — ELL problems from arrays, files or the built-in
-  generators, tagged ``mode="mincost"`` or ``"maxreward"``;
+* :class:`MDP` — ELL problems from arrays, files, the built-in
+  generators or callables (``from_functions``: built on the device, on
+  the host, or never — matrix-free), tagged ``mode="mincost"`` or
+  ``"maxreward"``;
 * :class:`Options` — the PETSc-style options database (the ported keys
   plus ``-device``), rendered by :func:`option_table`;
 * :class:`Session` / :func:`madupite_session` — one options view, device

@@ -14,7 +14,8 @@ Ported keys: the solver keys of ``IPIOptions`` (``-method``, ``-mode``,
 ``-divtol``, ``-dtype``, ``-halo``, ``-gather_dtype``, ``-comm_overlap``,
 ``-async_sweeps``), the solve loop's ``-chunk``, ``-checkpoint_dir`` and
 ``-verbose``, the placement's ``-layout`` (``auto|single|1d|2d``; the fleet
-layouts raise) and ``-fleet_bucketing``, the outputs ``-file_stats`` /
+layouts raise) and ``-fleet_bucketing``, function-backed MDPs'
+``-mdp_materialize``, the outputs ``-file_stats`` /
 ``-file_stats_format`` / ``-file_policy`` / ``-file_cost``, and the port's
 own ``-device``.  The reference's fleet-mesh keys ``-fleet`` /
 ``-pad_fleet`` raise, naming the ROADMAP item that ports them.
@@ -291,6 +292,14 @@ _SPECS = [
                "group ragged fleets by state count into pad-efficient "
                "buckets (one batched loop per bucket)",
                choices=("auto", "off")),
+    OptionSpec("-mdp_materialize", str, "auto",
+               "function-backed MDP materialization: device (run the torch "
+               "row constructors on the solve's device), host (numpy "
+               "callbacks), matrix_free (never store the table — rebuild "
+               "row chunks inside every Bellman backup; O(n) per shard), "
+               "or auto (device when the constructors are torch "
+               "functions; never matrix_free)",
+               choices=("auto", "host", "device", "matrix_free")),
     # ---- output -------------------------------------------------------------
     OptionSpec("-file_stats", str, None,
                "write run statistics here after each solve",

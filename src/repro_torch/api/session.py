@@ -21,8 +21,15 @@ Under ``torch.distributed`` (``torchrun``, or
 :func:`repro_torch.launch.mesh.init_distributed`) :meth:`Session.placement`
 shards a single solve over the world (``-layout auto|1d|2d``); every rank
 calls ``solve`` with the same MDP and gets the same result, and only rank
-0 writes the outputs.  The fleet-sharded layouts (with their device-fleet
-cache) and ``-method auto`` are not ported yet.
+0 writes the outputs.
+
+Function-backed MDPs (:meth:`repro_torch.api.MDP.from_functions`,
+``from_generator(..., deferred=True)``) are built per solve as
+``-mdp_materialize`` says — on the session's device, each rank its own
+block under a mesh — or solved matrix-free; a fleet of them that shares
+one row spec rebuilds each chunk once for all its lanes.  The
+fleet-sharded layouts (with their device-fleet cache) and ``-method auto``
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ from repro_torch.api.options import Options
 from repro_torch.core import driver
 from repro_torch.core import methods as _methods
 from repro_torch.core.driver import SolveResult
-from repro_torch.core.mdp import MDP as CoreMDP, DenseMDP, EllMDP
+from repro_torch.core.mdp import MDP as CoreMDP, DenseMDP, EllMDP, \
+    MatrixFreeMDP
 from repro_torch.device import resolve_device
 
 __all__ = ["Session", "madupite_session"]
@@ -86,7 +94,8 @@ class Session:
         self.close()
 
     def close(self) -> None:
-        """Release the device copies of the MDPs this session placed."""
+        """Release the device copies of the MDPs this session placed —
+        tables, blocks and matrix-free operator containers alike."""
         if not self._closed:
             for mdp in list(self._solved):
                 mdp.evict()
@@ -164,8 +173,16 @@ class Session:
             ipi = dataclasses.replace(ipi, mode=mdp.mode)
         device = opts.get("-device")
         mesh, layout = self.placement(opts)
-        # a sharded solve places its blocks from the MDP where it was built
-        core = mdp.build(device if mesh is None else "cpu")
+        if mdp.deferred:
+            # built where it is solved: this rank's block under a mesh, or
+            # the matrix-free operator
+            core = mdp.place(mesh, layout, mode=ipi.mode,
+                             materialize=opts.get("-mdp_materialize"),
+                             device=device)
+        else:
+            # a sharded solve places its blocks from the MDP where it was
+            # built
+            core = mdp.build(device if mesh is None else "cpu")
         self._solved.add(mdp)
         t0 = time.time()
         r = driver.solve(core, ipi, mesh=mesh, layout=layout,
@@ -174,6 +191,7 @@ class Session:
                          verbose=opts.get("-verbose"), monitor=mon_cb,
                          device=device)
         wall = time.time() - t0
+        r = _trim(r, mdp.n)
         self._record([r], [mdp], ipi, opts, device, wall, fleet=None,
                      monitor=mon_records, mesh=mesh, layout=layout)
         self._write_outputs([r], opts)
@@ -216,6 +234,7 @@ class Session:
         device = opts.get("-device")
         buckets = bucket_indices([m.n for m in wrapped],
                                  policy=opts.get("-fleet_bucketing"))
+        mat = opts.get("-mdp_materialize")
         ckpt = opts.get("-checkpoint_dir")
         results: list[SolveResult | None] = [None] * len(wrapped)
         t0 = time.time()
@@ -227,9 +246,17 @@ class Session:
             bucket_cb = mon_cb if mon_cb is None or len(buckets) == 1 \
                 else (lambda rec, _j=j: mon_cb({**rec, "bucket": _j}))
             # the tables as built: stacked where they are, then placed on
-            # the device once
+            # the device once; function-backed instances built on the
+            # device (matrix-free ones as operators sharing one spec)
+            cores = []
+            for i in bucket:
+                m = wrapped[i]
+                cores.append(m.build(device, materialize=mat) if m.deferred
+                             else m.core)
+                if m.deferred:
+                    self._solved.add(m)
             rs = driver.solve_many(
-                [wrapped[i].core for i in bucket], ipi,
+                cores, ipi,
                 checkpoint_dir=bucket_ckpt, chunk=opts.get("-chunk"),
                 verbose=opts.get("-verbose"), monitor=bucket_cb,
                 device=device)
@@ -279,10 +306,11 @@ class Session:
     def _wrap(self, mdp: MDP | CoreMDP, opts: Options) -> MDP:
         if isinstance(mdp, MDP):
             return mdp
-        if isinstance(mdp, (EllMDP, DenseMDP)):
+        if isinstance(mdp, (EllMDP, DenseMDP, MatrixFreeMDP)):
             return MDP(mdp, mode=opts.get("-mode"))
         raise TypeError(f"solve wants a repro_torch.api.MDP (or a core "
-                        f"EllMDP/DenseMDP), got {type(mdp).__name__}")
+                        f"EllMDP/DenseMDP/MatrixFreeMDP), got "
+                        f"{type(mdp).__name__}")
 
     def _record(self, results, mdps, ipi, opts: Options, device: str,
                 wall: float, *, fleet, monitor=None, mesh=None,
@@ -372,6 +400,14 @@ def madupite_session(options: Options | Mapping[str, Any] | None = None) \
             r = s.solve(mdp)
     """
     return Session(options)
+
+
+def _trim(r: SolveResult, n: int) -> SolveResult:
+    """A result solved on a padded (shard-locally built) MDP, trimmed back
+    to the true state count."""
+    if len(r.v) <= n:
+        return r
+    return dataclasses.replace(r, v=r.v[:n], policy=r.policy[:n])
 
 
 def _ensure_dir(path: str) -> None:

@@ -1,6 +1,7 @@
-"""Solver core of the torch port (the materialized subset of
-:mod:`repro.core`: one device, fleets on one device, or one MDP sharded
-over a ``torch.distributed`` world).
+"""Solver core of the torch port (:mod:`repro.core`'s solve engine: one
+device, fleets on one device, or one MDP sharded over a
+``torch.distributed`` world; tables stored or, matrix-free, rebuilt from
+row constructors in every backup).
 
 As in the reference's package, the engine entry points :func:`solve` and
 :func:`solve_many` and the fleet container builder :func:`stack_mdps` are

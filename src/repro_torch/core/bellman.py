@@ -24,6 +24,15 @@ heterogeneous fleet its per-lane discounts
 (:func:`repro_torch.core.mdp.batch_parts`); a homogeneous fleet keeps the
 Python float.  Lane ``b`` of every result equals the unbatched operator
 on instance ``b``.
+
+Matrix-free blocks
+------------------
+A :class:`~repro_torch.core.mdp.MatrixFreeMDP` has no tables: the backup
+and the policy-row extraction rebuild its rows chunk by chunk from the
+row spec (:mod:`repro_torch.kernels.matrix_free`) and map the rebuilt
+global successor ids into the window's coordinates on the way
+(:func:`_mf_window_map`), giving the materialized block's bits.  A
+matrix-free fleet rebuilds each chunk once for all its lanes.
 """
 
 from __future__ import annotations
@@ -33,8 +42,10 @@ import dataclasses
 import torch
 
 from repro_torch.core.comm import Axes
-from repro_torch.core.mdp import MDP, DenseMDP, EllMDP, batch_parts
-from repro_torch.kernels import ops
+from repro_torch.core.mdp import (MDP, DenseMDP, EllMDP, MatrixFreeMDP,
+                                  batch_parts)
+from repro_torch.core.partition import window_idx
+from repro_torch.kernels import matrix_free, ops
 
 # the dtype the reference stores transition tables in
 TABLE_DTYPE = torch.float32
@@ -57,6 +68,16 @@ def gather_v(v_local: torch.Tensor, axes: Axes, *, halo: int = 0,
 def window_offset(mdp: MDP, axes: Axes, halo: int) -> int:
     """Where the block's own rows sit in its value window."""
     return halo if halo else axes.state_index() * mdp.n_local
+
+
+def _mf_window_map(mdp: MatrixFreeMDP, axes: Axes):
+    """The map of a matrix-free block's rebuilt global successor ids into
+    its window's coordinates — :func:`repro_torch.core.partition.
+    window_idx`, which shifts a stored ``idx`` once — or ``None`` for the
+    gathered vector, which global ids address as they are."""
+    if not mdp.halo:
+        return None
+    return lambda idx: window_idx(idx, axes, mdp.n_local, mdp.halo)
 
 
 # --------------------------------------------------------------------------- #
@@ -90,10 +111,18 @@ def backup(mdp: MDP, window: torch.Tensor, axes: Axes, *,
     per-lane discount tensor (module docstring).
     """
     neg = mode == "maxreward"
+    gamma = fleet_gamma(mdp, gamma_t, window.dtype)
+    if isinstance(mdp, MatrixFreeMDP):
+        # rebuild the rows inside the backup; the negation happens there
+        # (no stored cost to flip), into the same negated min-space
+        vmin, amin = matrix_free.mf_backup(
+            mdp.spec, axes.state_index() * mdp.n_local, mdp.n_local,
+            mdp.acts, gamma, window, mode=mode,
+            idx_map=_mf_window_map(mdp, axes))
+        return _finish_argmin(vmin, amin, mdp, axes, neg)
     cost = -mdp.cost if neg else mdp.cost
     if neg:
         window = -window
-    gamma = fleet_gamma(mdp, gamma_t, window.dtype)
     if isinstance(mdp, EllMDP):
         vmin, amin = ops.ell_backup(mdp.idx, mdp.val, cost, gamma, window)
     else:
@@ -158,6 +187,9 @@ def backup_overlapped(mdp: MDP, v_local: torch.Tensor, axes: Axes, *,
     window, so the result is bit for bit that of :func:`gather_backup`
     without a plan (zero-weight fill entries are clamped and contribute
     exactly 0 on both paths)."""
+    if isinstance(mdp, MatrixFreeMDP):
+        return _mf_backup_overlapped(mdp, v_local, axes, plan=plan,
+                                     mode=mode, gamma_t=gamma_t)
     if not isinstance(mdp, EllMDP):
         raise ValueError("comm overlap requires the ELL representation; "
                          "DenseMDP rows always reference global columns")
@@ -186,6 +218,45 @@ def backup_overlapped(mdp: MDP, v_local: torch.Tensor, axes: Axes, *,
     if f_hi:
         parts.append(part(rows(mdp.idx, n_loc - f_hi, n_loc, 3),
                           n_loc - f_hi, n_loc, v_win))
+    vmin = torch.cat([p[0] for p in parts], dim=-1)
+    amin = torch.cat([p[1] for p in parts], dim=-1)
+    tv, pi = _finish_argmin(vmin, amin, mdp, axes, neg)
+    return tv, pi, win
+
+
+def _mf_backup_overlapped(mdp: MatrixFreeMDP, v_local: torch.Tensor,
+                          axes: Axes, *, plan: tuple[int, int], mode: str,
+                          gamma_t: torch.Tensor | None) \
+        -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The interior/frontier split of :func:`backup_overlapped` for a
+    matrix-free block: each part *rebuilds* its row range instead of
+    slicing stored tables.  Interior rows read ``v_local`` through their
+    global ids shifted to the block's own rows (clamped, as the stored
+    ``own_idx`` is: zero-weight fill contributes exactly 0), frontier rows
+    the arrived window, so the split is bitwise invisible here too."""
+    f_lo, f_hi = plan
+    n_loc = mdp.n_local
+    pending = axes.gather_start(v_local, halo=mdp.halo)
+    neg = mode == "maxreward"
+    gamma = fleet_gamma(mdp, gamma_t, v_local.dtype)
+    row_start = axes.state_index() * n_loc
+    part = lambda lo, hi, idx_map, v: matrix_free.mf_backup(
+        mdp.spec, row_start + lo, hi - lo, mdp.acts, gamma, v, mode=mode,
+        idx_map=idx_map)
+
+    parts = []
+    # interior rows: no data dependence on the in-flight window
+    if f_lo + f_hi < n_loc:
+        own_map = lambda i: torch.clamp(i - row_start, 0, n_loc - 1).to(
+            i.dtype)
+        parts.append(part(f_lo, n_loc - f_hi, own_map, v_local))
+    # frontier rows: wait for the window, then finish the edges
+    win = axes.gather_finish(pending)
+    win_map = _mf_window_map(mdp, axes)
+    if f_lo:
+        parts.insert(0, part(0, f_lo, win_map, win))
+    if f_hi:
+        parts.append(part(n_loc - f_hi, n_loc, win_map, win))
     vmin = torch.cat([p[0] for p in parts], dim=-1)
     amin = torch.cat([p[1] for p in parts], dim=-1)
     tv, pi = _finish_argmin(vmin, amin, mdp, axes, neg)
@@ -250,6 +321,15 @@ def policy_rows(mdp: MDP, pi: torch.Tensor, axes: Axes, *,
         else ((a_rel >= 0) & (a_rel < mdp.m_local))[..., None]
     mask = lambda t: t if own is None else t * own.to(t.dtype)
     gamma = fleet_gamma(mdp, gamma_t, dtype)
+    if isinstance(mdp, MatrixFreeMDP):
+        # rebuild the rows and select the greedy action's slots chunk by
+        # chunk: the same O(n_local * nnz) rows the stored table's
+        # selection gives, in the window's coordinates
+        idx_pi, val_pi, g_pi = matrix_free.mf_policy_rows(
+            mdp.spec, axes.state_index() * mdp.n_local, mdp.n_local,
+            mdp.acts, a_sel, own, idx_map=_mf_window_map(mdp, axes))
+        return PolicyRows(idx=idx_pi, val=val_pi, p=None, g=g_pi,
+                          gamma=gamma)
     g_pi = mask(torch.gather(mdp.cost, -1, a_sel[..., None]))[..., 0]
     if isinstance(mdp, DenseMDP):
         rows = torch.arange(mdp.n_local, device=a_sel.device)

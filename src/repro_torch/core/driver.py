@@ -52,8 +52,8 @@ import torch.distributed as dist
 from repro_torch.core import ipi, methods, partition
 from repro_torch.core.comm import Axes
 from repro_torch.core.ipi import IPIOptions, SolveState
-from repro_torch.core.mdp import (MDP, DenseMDP, EllMDP, as_fleet, gammas_of,
-                                  stack_mdps)
+from repro_torch.core.mdp import (MDP, DenseMDP, EllMDP, MatrixFreeMDP,
+                                  as_fleet, gammas_of, stack_mdps)
 from repro_torch.device import resolve_device
 from repro_torch.utils import checkpoint as ckpt
 
@@ -298,16 +298,26 @@ def _validate_banded(mdp: MDP, halo: int, axes: Axes,
     in one shard.  ``mdp`` is the unpadded MDP, or this rank's block with
     ``axes`` its placement; ``n_shards`` the state-shard count of a mesh
     (``None`` on one device).  Raises ``ValueError`` (not assert: must
-    survive -O)."""
-    if not isinstance(mdp, EllMDP):
+    survive -O).  A matrix-free MDP has no table to measure: its declared
+    ``band`` is trusted, and required."""
+    if isinstance(mdp, MatrixFreeMDP):
+        if mdp.spec.band is None:
+            raise ValueError(
+                "halo>0 on a matrix-free operator needs a declared matrix "
+                "bandwidth — there is no stored table to measure; pass "
+                "band=... to from_functions() (max |successor - row| over "
+                "all nonzero transitions) or drop to halo=0")
+        band = int(mdp.spec.band)
+    elif not isinstance(mdp, EllMDP):
         raise ValueError("halo>0 requires the ELL representation; DenseMDP "
                          "columns are global — drop halo or convert the MDP")
-    rows = axes.state_index() * mdp.n_local + torch.arange(
-        mdp.n_local, device=mdp.device)
-    band = torch.amax(torch.abs(mdp.idx.long() - rows[:, None, None])) \
-        if mdp.idx.numel() else torch.zeros((), dtype=torch.long,
-                                            device=mdp.device)
-    band = int(axes.pmax_action(axes.pmax_state(band)))
+    else:
+        rows = axes.state_index() * mdp.n_local + torch.arange(
+            mdp.n_local, device=mdp.device)
+        band = torch.amax(torch.abs(mdp.idx.long() - rows[:, None, None])) \
+            if mdp.idx.numel() else torch.zeros((), dtype=torch.long,
+                                                device=mdp.device)
+        band = int(axes.pmax_action(axes.pmax_state(band)))
     if band > halo:
         raise ValueError(
             f"matrix bandwidth {band} exceeds halo {halo}: the banded "
@@ -417,10 +427,9 @@ def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, mesh=None,
     (default) writes after every chunk; ``"interrupt"`` writes only when
     the solve stops early on divergence.
     """
-    if not isinstance(mdp, (EllMDP, DenseMDP)):
-        raise TypeError(f"solve() takes an EllMDP or a DenseMDP "
-                        f"(matrix-free MDPs are not yet ported), got "
-                        f"{type(mdp).__name__}")
+    if not isinstance(mdp, (EllMDP, DenseMDP, MatrixFreeMDP)):
+        raise TypeError(f"solve() takes an EllMDP, a DenseMDP or a "
+                        f"MatrixFreeMDP, got {type(mdp).__name__}")
     if mdp.batch is not None:
         raise ValueError("solve() takes one MDP instance; for a batched "
                          "fleet use solve_many()")
@@ -539,7 +548,7 @@ def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
             f"device")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if isinstance(mdps, (EllMDP, DenseMDP)):
+    if isinstance(mdps, (EllMDP, DenseMDP, MatrixFreeMDP)):
         if mdps.batch is None:
             raise ValueError("solve_many() wants a fleet; for a single "
                              "instance use solve()")

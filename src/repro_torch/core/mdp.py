@@ -19,8 +19,15 @@ sparsity pattern (a gamma sweep: *shared topology*), and ``gamma`` is a
 float for a homogeneous fleet or a tuple of per-instance floats.
 :func:`batch_parts` turns a per-instance gamma into the ``(B,)`` tensor
 the kernels take; :func:`as_fleet` makes one instance the fleet of one,
-as the solver loop runs it.  Matrix-free containers are not ported yet (ROADMAP
-queue 1 item 11).
+as the solver loop runs it.
+
+Matrix-free containers
+----------------------
+A :class:`MatrixFreeMDP` stores no table: it carries a function-backed
+MDP's row spec (:class:`repro_torch.kernels.matrix_free.RowSpec`) and an
+int8 placement tag of its local state extent, and the Bellman layer
+rebuilds row chunks from the spec inside every backup.  A fleet of them
+shares one spec (a gamma sweep): its tag gains the leading ``B``.
 """
 
 from __future__ import annotations
@@ -31,10 +38,6 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-
-# the ROADMAP queue 1 item that ports matrix-free containers
-MATRIX_FREE_ITEM = 11
-
 
 @dataclasses.dataclass(frozen=True)
 class EllMDP:
@@ -259,7 +262,91 @@ class DenseMDP:
         _check_gammas(self)
 
 
-MDP = EllMDP | DenseMDP   # a materialized MDP block
+@dataclasses.dataclass(frozen=True)
+class MatrixFreeMDP:
+    """Matrix-free MDP block: no stored tables, rows are rebuilt on the fly.
+
+    tag:  ([B,] n_local) int8 zeros — the block's placement: its local state
+          extent, on the device it solves on
+    spec: the row spec (:class:`repro_torch.kernels.matrix_free.RowSpec`)
+          whose constructors the Bellman layer runs inside every backup and
+          policy-row extraction, so a block holds ``O(n_local)`` memory
+          instead of ``O(n_local * m * nnz)``
+    halo: the value window the block's backups read — ``0`` for the
+          gathered vector, else the ``[start - halo, stop + halo)`` halo
+          window (:func:`repro_torch.core.partition.place_block` sets it,
+          where it shifts an ELL block's ``idx``)
+
+    A fleet's lanes share the one spec (identical constructors and shape:
+    the gamma sweep); per-lane discounts ride in the ``gamma`` tuple as for
+    the table containers.
+    """
+
+    tag: torch.Tensor
+    gamma: float | tuple
+    n_global: int
+    m_global: int
+    spec: object
+    halo: int = 0
+
+    @property
+    def batch(self) -> int | None:
+        return self.tag.shape[0] if self.tag.dim() == 2 else None
+
+    @property
+    def shared_topology(self) -> bool:
+        return False
+
+    @property
+    def n_local(self) -> int:
+        return self.tag.shape[-1]
+
+    @property
+    def m_local(self) -> int:
+        # matrix-free blocks shard states only: every block covers all
+        # actions
+        return self.m_global
+
+    @property
+    def nnz_per_row(self) -> int:
+        return self.spec.nnz
+
+    @property
+    def acts(self) -> tuple:
+        """The global action ids every backup covers."""
+        return tuple(range(self.m_global))
+
+    @property
+    def device(self) -> torch.device:
+        return self.tag.device
+
+    def instance(self, b: int) -> "MatrixFreeMDP":
+        if self.batch is None:
+            raise ValueError("instance() is only defined on a batched MDP")
+        return dataclasses.replace(self, tag=self.tag[b],
+                                   gamma=gammas_of(self)[b])
+
+    def to(self, device: str | torch.device) -> "MatrixFreeMDP":
+        """The same operator placed on ``device`` (its tag moves; the
+        constructors run wherever the rows are)."""
+        dev = resolve_device(device)
+        if self.device == dev:
+            return self
+        return dataclasses.replace(self, tag=self.tag.to(dev))
+
+    def validate(self) -> None:
+        if self.tag.dtype != torch.int8:
+            raise ValueError(f"tag must be int8, got {self.tag.dtype}")
+        if self.n_global < self.spec.n:
+            raise ValueError(f"n_global {self.n_global} < the spec's n "
+                             f"{self.spec.n}")
+        if self.m_global != self.spec.m:
+            raise ValueError(f"m_global {self.m_global} != the spec's m "
+                             f"{self.spec.m}")
+        _check_gammas(self)
+
+
+MDP = EllMDP | DenseMDP | MatrixFreeMDP
 
 
 # --------------------------------------------------------------------------- #
@@ -288,13 +375,13 @@ def stack_mdps(mdps) -> MDP:
     if not mdps:
         raise ValueError("stack_mdps needs at least one MDP")
     first = mdps[0]
-    if any(not isinstance(m, (EllMDP, DenseMDP)) for m in mdps):
+    kinds = (EllMDP, DenseMDP, MatrixFreeMDP)
+    if any(not isinstance(m, kinds) for m in mdps):
         bad = sorted({type(m).__name__ for m in mdps
-                      if not isinstance(m, (EllMDP, DenseMDP))})
-        raise TypeError(f"stack_mdps takes EllMDP or DenseMDP instances, "
-                        f"got {bad} (matrix-free fleets are not yet ported "
-                        f"to repro_torch: ROADMAP queue 1 item "
-                        f"{MATRIX_FREE_ITEM})")
+                      if not isinstance(m, kinds)})
+        raise TypeError(f"stack_mdps takes EllMDP, DenseMDP or "
+                        f"MatrixFreeMDP instances (the last: function-"
+                        f"backed MDPs, ROADMAP queue 1 item 11), got {bad}")
     if any(type(m) is not type(first) for m in mdps):
         raise ValueError("stack_mdps: all instances must share one container "
                          f"type, got {sorted({type(m).__name__ for m in mdps})}")
@@ -306,6 +393,22 @@ def stack_mdps(mdps) -> MDP:
     gammas = tuple(float(m.gamma) for m in mdps)
     gamma = gammas[0] if len(set(gammas)) == 1 else gammas
     dev = first.device
+    if isinstance(first, MatrixFreeMDP):
+        # one spec for the fleet: lanes share the constructors and shape
+        # (the gamma sweep), so each row chunk is rebuilt once for all
+        if any(m.spec != first.spec or m.n_global != first.n_global
+               for m in mdps):
+            raise ValueError(
+                "stack_mdps(MatrixFreeMDP): all lanes must share one row "
+                "spec (identical P_fn/g_fn and n/m/nnz — gamma may "
+                "differ); heterogeneous matrix-free fleets must be "
+                "materialized (-mdp_materialize device) or solved "
+                "separately")
+        return MatrixFreeMDP(
+            tag=torch.zeros((len(mdps), first.n_local), dtype=torch.int8,
+                            device=dev),
+            gamma=gamma, n_global=first.n_global, m_global=first.m_global,
+            spec=first.spec)
     if isinstance(first, DenseMDP):
         if any(m.n_global != first.n_global for m in mdps):
             raise ValueError("stack_mdps(DenseMDP): state counts must match")
@@ -353,6 +456,8 @@ def as_fleet(mdp: MDP) -> MDP:
         raise ValueError("as_fleet() takes one MDP instance")
     if isinstance(mdp, DenseMDP):
         return dataclasses.replace(mdp, p=mdp.p[None], cost=mdp.cost[None])
+    if isinstance(mdp, MatrixFreeMDP):
+        return dataclasses.replace(mdp, tag=mdp.tag[None])
     return dataclasses.replace(mdp, val=mdp.val[None], cost=mdp.cost[None])
 
 

@@ -11,8 +11,14 @@ beyond-paper 2-D (state x action) layout, over a
   the action axis (see :mod:`repro_torch.core.bellman`).
 
 The fleet-sharded layouts (``fleet``, ``fleet2d``) and with them
-``fleet_padded_batch`` / ``pad_fleet_dim`` are not ported yet, nor
-matrix-free placement (ROADMAP queue 1 items 10 and 11).
+``fleet_padded_batch`` / ``pad_fleet_dim`` are not ported yet (ROADMAP
+queue 1 item 10).
+
+A matrix-free block (:class:`~repro_torch.core.mdp.MatrixFreeMDP`) has no
+tables to cut: placing it is a zero tag of its padded local extent (the
+row builder masks padding rows into the same absorbing self-loops), its
+frontier margins and reach come from the declared ``band``, and it shards
+states only.
 
 Padding: states are padded with absorbing zero-cost self-loops (their value
 is identically 0 and they are unreachable, so the solution and residuals on
@@ -34,7 +40,7 @@ import math
 import torch
 
 from repro_torch.core.comm import Axes, FLEET_ITEM
-from repro_torch.core.mdp import MDP, DenseMDP, EllMDP
+from repro_torch.core.mdp import MDP, DenseMDP, EllMDP, MatrixFreeMDP
 
 _BIG_COST = 1e30
 
@@ -133,7 +139,11 @@ def pad_mdp(mdp: MDP, n_mult: int, m_mult: int, *,
     backup and ``-BIG`` under the argmax (``"maxreward"``) one, and move to
     state 0 with probability 1, so they are never greedy.  Padded states
     are zero-cost absorbing self-loops (value identically 0) under every
-    action.  Unbatched ELL and dense containers."""
+    action.  Unbatched ELL, dense and matrix-free containers: a
+    matrix-free one pads its tag (its row builder makes the padding rows)
+    and shards states only."""
+    if isinstance(mdp, MatrixFreeMDP):
+        return _pad_matrix_free(mdp, n_mult, m_mult)
     if mdp.batch is not None:
         raise NotImplementedError(
             f"padding a fleet for a mesh layout is not yet ported to "
@@ -191,6 +201,22 @@ def pad_mdp(mdp: MDP, n_mult: int, m_mult: int, *,
                     m_global=m_tot)
 
 
+def _pad_matrix_free(mdp: MatrixFreeMDP, n_mult: int,
+                     m_mult: int) -> MatrixFreeMDP:
+    if m_mult > 1:
+        raise ValueError(
+            "matrix-free operators shard states only (every shard traces "
+            "the full static action tuple); layout '2d' shards the action "
+            "dim — use layout '1d'/'fleet', or materialize via "
+            "-mdp_materialize device")
+    n_to = -(-mdp.n_global // n_mult) * n_mult
+    if n_to == mdp.n_global:
+        return mdp
+    return dataclasses.replace(
+        mdp, tag=torch.zeros(mdp.tag.shape[:-1] + (n_to,), dtype=torch.int8,
+                             device=mdp.device), n_global=n_to)
+
+
 def _eff_extents(idx: torch.Tensor, val: torch.Tensor, n: int):
     """Per-row ``(min, max)`` *nonzero-weight* ELL successor ids, reduced
     over (action, slot) — the effective column extents the communication
@@ -237,7 +263,13 @@ def frontier_reach(mdp: MDP, n_shards: int, axes: Axes = Axes()) \
     shard, ragged partition).
 
     ``mdp`` is the whole MDP, or this rank's block with ``axes`` its
-    placement (every rank then gets the global answer)."""
+    placement (every rank then gets the global answer).  A matrix-free
+    MDP has no table to measure: its reach is its declared ``band``
+    (``None`` without one), valid at every shard boundary."""
+    if isinstance(mdp, MatrixFreeMDP):
+        if n_shards <= 1 or mdp.n_global % n_shards:
+            return None
+        return None if mdp.spec.band is None else int(mdp.spec.band)
     if not isinstance(mdp, EllMDP) or n_shards <= 1:
         return None
     if mdp.n_global % n_shards:
@@ -256,7 +288,19 @@ def overlap_margins(mdp: MDP, n_shards: int, axes: Axes = Axes()) \
     ``v_local`` before the window arrives.  The margins are the smallest
     ``(f_lo, f_hi)`` such that local rows ``[f_lo, n_local - f_hi)`` are
     interior on *every* shard.  ``mdp`` and ``axes`` as in
-    :func:`frontier_reach`; call after padding."""
+    :func:`frontier_reach`; call after padding.  A matrix-free MDP's
+    margins come from its declared ``band``: rows at least ``band`` from
+    both shard edges are interior — conservative against the measured
+    margins of its table, and harmless, since the split is bitwise
+    invisible for any valid margins."""
+    if isinstance(mdp, MatrixFreeMDP):
+        band = mdp.spec.band
+        if band is None or n_shards <= 1 or mdp.n_global % n_shards:
+            return None
+        n_local = mdp.n_global // n_shards
+        if 2 * int(band) >= n_local:
+            return None
+        return int(band), int(band)
     if not isinstance(mdp, EllMDP) or n_shards <= 1:
         return None
     if mdp.n_global % n_shards:
@@ -314,7 +358,10 @@ def shard_mdp(mdp: MDP, mesh, layout: str = "1d", *,
     n_loc, m_loc = padded.n_global // ns, padded.m_global // ms
     r, c = axes.state_index() * n_loc, axes.action_index() * m_loc
     cut = lambda t: t[r:r + n_loc, c:c + m_loc].contiguous().to(device)
-    if isinstance(padded, EllMDP):
+    if isinstance(padded, MatrixFreeMDP):
+        block = dataclasses.replace(padded, tag=torch.zeros(
+            (n_loc,), dtype=torch.int8, device=device))
+    elif isinstance(padded, EllMDP):
         block = EllMDP(idx=cut(padded.idx), val=cut(padded.val),
                        cost=cut(padded.cost), gamma=padded.gamma,
                        n_global=padded.n_global, m_global=padded.m_global)
@@ -329,7 +376,10 @@ def place_block(block: MDP, axes: Axes, *, halo: int = 0,
                 plan: tuple[int, int] | None = None) -> MDP:
     """``block`` with its ELL successor ids in window coordinates for
     ``halo`` and, for an overlap ``plan``, its interior rows' ids in its
-    own coordinates (``own_idx``)."""
+    own coordinates (``own_idx``).  A matrix-free block records ``halo``:
+    its backups map the rebuilt ids into the window."""
+    if isinstance(block, MatrixFreeMDP):
+        return dataclasses.replace(block, halo=halo)
     if not isinstance(block, EllMDP) or not (halo or plan):
         return block
     n_loc = block.n_local

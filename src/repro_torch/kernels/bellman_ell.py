@@ -16,7 +16,10 @@ row length and the tables' alignment allow it, else 4-byte ones.
 A fleet is one launch of each: ``val`` ``(B, n, m, K)``, ``cost``
 ``(B, n, m)``, ``idx`` ``(B, n, m, K)`` or shared ``(n, m, K)``, ``v``
 ``(B, n_v)`` or shared ``(n_v,)``, and ``gamma`` a float or a ``(B,)``
-tensor; the kernel's lane axis (``csrc/lanes.cuh``) gives each lane the
+tensor.  The backup also takes every table shared (``idx`` / ``val`` /
+``cost`` unbatched) with a batched ``v``: a matrix-free fleet's row chunk,
+rebuilt once for all its lanes, whose lanes differ only in ``v`` and
+gamma; the kernel's lane axis (``csrc/lanes.cuh``) gives each lane the
 unbatched body, so lane ``b`` equals the unbatched call on lane ``b``'s
 operands bit for bit.
 
@@ -67,7 +70,10 @@ def _check(idx, val, cost, v, what: str = "ell_backup") \
             or cost.dtype != torch.float32:
         raise ValueError(f"{what} takes int32 idx and float32 val/cost, "
                          f"got {idx.dtype}/{val.dtype}/{cost.dtype}")
-    batch = val.shape[0] if val.dim() == 4 else None
+    # a batched val / cost sets the lane count; shared tables take it from
+    # a batched v (a matrix-free fleet's rebuilt chunk, one for all lanes)
+    batch = val.shape[0] if val.dim() == 4 \
+        else (v.shape[0] if v.dim() == 2 and what == "ell_backup" else None)
     v_dims = (1,) if batch is None else (1, 2)
     if v.dtype not in (torch.float32, torch.float64) \
             or v.dim() not in v_dims or v.stride(-1) != 1 \
@@ -96,15 +102,17 @@ def ell_backup(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
     global launches
     dt, batch = _check(idx, val, cost, v)
     n, m, k = val.shape[-3:]
-    out_v = torch.empty(val.shape[:-2], dtype=dt, device=v.device)
-    out_pi = torch.empty(val.shape[:-2], dtype=torch.int32, device=v.device)
+    shape = (n,) if batch is None else (batch, n)
+    out_v = torch.empty(shape, dtype=dt, device=v.device)
+    out_pi = torch.empty(shape, dtype=torch.int32, device=v.device)
     if out_v.numel() == 0:
         return out_v, out_pi
     b = batch or 1
+    own = val.dim() == 4      # per-lane val / cost, else shared
     g, g_stride = lanes.gamma_operand(gamma, b, dt, v.device)
     strides = lanes.strides(
-        n * m * k if idx.dim() == 4 else 0, n * m * k if batch else 0,
-        n * m if batch else 0, v.stride(0) if v.dim() == 2 else 0,
+        n * m * k if idx.dim() == 4 else 0, n * m * k if own else 0,
+        n * m if own else 0, v.stride(0) if v.dim() == 2 else 0,
         n if batch else 0, g_stride)
     lib = _lib()
     fn = lib.ell_backup_f64 if dt == torch.float64 else lib.ell_backup_f32

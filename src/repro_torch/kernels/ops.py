@@ -44,6 +44,20 @@ def ell_backup(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
     return bellman_ell.ell_backup(idx, val, cost, gamma, v)
 
 
+def ell_backup_chunk(idx: torch.Tensor, val: torch.Tensor,
+                     cost: torch.Tensor, gamma, v: torch.Tensor) \
+        -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused backup on ONE rebuilt row chunk ``(bn, m, K)`` against the
+    whole value window ``v`` — the matrix-free operator's tile body
+    (:mod:`repro_torch.kernels.matrix_free`), whose caller owns the row
+    tiling.  It is :func:`ell_backup` (the hand-written kernel on the card,
+    the plain version on the CPU), whose math is row-independent, so any
+    chunking gives the bits of one call over every row.  A matrix-free
+    fleet passes the chunk once for all its lanes: tables unbatched, ``v``
+    ``(B, n_v)``, ``gamma`` a float or ``(B,)``."""
+    return ell_backup(idx, val, cost, gamma, v)
+
+
 def ell_qvalues(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
                 gamma, v: torch.Tensor) -> torch.Tensor:
     """Q table ``cost + gamma * P v`` ([B,] n, m) on an ELL block."""

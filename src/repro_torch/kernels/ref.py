@@ -28,6 +28,11 @@ Fleets: :func:`ell_backup`, :func:`ell_qvalues`, :func:`ell_matvec` and
 shared, and ``gamma`` a float or a ``(B,)`` tensor.  Each then is the
 unbatched plain version applied lane by lane, so lane ``b`` equals the
 unbatched call on its operands bit for bit, as the kernels' lane axis does.
+:func:`ell_backup` also takes every table shared with a batched ``v`` (a
+matrix-free fleet's rebuilt chunk).
+
+:func:`_blocked_rows` is the row-chunk loop of the matrix-free operator
+and of the function-backed MDPs' device pipeline.
 
 :func:`flash_attention` is the online-softmax scan over key chunks of the
 reference's ``models.attention.chunked_attention``, in f32 whatever the
@@ -116,10 +121,12 @@ def ell_backup(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
         -> tuple[torch.Tensor, torch.Tensor]:
     """Fused Bellman backup: (min_a Q, argmin_a Q) with smallest-index
     tie-break."""
-    if val.dim() == 4:
+    if val.dim() == 4 or v.dim() == 2:
+        # per-lane tables, or shared ones under a batched v
         return _by_lane(lambda b: ell_backup(
-            _lane(idx, b, 4), val[b], cost[b], _lane_gamma(gamma, b),
-            _lane(v, b, 2)), val.shape[0])
+            _lane(idx, b, 4), _lane(val, b, 4), _lane(cost, b, 3),
+            _lane_gamma(gamma, b), _lane(v, b, 2)),
+            val.shape[0] if val.dim() == 4 else v.shape[0])
     return rowmin_argmin(ell_qvalues(idx, val, cost, gamma, v))
 
 
@@ -130,6 +137,30 @@ def ell_matvec(idx: torch.Tensor, val: torch.Tensor,
         return _by_lane(lambda b: ell_matvec(
             _lane(idx, b, 3), val[b], _lane(x, b, 2)), val.shape[0])
     return ell_gather_dot(idx, val, x)
+
+
+def _blocked_rows(fn, n: int, block_rows: int, row_dims: tuple):
+    """``fn(lo, hi)`` over the fixed row ranges ``[lo, hi)`` of at most
+    ``block_rows`` rows covering ``[0, n)``, each chunk's outputs written
+    into preallocated tensors: output ``j`` holds its rows on dim
+    ``row_dims[j]``.  One chunk returns ``fn(0, n)`` as it is."""
+    bn = max(1, min(int(block_rows), n))
+    if bn >= n:
+        return fn(0, n)
+    outs = None
+    for lo in range(0, n, bn):
+        hi = min(lo + bn, n)
+        part = fn(lo, hi)
+        if outs is None:
+            outs = []
+            for t, d in zip(part, row_dims):
+                shape = list(t.shape)
+                shape[d] = n
+                outs.append(torch.empty(shape, dtype=t.dtype,
+                                        device=t.device))
+        for out, t, d in zip(outs, part, row_dims):
+            out.narrow(d, lo, hi - lo).copy_(t)
+    return tuple(outs)
 
 
 def dense_dot(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -760,3 +760,115 @@ def test_multi_card_ranks_match_the_single_solve(cuda):
         timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert f"[phase3m] (d) world={n_dev}" in proc.stdout
+
+
+# --------------------------------------------------------------------------- #
+# Function-backed MDPs and the matrix-free operator on the card               #
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("name, kw", [
+    ("garnet", dict(n=5000, m=6, k=8, gamma=0.99, seed=2)),
+    ("sis", dict(pop=4999, n_actions=5, gamma=0.99)),
+    ("maze2d", dict(size=70, gamma=0.99))])
+def test_constructors_on_the_card_give_the_host_tables(cuda, name, kw):
+    """The device pipeline on the card builds the host's tables bit for
+    bit (the constructors' integer hashing and float32 arithmetic are
+    the same IEEE operations on both)."""
+    from repro_torch.api import MDP
+    mdp = MDP.from_generator(name, deferred=True, **kw)
+    card, host = mdp.build(cuda), mdp.build("cpu")
+    for f in ("idx", "val", "cost"):
+        assert _bitequal(getattr(card, f).cpu(), getattr(host, f)), f
+
+
+@pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
+def test_matrix_free_chunk_kernel_bitmatches_plain_version(cuda, v_dtype):
+    """The tile body on rebuilt garnet chunks: the kernel, one launch a
+    chunk, equals the plain version and the backup of the stored table."""
+    from repro_torch.api import MDP
+    from repro_torch.kernels import matrix_free
+    mdp = MDP.from_generator("garnet", deferred=True, n=3000, m=7, k=8,
+                             seed=4)
+    spec = mdp._row_spec()
+    v = torch.from_numpy((np.random.default_rng(5).random(3000) * 40 - 20)
+                         .astype(v_dtype)).to(cuda)
+    rows = torch.arange(1000, 1777, dtype=torch.int32, device=cuda)
+    idx, val, cost, _ = matrix_free.build_rows_block(spec, rows,
+                                                     tuple(range(7)),
+                                                     "mincost")
+    ops.reset_launch_counts()
+    got = ops.ell_backup_chunk(idx, val, cost, GAMMA, v)
+    assert ops.launch_counts()["ell_backup"] == 1
+    want = ref.ell_backup(idx.cpu(), val.cpu(), cost.cpu(), GAMMA, v.cpu())
+    assert _bitequal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    ops.reset_launch_counts()
+    tiled = matrix_free.mf_backup(spec, 0, 3000, tuple(range(7)), GAMMA, v,
+                                  block_rows=1024)
+    assert ops.launch_counts()["ell_backup"] == 3
+    table = mdp.build(cuda)
+    whole = ops.ell_backup(table.idx, table.val, table.cost, GAMMA, v)
+    assert _bitequal(tiled[0], whole[0]) and torch.equal(tiled[1], whole[1])
+
+
+@pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("order", ["fastest", "slowest"])
+def test_fleet_backup_on_shared_tables(cuda, v_dtype, order):
+    """A matrix-free fleet's launch: every table shared, v ``(B, n)``, a
+    per-lane gamma or one — lane b is the unbatched kernel on v[b]."""
+    idx, val, cost, _ = _tables(301, 6, 8, v_dtype, cuda)
+    v = torch.from_numpy((np.random.default_rng(9).random((3, 301)) * 40
+                          - 20).astype(v_dtype)).to(cuda)
+    dt = torch.float64 if v_dtype == np.float64 else torch.float32
+    for gamma in (GAMMA, torch.tensor(FLEET_GAMMAS, dtype=dt, device=cuda)):
+        got = bellman_ell.ell_backup(idx, val, cost, gamma, v,
+                                     lane_order=order)
+        want = ref.ell_backup(idx.cpu(), val.cpu(), cost.cpu(),
+                              gamma.cpu() if isinstance(gamma, torch.Tensor)
+                              else gamma, v.cpu())
+        assert _bitequal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        for b in range(3):
+            g = gamma[b] if isinstance(gamma, torch.Tensor) else gamma
+            one = bellman_ell.ell_backup(idx, val, cost, float(g),
+                                         v[b].contiguous())
+            assert _bitequal(got[0][b], one[0])
+
+
+@pytest.mark.parametrize("method", ["vi", "mpi", "ipi_gmres"])
+def test_matrix_free_solve_on_the_card_is_the_materialized_solve(cuda,
+                                                                 method):
+    """Bit for bit the device-materialized solve on the card, both ELL
+    kernels launched (the backup once a chunk); a gamma sweep of the
+    operator bit for bit its lanes' solo solves, one launch a chunk for
+    the fleet."""
+    from repro_torch.api import MDP
+    from repro_torch.kernels import matrix_free
+    mdp = MDP.from_generator("garnet", deferred=True, n=20_000, m=6, k=8,
+                             gamma=0.99, seed=1)
+    # vi: the trajectory over 60 outer steps (it converges in ~2,000)
+    opts = IPIOptions(method=method, dtype="float64", atol=1e-8,
+                      max_outer=60 if method == "vi" else 500)
+    ops.reset_launch_counts()
+    mat = driver.solve(mdp.build(cuda), opts, device=cuda)
+    n_mat = ops.launch_counts()
+    mf_core = mdp.build(cuda, materialize="matrix_free")
+    ops.reset_launch_counts()
+    mf = driver.solve(mf_core, opts, device=cuda)
+    n_mf = ops.launch_counts()
+    assert (mf.converged or method == "vi") and _same_bits(mf, mat)
+    chunks = -(-20_000 // matrix_free.chunk_rows(mf_core.spec, 6))
+    assert n_mf["ell_backup"] == n_mat["ell_backup"] * chunks
+    assert n_mf["ell_matvec"] == n_mat["ell_matvec"]
+    if method != "mpi":
+        return
+    gammas = (0.9, 0.95, 0.99)
+    cores = [MDP.from_generator("garnet", deferred=True, n=20_000, m=6,
+                                k=8, gamma=g, seed=1).build(
+        cuda, materialize="matrix_free") for g in gammas]
+    ops.reset_launch_counts()
+    fleet = driver.solve_many(cores, opts, device=cuda)
+    n_fleet = ops.launch_counts()["ell_backup"]
+    solo = [driver.solve(c, opts, device=cuda) for c in cores]
+    assert all(_same_bits(f, s) for f, s in zip(fleet, solo))
+    assert n_fleet % chunks == 0 and n_fleet < 3 * n_mf["ell_backup"]
