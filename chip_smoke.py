@@ -100,7 +100,7 @@ result) without them.  Phases, each of which raises on failure:
    mesh: every collective runs) in f64 ipi_gmres to ``1e-8``, each with
    its launch counts (both ELL kernels), bit for bit the single-device
    solve, which is bit for bit phase 3a's CLI solve; then the three solves
-   profiled in turns (single, 1d, 2d, 2d, 1d, single): wall, busy and
+   profiled in turns (single, 1d, 2d): wall, busy and
    idle of each, the collective layer's overhead at world 1; (b)
    ``maze2d(size=1000)`` (n = 10^6, m = 5, banded at 1000), f64 ipi_gmres
    over its first 10 outer steps (its policy iteration takes ~2 x size of
@@ -147,6 +147,37 @@ result) without them.  Phases, each of which raises on failure:
    - geomspace(0.1, 0.01, 4)) in f32 ``mpi``: each lane bit for bit its
    unbatched matrix-free solve, one ``ell_backup`` launch a chunk for the
    lanes, fewer than the four solves', walls beside each other;
+   (3s) ``-method auto`` and solve serving, after 3n on the phase-2
+   garnet: (a) the CLI ``--method auto --atol 1e-8`` (float64) must exit
+   0, print the probe's profile and the choice, choose what
+   ``tests/test_torch_adaptive.py`` fixes for the garnet family (``mpi``),
+   and pass phase 3's independent CPU backup; the probe's launches are
+   counted alone (``probe`` on the same tables) beside the solve's, the
+   auto solve's wall beside phase 3a's fixed-method one; a Session's
+   second auto solve of the family hits its choice cache: no probe, the
+   launches and bits of a plain solve of the chosen method; (b)
+   ``-adapt_on_stagnation`` on ``chain_walk(10^6, gamma=0.99)`` with
+   ``ipi_chebyshev`` (safeguard off, ``-divtol 10``, ``-atol 1e-3``,
+   float64): the swap is logged, the resumed solve converges and passes
+   the CPU backup; (c) ``repro_torch.launch.serve`` in this process on a
+   JSONL stream of 24 garnets (``n`` of 500,000 or 1,000,000, ``m=16,
+   k=8``, distinct seeds), a matrix-free gamma sweep of 4 deferred
+   garnets (``n=100,000``, gamma 0.9-0.95, admitted by operator bytes)
+   and 2 dense garnets (``as_dense()`` of ``n=8,192``), Poisson arrivals
+   at 20 req/s dealt to 4 client threads, ``-method auto``, ``-serve_batch_window
+   0.05``, ``-serve_max_batch 4``: it must exit 0 with every request
+   converged and print each request's dispatch, slot and latency, each
+   dispatch's kernel launches, p50 / p95 latency, throughput and the
+   program-cache counters; the same stream is served again on the same
+   MDPs under the profiler (the serving window's busy and idle share);
+   one request of each bucket kind is certified by the CPU backup and held
+   to a solo ``driver.solve`` of its bucket's method on the card
+   (policy and counts exact, values within 1e-9 |v|_inf); three served
+   10^6 lanes are timed as a fleet unpadded and at a padded slot of 4
+   (old, new, new, old; the same launches); (d) in-process, a request over
+   ``-serve_max_states`` (materialized) and one over its byte budget
+   (matrix-free) raise ``AdmissionError("too_large")``, and ``drain``
+   completes the work in flight;
 9. the LM serving path, minitron-8b (32 layers, d_model 4096, 32 query /
    8 KV heads, d_head 128, vocab 256,000, bf16, random weights from a
    seed):
@@ -177,11 +208,13 @@ result) without them.  Phases, each of which raises on failure:
    each path's counts (the ELL kernels' include phase 3g's and 3h's
    paths).  Rows 1-4 carry ``batched``: phase 3h (d)'s rows, keyed by
    ``idx`` kind and dtype; the ELL kernels' also carry phase 3m (a)'s
-   ``sharded_1d`` / ``sharded_2d`` counts and phase 3n's ``mf_*`` paths.
+   ``sharded_1d`` / ``sharded_2d`` counts and phase 3n's ``mf_*`` paths;
+   rows 1-3 also phase 3s's ``auto_cli``, ``auto_swap`` and ``serve``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import io
@@ -233,8 +266,12 @@ PROFILE_PREFIX = {"session_ipi_chebyshev": 20,
                   "session_ipi_gmres_bjacobi": 3}
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One progress line, with the seconds since the script started."""
+    print(f"{msg}  [+{time.perf_counter() - _T0:.1f}s]", flush=True)
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -487,9 +524,11 @@ def main_path(mdp) -> dict:
     res = certify_on_cpu(mdp, v, pi, "independent CPU backup")
     log(f"[phase3] CLI wall={t_cli:.2f}s; independent CPU residual "
         f"{res:.3e} <= 1e-8; launches {cli_launches}")
-    cli_solve = read_stats(stats_path)["solves"][0]
+    cli_entry = read_stats(stats_path)
+    cli_solve = cli_entry["solves"][0]
     launches = {"cli_ipi_gmres": cli_launches, "session_mpi": sess_launches}
     return dict(launches=launches, cli_wall_s=t_cli, session_wall_s=t_sess,
+                cli_solve_wall_s=cli_entry["wall_s"],
                 cli_outer=cli_solve["outer_iterations"],
                 cli_inner=cli_solve["inner_iterations"], cli_v=v,
                 cli_pi=pi, session_outer=r.outer_iterations,
@@ -745,40 +784,53 @@ def device_profile(fn) -> tuple:
 
 
 def profile_once(fn, wall_ms: float) -> tuple:
-    """``fn()`` once under torch.profiler (CUDA activity only): its
-    result, and its device time by kernel (kernels, copies and sets, summed
-    from the profiler's own chrome trace, which stays quick at hundreds of
-    thousands of launches where ``key_averages()`` takes minutes), with
-    the idle share against ``wall_ms`` (a plain run's wall) and against
-    the profiled run's own wall."""
+    """``fn()`` once under :func:`profiled`: its result, and its device
+    time by kernel (kernels, copies and sets), with the idle share against
+    ``wall_ms`` (a plain run's wall) and against the profiled run's own
+    wall."""
+    out: dict = {}
+    with profiled(out):
+        result = fn()
+    busy_ms = out["device_busy_ms"]
+    return result, dict(
+        wall_ms=wall_ms, profiled_wall_ms=out["wall_ms"],
+        device_busy_ms=busy_ms, device_entries=out["device_entries"],
+        idle_share=(1.0 - busy_ms / wall_ms) if out["device_entries"]
+        else None,
+        idle_share_profiled=out["idle_share"], top=out["top"])
+
+
+@contextlib.contextmanager
+def profiled(out: dict):
+    """torch.profiler (CUDA activity only) around the block; ``out`` gets
+    the block's wall, its device busy time (the card's kernels, copies and
+    sets, summed over the profiler's own records, without the chrome
+    trace, whose export and parse take minutes at millions of launches),
+    the idle share against that wall and the top entries."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        result = fn()
+        yield out
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    OUT.mkdir(parents=True, exist_ok=True)
-    path = OUT / f"profile_{os.getpid()}.json"
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text()).get("traceEvents", [])
-    path.unlink()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
-                                                    "gpu_memset"):
-            ms, count = by_name.get(e["name"], (0.0, 0))
-            by_name[e["name"]] = (ms + e.get("dur", 0) / 1e3, count + 1)
+    on_card = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        # the card's own records: kernels, copies and sets (the runtime
+        # calls that launch them are the host's)
+        if e.device_type() == on_card:
+            ms, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
     rows = sorted(((ms, c, k) for k, (ms, c) in by_name.items()),
                   reverse=True)
     busy_ms = sum(ms for ms, _, _ in rows)
-    return result, dict(
-        wall_ms=wall_ms, profiled_wall_ms=prof_wall_ms,
-        device_busy_ms=busy_ms, device_entries=len(rows),
-        idle_share=(1.0 - busy_ms / wall_ms) if rows else None,
-        idle_share_profiled=(1.0 - busy_ms / prof_wall_ms) if rows else None,
-        top=[dict(ms=ms, count=c, kernel=k[:90]) for ms, c, k in rows[:8]])
+    out.update(wall_ms=wall_ms, device_busy_ms=busy_ms,
+               device_entries=len(rows),
+               idle_share=(1.0 - busy_ms / wall_ms) if rows else None,
+               top=[dict(ms=ms, count=c, kernel=k[:90])
+                    for ms, c, k in rows[:8]])
 
 
 def where_time_goes(mdp, phase: str) -> dict:
@@ -1093,13 +1145,13 @@ def sharded_paths(mdp, main: dict, device: str = "cuda",
                                      f"single-device solve")
         out["collectives"] = collective_costs(mdp, opts, meshes, device)
         # the collective layer's overhead: each solve timed and profiled
-        # in turns (single, 1d, 2d, 2d, 1d, single)
+        # once, in turns (single, 1d, 2d)
         solves = {"single": lambda: driver.solve(mdp, opts, device=device)}
         for layout, mesh in meshes.items():
             solves[layout] = (lambda mesh=mesh, layout=layout: driver.solve(
                 mdp, opts, mesh=mesh, layout=layout, device=device))
         profs = {k: [] for k in solves}
-        for k in ("single", "1d", "2d", "2d", "1d", "single"):
+        for k in ("single", "1d", "2d"):
             profs[k].append(device_profile(solves[k])[1])
         for k, ps in profs.items():
             out[k] = dict(outer=single.outer_iterations,
@@ -2178,11 +2230,361 @@ def lm_parity() -> dict:
     return row
 
 
+# phase 3s: -method auto, the hot-swap and solve serving
+AUTO_GARNET_CHOICE = "mpi"          # tests/test_torch_adaptive.py CHOICE
+SWAP_N = 1_000_000                  # (b)'s chain_walk
+SERVE_REQUESTS = 24                 # (c)'s materialized garnets ...
+SERVE_NS = (500_000, 1_000_000)     # ... with these state counts
+SERVE_MF_N, SERVE_MF_B = 100_000, 4     # (c)'s matrix-free gamma sweep
+SERVE_MF_GAMMAS = (0.9, 0.95)           # ... over this range
+SERVE_DENSE_N, SERVE_DENSE_B = 8_192, 2  # (c)'s dense requests
+SERVE_RATE, SERVE_CLIENTS = 20.0, 4
+SERVE_WINDOW, SERVE_MAX_BATCH = 0.05, 4
+FLEET_ATOL = 1e-9        # tests/test_torch_fleet.py: values, of |v|_inf
+
+
+def serve_workload(path: Path) -> list[dict]:
+    """(c)'s request stream, written as the serve CLI's JSONL: 24 garnets
+    of 500,000 or 1,000,000 states (distinct seeds), a matrix-free gamma
+    sweep of 4 deferred garnets of 100,000 (gamma 0.9-0.95: the eager
+    row constructors rebuild every chunk in every backup, ROADMAP queue 3
+    item 9) and 2 dense garnets, in a seeded order."""
+    rng = np.random.default_rng(11)
+    specs = [dict(instance="garnet", n=int(rng.choice(SERVE_NS)), m=M, k=K,
+                  gamma=GAMMA, seed=100 + i) for i in range(SERVE_REQUESTS)]
+    specs += [dict(instance="garnet", n=SERVE_MF_N, m=M, k=K, gamma=g,
+                   seed=200, deferred=True,
+                   overrides={"-mdp_materialize": "matrix_free"})
+              for g in fleet_gammas(*SERVE_MF_GAMMAS, SERVE_MF_B)]
+    specs += [dict(instance="garnet", n=SERVE_DENSE_N, m=M, k=K,
+                   gamma=GAMMA, seed=300 + i, dense=True)
+              for i in range(SERVE_DENSE_B)]
+    specs = [specs[i] for i in rng.permutation(len(specs))]
+    path.write_text("".join(json.dumps(x) + "\n" for x in specs))
+    return specs
+
+
+def _bucket_kind(spec: dict) -> str:
+    if spec.get("deferred"):
+        return "matrix_free"
+    if spec.get("dense"):
+        return "dense"
+    return f"ell_{spec['n']}"
+
+
+def _served_core(spec: dict, mdp):
+    """The host tables a served request was solved on (a matrix-free
+    request's built on the card, bit for bit the host's, then copied) and
+    the core a solo solve of it takes."""
+    if spec.get("deferred"):
+        host = mdp.build("cuda", materialize="device").to("cpu")
+        mdp.evict()
+        return host, mdp.build("cuda", materialize="matrix_free")
+    return mdp.core, mdp.core
+
+
+def _certify_served(spec, host, v, pi) -> float:
+    """The independent CPU backup of a served float64 value vector."""
+    from repro_torch.core.mdp import DenseMDP
+    from repro_torch.kernels import ref
+
+    if not isinstance(host, DenseMDP):
+        return certify_on_cpu(host, v, pi, f"served {_bucket_kind(spec)}")
+    tv, tpi = ref.dense_backup(host.p, host.cost, host.gamma,
+                               torch.from_numpy(v))
+    res = float(torch.max(torch.abs(tv - torch.from_numpy(v))))
+    slack = 16 * np.finfo(np.float64).eps * float(np.abs(v).max())
+    if not res <= 1e-8 + slack or not np.array_equal(tpi.numpy(), pi):
+        raise AssertionError(f"served dense: ||Tv - v||_inf = {res}, "
+                             f"policy equal "
+                             f"{np.array_equal(tpi.numpy(), pi)}")
+    return res
+
+
+def _held_to_solo(what: str, served, solo) -> float:
+    """A served lane against its solo solve: policy and counts exact,
+    values within FLEET_ATOL |v|_inf (tests/test_torch_fleet.py)."""
+    dv = float(np.abs(served.v - solo.v).max())
+    tol = FLEET_ATOL * max(1.0, float(np.abs(solo.v).max()))
+    if not (np.array_equal(served.policy, solo.policy)
+            and (served.outer_iterations, served.inner_iterations)
+            == (solo.outer_iterations, solo.inner_iterations)
+            and dv <= tol):
+        raise AssertionError(
+            f"{what}: served {served.summary()} against solo "
+            f"{solo.summary()}, max |dv| {dv} (tol {tol}), policy equal "
+            f"{np.array_equal(served.policy, solo.policy)}")
+    return dv
+
+
+def serve_paths(mdp, main: dict) -> dict:
+    """Phase 3s: (a) ``--method auto`` through the CLI on the phase-2
+    garnet, (b) the ``-adapt_on_stagnation`` hot-swap on a chain of 10^6
+    states, (c) ``repro_torch.launch.serve`` on the card, (d) admission
+    and drain in-process; each path with its launch counts."""
+    from repro_torch.adaptive import probe
+    from repro_torch.api import MDP, madupite_session
+    from repro_torch.core import driver, generators
+    from repro_torch.core.ipi import IPIOptions
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import solve as cli
+    from repro_torch.serve import AdmissionError, Server
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    launches: dict = {}
+    t_phase = time.perf_counter()
+
+    def lap(what: str) -> None:
+        log(f"[time] 3s {what} done at +{time.perf_counter() - t_phase:.1f}s")
+
+    # (a) -method auto through the CLI
+    v_path, pi_path = OUT / "auto_v.npy", OUT / "auto_pi.npy"
+    stats_path = OUT / "auto_stats.jsonl"
+    stats_path.unlink(missing_ok=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, text = run_cli(cli.main, [
+        "--instance", "garnet", "--n", str(N), "--m", str(M), "--k", str(K),
+        "--gamma", str(GAMMA), "--method", "auto", "--atol", "1e-8",
+        "--option", f"file_cost={v_path}",
+        "--option", f"file_policy={pi_path}",
+        "--option", f"file_stats={stats_path}"])
+    t_cli = time.perf_counter() - t0
+    launches["auto_cli"] = ops.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"CLI --method auto exited {rc}")
+    require_launched("CLI --method auto", launches["auto_cli"], ELL_KERNELS)
+    entry = read_stats(stats_path)
+    ad = entry["adaptive"]
+    choice = ad["choice"]["method"]
+    if choice != AUTO_GARNET_CHOICE or "[solve] auto-selected" not in text \
+            or "[solve] probe:" not in text:
+        raise AssertionError(f"--method auto chose {choice} (the CPU test "
+                             f"fixes {AUTO_GARNET_CHOICE}) or printed no "
+                             f"profile / choice")
+    res = certify_on_cpu(mdp, np.load(v_path), np.load(pi_path),
+                         "--method auto: independent CPU backup")
+    popts = IPIOptions(method="auto", dtype="float64", atol=1e-8,
+                       max_outer=2000)
+    ops.reset_launch_counts()
+    probe(mdp, popts, device="cuda")
+    probe_launches = ops.launch_counts()
+    solve_launches = {k: v - probe_launches[k]
+                      for k, v in launches["auto_cli"].items()}
+    auto = dict(choice=ad["choice"], profile=ad["profile"],
+                methods=ad["methods"], outer=entry["solves"][0][
+                    "outer_iterations"],
+                inner=entry["solves"][0]["inner_iterations"],
+                solve_wall_s=entry["wall_s"], cli_wall_s=t_cli,
+                fixed_3a_solve_wall_s=main["cli_solve_wall_s"],
+                fixed_3a_cli_wall_s=main["cli_wall_s"],
+                probe_launches=probe_launches,
+                solve_launches=solve_launches, cpu_residual=res)
+    # a second solve of the family hits the session's choice cache: the
+    # same launches as a plain solve of the chosen method (no probe)
+    with madupite_session({"-method": "auto", "-dtype": "float64",
+                           "-atol": 1e-8}) as s:
+        ops.reset_launch_counts()
+        s.solve(MDP(mdp))
+        first = ops.launch_counts()
+        ops.reset_launch_counts()
+        r2 = s.solve(MDP(mdp))
+        second = ops.launch_counts()
+        cached = s.stats[-1]["adaptive"]
+    ops.reset_launch_counts()
+    plain = driver.solve(mdp, IPIOptions(method=choice, dtype="float64",
+                                         atol=1e-8, max_outer=2000),
+                         device="cuda")
+    plain_launches = ops.launch_counts()
+    if cached["profile"] is not None or second != plain_launches \
+            or not same_bits(r2, plain):
+        raise AssertionError(f"second auto solve: profile "
+                             f"{cached['profile']}, launches {second} "
+                             f"against a plain {choice} solve's "
+                             f"{plain_launches}, bits equal "
+                             f"{same_bits(r2, plain)}")
+    auto.update(session_first_launches=first, session_cached_launches=second)
+    log(f"[phase3s] (a) CLI --method auto: {json.dumps(auto)}")
+    lap("(a)")
+
+    # (b) -adapt_on_stagnation: a diverging Chebyshev hot-swapped
+    chain = generators.chain_walk(SWAP_N, gamma=GAMMA)
+    sw_opts = {"-method": "ipi_chebyshev", "-adapt_on_stagnation": True,
+               "-safeguard": False, "-divtol": 10.0, "-atol": 1e-3,
+               "-max_inner": 64, "-max_outer": 3000, "-dtype": "float64"}
+    ops.reset_launch_counts()
+    with madupite_session(sw_opts) as s:
+        rs, t_sw = timed_solve(lambda: s.solve(MDP(chain)))
+        sw = s.stats[-1]["adaptive"]
+    launches["auto_swap"] = ops.launch_counts()
+    require_launched("adapt_on_stagnation", launches["auto_swap"],
+                     ELL_KERNELS)
+    if not (rs.converged and sw["swaps"]
+            and sw["swaps"][0]["from_method"] == "ipi_chebyshev"
+            and sw["swaps"][0]["resumed"]):
+        raise AssertionError(f"hot-swap: {rs.summary()}, swaps "
+                             f"{sw['swaps']}")
+    res_sw = certify_on_cpu(chain, rs.v, rs.policy,
+                            "hot-swap: independent CPU backup", atol=1e-3)
+    swap = dict(methods=sw["methods"], swaps=sw["swaps"],
+                outer=rs.outer_iterations, inner=rs.inner_iterations,
+                wall_s=t_sw, cpu_residual=res_sw)
+    log(f"[phase3s] (b) hot-swap: {json.dumps(swap)}")
+    del chain
+    lap("(b)")
+
+    # (c) the serve CLI on the card
+    workload = OUT / "serve_workload.jsonl"
+    specs = serve_workload(workload)
+    argv = ["--workload", str(workload), "--rate", str(SERVE_RATE),
+            "--clients", str(SERVE_CLIENTS), "--prebuild",
+            "--window", str(SERVE_WINDOW), "--seed", "5",
+            "--option", "method=auto", "--option", "atol=1e-8",
+            "--option", f"serve_max_batch={SERVE_MAX_BATCH}",
+            "--option", f"serve_max_states={max(SERVE_NS)}"]
+    keep: dict = {}
+    ops.reset_launch_counts()
+    rc, text = run_cli(lambda a: serve_cli.main(a, keep=keep), argv)
+    launches["serve"] = ops.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"serve CLI exited {rc}")
+    lap("(c) serving")
+    # the same stream again on the same MDPs, under the profiler: the
+    # serving window's device busy time and idle share
+    window: dict = {}
+    again: dict = {}
+    rc2, _ = run_cli(lambda a: serve_cli.main(
+        a, keep=again, mdps=keep["mdps"],
+        window=lambda: profiled(window)), argv)
+    if rc2 != 0:
+        raise AssertionError(f"serve CLI (profiled) exited {rc2}")
+    window["served_wall_s"] = again["wall"]
+    window["dispatches"] = again["stats"]["dispatches"]
+    del again
+    lap("(c) profiled serving")
+    require_launched("serve CLI", launches["serve"],
+                     ELL_KERNELS + ("dense_backup",))
+    outcomes, mdps, st, dlog = (keep["outcomes"], keep["mdps"],
+                                keep["stats"], keep["log"])
+    if not all(o["converged"] for o in outcomes):
+        raise AssertionError("serve: a request did not converge")
+    lats = sorted(o["latency"] for o in outcomes)
+    # one request of each bucket kind: certified on the CPU, held to a solo
+    # solve of its bucket's method on the card
+    checked = {}
+    for i, (spec, o) in enumerate(zip(specs, outcomes)):
+        kind = _bucket_kind(spec)
+        if kind in checked:
+            continue
+        method = dlog[o["dispatch"]]["method"]
+        host, core = _served_core(spec, mdps[i])
+        r = o["result"]
+        res_c = _certify_served(spec, host, r.v, r.policy)
+        ops.reset_launch_counts()
+        solo, t_solo = timed_solve(lambda: driver.solve(
+            core, IPIOptions(method=method, dtype="float64", atol=1e-8,
+                             max_outer=2000), device="cuda"))
+        dv = _held_to_solo(f"served {kind}", r, solo)
+        checked[kind] = dict(request=i, dispatch=o["dispatch"],
+                             method=method, cpu_residual=res_c,
+                             max_abs_dv_solo=dv, latency_s=o["latency"],
+                             solo_wall_s=t_solo,
+                             solo_launches=ops.launch_counts())
+        del host, core
+    serve = dict(
+        requests=len(specs), wall_s=keep["wall"],
+        throughput_rps=len(outcomes) / keep["wall"],
+        latency_p50_s=float(np.percentile(lats, 50, method="nearest")),
+        latency_p95_s=float(np.percentile(lats, 95, method="nearest")),
+        latency_mean_s=float(np.mean(lats)), dispatches=st["dispatches"],
+        padded_lanes=st["padded_lanes"], batch=st["batch"],
+        program_cache={k: st["program_cache"][k] for k in
+                       ("hits", "misses", "evictions", "hit_rate")},
+        slots=st["program_cache"]["slots"],
+        buckets=[{k: d[k] for k in ("dispatch", "n_pad", "slot", "method",
+                                    "seconds", "launches")}
+                 for d in dlog],
+        requests_by_bucket={str(d["dispatch"]): len(d["requests"])
+                            for d in dlog},
+        window=window, checked=checked)
+    log(f"[phase3s] (c) serve: {json.dumps(serve)}")
+    lap("(c) checks")
+
+    # the cost of padded slots: one served bucket's lanes solved unpadded
+    # and at the next slot of the pow2 grid (a duplicate lane, as the
+    # scheduler pads), in turns
+    lanes = [mdps[i] for i, sp in enumerate(specs)
+             if _bucket_kind(sp) == f"ell_{max(SERVE_NS)}"][:3]
+    padded = dict(lanes=len(lanes), slot=4)
+    with madupite_session({"-method": AUTO_GARNET_CHOICE,
+                           "-dtype": "float64", "-atol": 1e-8,
+                           "-fleet_bucketing": "off"}) as s:
+        walls = {"unpadded": [], "padded": []}
+        counts = {}
+        for turn in ("unpadded", "padded", "padded", "unpadded"):
+            fleet = lanes + [lanes[0]] * (turn == "padded")
+            ops.reset_launch_counts()
+            _, t = timed_solve(lambda: s.solve_fleet(fleet))
+            walls[turn].append(t)
+            counts[turn] = ops.launch_counts()
+    padded.update(walls_s=walls, launches=counts,
+                  cost=statistics.mean(walls["padded"])
+                  / statistics.mean(walls["unpadded"]) - 1.0)
+    if counts["padded"] != counts["unpadded"]:
+        raise AssertionError(f"padded slot: launches {counts}")
+    log(f"[phase3s] (c) padded slot: {json.dumps(padded)}")
+    lap("(c) padded slot")
+
+    # (d) admission and drain on the card, in-process
+    with Server({"-method": AUTO_GARNET_CHOICE, "-dtype": "float64",
+                 "-atol": 1e-8, "-serve_max_states": N - 1,
+                 "-serve_batch_window": 600.0}) as srv:
+        rejected = []
+        for what, sub in (
+                ("materialized", lambda: srv.submit(MDP(mdp))),
+                ("matrix_free", lambda: srv.submit(
+                    MDP.from_generator("garnet", deferred=True,
+                                       n=20 * N, m=M, k=K, gamma=GAMMA),
+                    mdp_materialize="matrix_free"))):
+            try:
+                sub()
+            except AdmissionError as e:
+                rejected.append((what, e.reason))
+        small = [mdps[i] for i, sp in enumerate(specs)
+                 if _bucket_kind(sp) == f"ell_{min(SERVE_NS)}"][:2]
+        reqs = [srv.submit(m) for m in small]
+        drained = srv.drain(timeout=600)
+        done = [r.done and r.result(timeout=0).converged for r in reqs]
+        st_d = srv.stats()
+    if rejected != [("materialized", "too_large"),
+                    ("matrix_free", "too_large")] \
+            or not drained or not all(done):
+        raise AssertionError(f"admission: rejected {rejected}, drained "
+                             f"{drained}, done {done}")
+    admission = dict(rejected=rejected, drained=drained,
+                     completed=st_d["completed"],
+                     dispatches=st_d["dispatches"])
+    log(f"[phase3s] (d) admission and drain: {json.dumps(admission)}")
+    lap("(d)")
+    del mdps, keep
+    gc.collect()
+    return dict(launches=launches, auto=auto, swap=swap, serve=serve,
+                padded=padded, admission=admission)
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    t_start = time.perf_counter()
+
+    def stamp(phase: str) -> None:
+        log(f"[time] {phase} at {time.perf_counter() - t_start:.1f}s")
+
     from repro_torch.core import generators
     from repro_torch.kernels import bellman_ell, build, dense_backup
     from repro_torch.kernels import flash_attention, spmv_ell
@@ -2204,19 +2606,29 @@ def main() -> int:
     mdp = generators.garnet(n=N, m=M, k=K, gamma=GAMMA, seed=0).to("cuda")
     log(f"[phase2] garnet n={N} m={M} k={K} on the card in "
         f"{time.perf_counter() - t0:.1f}s")
+    stamp("2")
     checks = kernel_checks(mdp, np.random.default_rng(1))
     ell_resources = ell_report(libs)
+    stamp("2q")
     qchecks = qvalues_checks(mdp, np.random.default_rng(3))
+    stamp("3")
     path = main_path(mdp)
     where_time_goes(mdp, "phase3b")
+    stamp("3g")
     other = other_paths(mdp, path)
     path["launches"].update(other["launches"])
+    stamp("4")
     parity()
+    stamp("3h")
     fleet = fleet_paths(mdp)
     path["launches"].update(fleet["launches"])
+    stamp("3m/3n")
     sharded = sharded_paths(mdp, path, then=matrix_free_paths)
     path["launches"].update(sharded["launches"])
     path["launches"].update(sharded["then"]["launches"])
+    stamp("3s")
+    serve = serve_paths(mdp, path)
+    path["launches"].update(serve["launches"])
     del mdp
     torch.cuda.empty_cache()
 
@@ -2227,17 +2639,24 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[phase2d] as_dense() of garnet n={DN} m={DM} k={DK} on the card "
         f"({dmdp.p.nbytes / 1e9:.1f} GB) in {time.perf_counter() - t0:.1f}s")
+    stamp("2d")
     dchecks = dense_kernel_checks(dmdp, np.random.default_rng(2))
     dpath = dense_main_path(ell, dmdp)
     where_time_goes(dmdp, "phase3e")
     del ell, dmdp
     torch.cuda.empty_cache()
+    stamp("3h (c)")
     dfleet = dense_fleet(np.random.default_rng(8))
     dpath["launches"].update(dfleet["launches"])
+    dpath["launches"].update(serve["launches"])
+    stamp("4d")
     dense_parity()
+    stamp("2f")
     fchecks = flash_checks()
     fresources = flash_report(libs[flash_attention.SOURCE])
+    stamp("3f")
     lm = lm_main_path()
+    stamp("4f")
     lm_parity()
 
     sources = {"ell_backup": ("src/repro_torch/kernels/csrc/ell_backup.cu",
@@ -2308,6 +2727,7 @@ def main() -> int:
                 "enable_gqa=True)",
         dtype="bfloat16", shape=main_case["shape"], cases=fchecks,
         resources=fresources))
+    stamp("end")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,12 +12,13 @@ Ported keys: the solver keys of ``IPIOptions`` (``-method``, ``-mode``,
 ``-mpi_sweeps``, ``-anderson_window``, ``-monitor``, ``-monitor_mode``,
 ``-safeguard``, ``-deterministic_dots``, ``-pc_type``, ``-pc_block``,
 ``-divtol``, ``-dtype``, ``-halo``, ``-gather_dtype``, ``-comm_overlap``,
-``-async_sweeps``), the solve loop's ``-chunk``, ``-checkpoint_dir`` and
-``-verbose``, the placement's ``-layout`` (``auto|single|1d|2d``; the fleet
-layouts raise) and ``-fleet_bucketing``, function-backed MDPs'
-``-mdp_materialize``, the outputs ``-file_stats`` /
-``-file_stats_format`` / ``-file_policy`` / ``-file_cost``, and the port's
-own ``-device``.  The reference's fleet-mesh keys ``-fleet`` /
+``-async_sweeps``), the adaptive layer's ``-probe_iters`` and
+``-adapt_on_stagnation``, the solve loop's ``-chunk``, ``-checkpoint_dir``
+and ``-verbose``, the placement's ``-layout`` (``auto|single|1d|2d``; the
+fleet layouts raise) and ``-fleet_bucketing``, function-backed MDPs'
+``-mdp_materialize``, the solve server's ``-serve_*`` keys, the outputs
+``-file_stats`` / ``-file_stats_format`` / ``-file_policy`` /
+``-file_cost``, and the port's own ``-device``.  The reference's fleet-mesh keys ``-fleet`` /
 ``-pad_fleet`` raise, naming the ROADMAP item that ports them.
 :func:`option_table` renders the registry as the README's table.
 """
@@ -178,10 +179,7 @@ _SPECS = [
     OptionSpec("-method", str, "ipi_gmres",
                "outer/inner method (validates against the live registry: "
                "repro_torch.api.register_method)",
-               # the reference's methods not ported yet pass the choices
-               # and fail validation, naming their ROADMAP item
-               choices_fn=lambda: _methods.method_names()
-               + tuple(_methods.NOT_PORTED_METHODS),
+               choices_fn=lambda: _methods.method_names(),
                validate=_methods.check_method,
                choices_doc=_live_choices_doc(
                    _methods.method_names(builtin_only=True),
@@ -253,6 +251,14 @@ _SPECS = [
                "residual exceeds divtol x the initial residual",
                validate=lambda v: None if v > 1.0
                else f"must be > 1, got {v}"),
+    OptionSpec("-probe_iters", int, 8,
+               "-method auto: probe iterations (plain VI backups) used to "
+               "estimate contraction / residual decay before picking the "
+               "method", validate=_positive),
+    OptionSpec("-adapt_on_stagnation", bool, False,
+               "watch any solve (fixed -method too) for stagnation or "
+               "divergence between chunks and hot-swap to the next method "
+               "in the escalation chain, resuming from the current state"),
     OptionSpec("-dtype", str, "float32", "value-vector dtype",
                choices=("float32", "float64")),
     OptionSpec("-halo", int, 0,
@@ -300,6 +306,41 @@ _SPECS = [
                "or auto (device when the constructors are torch "
                "functions; never matrix_free)",
                choices=("auto", "host", "device", "matrix_free")),
+    # ---- serving (repro_torch.serve.Server) ---------------------------------
+    OptionSpec("-serve_batch_window", float, 0.02,
+               "serving: seconds the scheduler waits after the oldest "
+               "queued request to coalesce compatible arrivals into one "
+               "batched dispatch (0 = dispatch whatever is queued "
+               "immediately)", validate=_non_negative),
+    OptionSpec("-serve_max_queue", int, 256,
+               "serving: admission-control queue depth; submits beyond it "
+               "are rejected with AdmissionError('queue_full')",
+               validate=_positive),
+    OptionSpec("-serve_max_states", int, None,
+               "serving: per-request state-count limit; larger MDPs are "
+               "rejected with AdmissionError('too_large'). The limit names "
+               "a materialized-table byte budget, so matrix-free requests "
+               "(O(n) footprint) are admitted up to the same bytes — far "
+               "more states (default: unlimited)", nullable=True,
+               validate=_positive),
+    OptionSpec("-serve_max_batch", int, 32,
+               "serving: max requests per dispatched bucket (also caps the "
+               "padded fleet-slot size)", validate=_positive),
+    OptionSpec("-serve_program_cache", int, 16,
+               "serving: LRU capacity of the warm program-slot cache keyed "
+               "by shape bucket (hit/miss/eviction counters in "
+               "Server.stats())", validate=_positive),
+    OptionSpec("-serve_deadline_ms", float, None,
+               "serving: per-request latency budget; the scheduler cuts "
+               "its coalescing linger short so the request dispatches "
+               "before its deadline (default: no deadline)",
+               nullable=True, validate=_positive),
+    OptionSpec("-serve_slot_policy", str, "mid2",
+               "serving: fleet-slot sizing — mid2 pads each bucket's "
+               "request count up on the pow2-with-midpoints grid "
+               "(1,2,3,4,6,8,12,16,24,...; waste <= 1/3 of the slot), "
+               "pow2 on the classic power-of-two grid, exact dispatches "
+               "the raw count", choices=("mid2", "pow2", "exact")),
     # ---- output -------------------------------------------------------------
     OptionSpec("-file_stats", str, None,
                "write run statistics here after each solve",

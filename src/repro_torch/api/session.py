@@ -27,9 +27,16 @@ Function-backed MDPs (:meth:`repro_torch.api.MDP.from_functions`,
 ``from_generator(..., deferred=True)``) are built per solve as
 ``-mdp_materialize`` says — on the session's device, each rank its own
 block under a mesh — or solved matrix-free; a fleet of them that shares
-one row spec rebuilds each chunk once for all its lanes.  The
-fleet-sharded layouts (with their device-fleet cache) and ``-method auto``
-are not ported yet.
+one row spec rebuilds each chunk once for all its lanes.
+
+``-method auto`` (a virtual method) probes the instance and picks the
+method by the rule table of :mod:`repro_torch.adaptive`, once per problem
+family ``(n, m, gamma, mode)`` — later solves of the family reuse the
+choice (``_auto_cache``) — and ``-adapt_on_stagnation`` supervises any
+solve with the hot-swap; a fleet resolves ``auto`` once per bucket.
+Solves may come from several threads (the solve server's scheduler and
+its clients): statistics and output files are written under one lock.
+The fleet-sharded layouts are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
 import time
 import weakref
 from typing import Any, Mapping, Sequence
@@ -51,10 +59,15 @@ from repro_torch.core import driver
 from repro_torch.core import methods as _methods
 from repro_torch.core.driver import SolveResult
 from repro_torch.core.mdp import MDP as CoreMDP, DenseMDP, EllMDP, \
-    MatrixFreeMDP
+    MatrixFreeMDP, stack_mdps
 from repro_torch.device import resolve_device
+from repro_torch.utils.lru import LRUCache
 
 __all__ = ["Session", "madupite_session"]
+
+# capacity of the per-session device-fleet container cache: entries hold
+# whole fleets of device tables, so the bound stays small
+_FLEET_CACHE_CAPACITY = 8
 
 
 class Session:
@@ -74,7 +87,10 @@ class Session:
             self.options = options
         else:
             self.options = Options.from_sources(options)
-        resolve_device(self.options.get("-device"))
+        # the session's device, resolved (card index included) in the thread
+        # that opens it and passed explicitly to every solve, whichever
+        # thread runs it (the solve server's scheduler, say)
+        self._device = resolve_device(self.options.get("-device"))
         self._mesh_override = mesh
         self._mesh_cache: dict = {}
         self._stats: list[dict] = []
@@ -84,6 +100,17 @@ class Session:
         # builders this session placed: their device copies are dropped
         # on close
         self._solved: weakref.WeakSet = weakref.WeakSet()
+        # device-stacked fleet containers of function-backed buckets, keyed
+        # by (device, mode, materialization, builder identities): a repeated
+        # solve_fleet of the same builders skips the build and the stack.
+        # Hit / miss / eviction counters land in the run stats.
+        self._fleet_cache = LRUCache(_FLEET_CACHE_CAPACITY)
+        # serializes stats recording and output-file writes: solves may run
+        # from the solve server's scheduler thread and client threads
+        self._io_lock = threading.RLock()
+        # -method auto choices, keyed by the problem family (n, m, gamma,
+        # mode): repeat solves of the family skip the probe
+        self._auto_cache: dict = {}
         self._closed = False
 
     # ---- lifecycle ---------------------------------------------------------
@@ -100,12 +127,35 @@ class Session:
             for mdp in list(self._solved):
                 mdp.evict()
             self._solved = weakref.WeakSet()
+            self._fleet_cache.clear()
             self._closed = True
 
     @property
     def stats(self) -> list[dict]:
         """Accumulated per-solve statistics."""
-        return list(self._stats)
+        with self._io_lock:
+            return list(self._stats)
+
+    @property
+    def cache_stats(self) -> dict:
+        """Counters of the session-owned caches: the device-fleet container
+        LRU (hits / misses / evictions) and, as in the reference, the
+        compiled run-chunk programs — none here: the port's loops run
+        eagerly and compile nothing."""
+        return {"fleet": self._fleet_cache.stats(),
+                "run_chunk_programs": 0}
+
+    @property
+    def device(self):
+        """The torch device this session's solves run on."""
+        return self._device
+
+    def _device_of(self, opts: Options):
+        """The device of a solve under ``opts``: the session's, unless a
+        per-call override names another."""
+        name = opts.get("-device")
+        return self._device if name == self.options.get("-device") \
+            else resolve_device(name)
 
     # ---- placement ---------------------------------------------------------
     def placement(self, opts: Options | None = None):
@@ -171,7 +221,7 @@ class Session:
         ipi = opts.to_ipi()
         if not opts.is_set("-mode") and ipi.mode != mdp.mode:
             ipi = dataclasses.replace(ipi, mode=mdp.mode)
-        device = opts.get("-device")
+        device = self._device_of(opts)
         mesh, layout = self.placement(opts)
         if mdp.deferred:
             # built where it is solved: this rank's block under a mesh, or
@@ -184,16 +234,37 @@ class Session:
             # built
             core = mdp.build(device if mesh is None else "cpu")
         self._solved.add(mdp)
+        spec = _methods.get_method(ipi.method)
         t0 = time.time()
-        r = driver.solve(core, ipi, mesh=mesh, layout=layout,
-                         checkpoint_dir=opts.get("-checkpoint_dir"),
-                         chunk=opts.get("-chunk"),
-                         verbose=opts.get("-verbose"), monitor=mon_cb,
-                         device=device)
+        report = None
+        if spec.virtual or opts.get("-adapt_on_stagnation"):
+            # virtual methods (-method auto) probe + select, then run
+            # supervised; a fixed method under -adapt_on_stagnation skips
+            # the probe but gets the same hot-swap safety net
+            from repro_torch.adaptive import solve_adaptive
+            key = choice = None
+            if spec.virtual:
+                key = (int(mdp.n), int(mdp.m), float(mdp.gamma), ipi.mode)
+                choice = self._auto_cache.get(key)
+            r, report = solve_adaptive(
+                core, ipi, mesh=mesh, layout=layout,
+                probe_iters=opts.get("-probe_iters"), choice=choice,
+                checkpoint_dir=opts.get("-checkpoint_dir"),
+                chunk=opts.get("-chunk"), verbose=opts.get("-verbose"),
+                monitor=mon_cb, device=device)
+            if key is not None and report.choice is not None:
+                self._auto_cache[key] = report.choice
+        else:
+            r = driver.solve(core, ipi, mesh=mesh, layout=layout,
+                             checkpoint_dir=opts.get("-checkpoint_dir"),
+                             chunk=opts.get("-chunk"),
+                             verbose=opts.get("-verbose"), monitor=mon_cb,
+                             device=device)
         wall = time.time() - t0
         r = _trim(r, mdp.n)
-        self._record([r], [mdp], ipi, opts, device, wall, fleet=None,
-                     monitor=mon_records, mesh=mesh, layout=layout)
+        self._record([r], [mdp], ipi, opts, wall, fleet=None,
+                     monitor=mon_records, mesh=mesh, layout=layout,
+                     adaptive=report)
         self._write_outputs([r], opts)
         return r
 
@@ -210,6 +281,11 @@ class Session:
         ``bucket{j}`` subdirectory a bucket and monitor records carry their
         ``bucket``.  ``monitor`` / ``stop_criterion`` / ``overrides`` as in
         :meth:`solve`.
+
+        ``-method auto`` is resolved once per bucket: the bucket's largest
+        instance is probed and the rule table's choice runs the whole
+        bucket (no mid-solve hot-swap: it would split the batch); the
+        choices land in the run statistics' ``fleet["auto"]``.
         """
         if not mdps:
             return []
@@ -231,12 +307,14 @@ class Session:
         mode = modes.pop()
         if not opts.is_set("-mode") and ipi.mode != mode:
             ipi = dataclasses.replace(ipi, mode=mode)
-        device = opts.get("-device")
+        device = self._device_of(opts)
+        spec = _methods.get_method(ipi.method)
         buckets = bucket_indices([m.n for m in wrapped],
                                  policy=opts.get("-fleet_bucketing"))
         mat = opts.get("-mdp_materialize")
         ckpt = opts.get("-checkpoint_dir")
         results: list[SolveResult | None] = [None] * len(wrapped)
+        auto_choices: list[dict] | None = [] if spec.virtual else None
         t0 = time.time()
         for j, bucket in enumerate(buckets):
             bucket_ckpt = ckpt if ckpt is None or len(buckets) == 1 \
@@ -245,18 +323,19 @@ class Session:
             # attributable (each bucket restarts k at 0)
             bucket_cb = mon_cb if mon_cb is None or len(buckets) == 1 \
                 else (lambda rec, _j=j: mon_cb({**rec, "bucket": _j}))
-            # the tables as built: stacked where they are, then placed on
-            # the device once; function-backed instances built on the
-            # device (matrix-free ones as operators sharing one spec)
-            cores = []
-            for i in bucket:
-                m = wrapped[i]
-                cores.append(m.build(device, materialize=mat) if m.deferred
-                             else m.core)
-                if m.deferred:
-                    self._solved.add(m)
+            bmdps = [wrapped[i] for i in bucket]
+            bucket_ipi = ipi
+            if spec.virtual:
+                bucket_ipi, choice = self._resolve_auto(bmdps, ipi, opts)
+                auto_choices.append(dict(
+                    bucket=j, method=choice.method, pc_type=choice.pc_type,
+                    stop_criterion=choice.stop_criterion,
+                    reason=choice.reason))
+            cores = self._fleet_cores(bmdps, ipi.mode, device, mat)
+            origin = None if isinstance(cores, list) else \
+                (len(bmdps), bmdps[0].n)
             rs = driver.solve_many(
-                cores, ipi,
+                cores, bucket_ipi, origin=origin,
                 checkpoint_dir=bucket_ckpt, chunk=opts.get("-chunk"),
                 verbose=opts.get("-verbose"), monitor=bucket_cb,
                 device=device)
@@ -265,7 +344,9 @@ class Session:
         wall = time.time() - t0
         fleet_info = dict(size=len(wrapped),
                           buckets=[sorted(b) for b in buckets])
-        self._record(results, wrapped, ipi, opts, device, wall,
+        if auto_choices is not None:
+            fleet_info["auto"] = auto_choices
+        self._record(results, wrapped, ipi, opts, wall,
                      fleet=fleet_info, monitor=mon_records)
         self._write_outputs(results, opts)
         return results  # type: ignore[return-value]
@@ -303,6 +384,68 @@ class Session:
 
         return opts, mon_cb, records
 
+    def _fleet_cores(self, bmdps: list[MDP], mode: str, device, mat: str):
+        """What one bucket hands :func:`repro_torch.core.driver.solve_many`.
+
+        A bucket of function-backed MDPs of one shape (``n``, ``m``,
+        ``nnz``) built on the device is one stacked device container,
+        kept in the session's fleet LRU under its builders' identities, so
+        solving the same builders again skips the build and the stack.
+        Otherwise the per-instance cores as built — array-backed tables
+        where they are (stacked and placed once by the driver), matrix-free
+        operators sharing one row spec — which need no cache entry."""
+        for m in bmdps:
+            if m.deferred:
+                self._solved.add(m)
+        if not (len(bmdps) > 1 and all(m.deferred for m in bmdps)
+                and len({(m.n, m._spec.m, m._spec.nnz) for m in bmdps}) == 1
+                and all(m.materialization(mat) == "device" for m in bmdps)):
+            return [m.build(device, materialize=mat) if m.deferred
+                    else m.core for m in bmdps]
+        # weakly keyed on the builders: an entry whose fleet the caller
+        # dropped can never be asked for again, so purge it
+        for k in self._fleet_cache.keys():
+            if not all(r() is not None for r in k[3]):
+                self._fleet_cache.pop(k)
+        key = (device, mode, mat, tuple(weakref.ref(m) for m in bmdps))
+        batched = self._fleet_cache.get(key)
+        if batched is None:
+            batched = stack_mdps([m.build(device, materialize=mat)
+                                  for m in bmdps])
+            for m in bmdps:
+                # the stacked copy is the one kept
+                m._device_cache.pop(("built", "device", device), None)
+            self._fleet_cache.put(key, batched)
+        return batched
+
+    def _resolve_auto(self, bmdps: list[MDP], ipi, opts: Options):
+        """Resolve a virtual method for one fleet bucket: probe the
+        bucket's largest instance on the session's device, run the rule
+        table, and return ``(concrete IPIOptions, MethodChoice)``.  Choices
+        are cached per problem family (n, m, gamma, mode), so homogeneous
+        fleets probe once."""
+        from repro_torch.adaptive import probe, select_method
+        rep = max(bmdps, key=lambda m: m.n)
+        key = (int(rep.n), int(rep.m), float(rep.gamma), ipi.mode)
+        choice = self._auto_cache.get(key)
+        if choice is None:
+            device = self._device_of(opts)
+            core = rep.place(None, "1d", mode=ipi.mode,
+                             materialize=opts.get("-mdp_materialize"),
+                             device=device)
+            profile, _ = probe(core, ipi,
+                               probe_iters=opts.get("-probe_iters"),
+                               device=device)
+            choice = select_method(
+                profile, deterministic_dots=ipi.deterministic_dots)
+            self._auto_cache[key] = choice
+        resolved = dataclasses.replace(
+            ipi, method=choice.method,
+            stop_criterion=choice.stop_criterion,
+            pc_type=choice.pc_type if ipi.pc_type == "none"
+            else ipi.pc_type)
+        return resolved, choice
+
     def _wrap(self, mdp: MDP | CoreMDP, opts: Options) -> MDP:
         if isinstance(mdp, MDP):
             return mdp
@@ -312,9 +455,9 @@ class Session:
                         f"EllMDP/DenseMDP/MatrixFreeMDP), got "
                         f"{type(mdp).__name__}")
 
-    def _record(self, results, mdps, ipi, opts: Options, device: str,
-                wall: float, *, fleet, monitor=None, mesh=None,
-                layout: str = "1d") -> None:
+    def _record(self, results, mdps, ipi, opts: Options, wall: float, *,
+                fleet, monitor=None, mesh=None,
+                layout: str = "1d", adaptive=None) -> None:
         entry = {
             "method": ipi.method,
             "mode": ipi.mode,
@@ -323,7 +466,7 @@ class Session:
             "layout": "single" if mesh is None else layout,
             "mesh": None if mesh is None else dict(zip(
                 mesh.mesh_dim_names, (int(d) for d in mesh.shape))),
-            "device": device,
+            "device": opts.get("-device"),
             "options": opts.as_dict(explicit_only=True),
             "wall_s": round(wall, 6),
             "fleet": fleet,
@@ -337,6 +480,10 @@ class Session:
                 "gap_bound": float(r.gap_bound),
             } for mdp, r in zip(mdps, results)],
         }
+        if adaptive is not None:
+            entry["adaptive"] = adaptive.as_dict()
+        if fleet is not None:
+            entry["fleet"] = dict(fleet, cache=self._fleet_cache.stats())
         if monitor is not None:
             # monitoring on: the records plus the dense convergence-history
             # arrays land in the run stats
@@ -345,7 +492,8 @@ class Session:
             for s, r in zip(entry["solves"], results):
                 s["trace_residual"] = [float(x) for x in r.trace_residual]
                 s["trace_inner"] = [int(x) for x in r.trace_inner]
-        self._stats.append(entry)
+        with self._io_lock:
+            self._stats.append(entry)
 
     def _write_outputs(self, results, opts: Options) -> None:
         """``-file_stats``, then ``-file_policy`` / ``-file_cost``: one
@@ -356,24 +504,28 @@ class Session:
         if dist.is_available() and dist.is_initialized() \
                 and dist.get_rank() != 0:
             return
-        self._write_stats(opts)
-        for key, field in (("-file_policy", "policy"), ("-file_cost", "v")):
-            path = opts.get(key)
-            if not path:
-                continue
-            _ensure_dir(path)
-            arrays = [np.asarray(getattr(r, field)) for r in results]
-            if len(arrays) == 1:
-                np.save(path, arrays[0])
-            else:
-                np.savez(path, **{f"instance_{i}": a
-                                  for i, a in enumerate(arrays)})
+        with self._io_lock:
+            self._write_stats(opts)
+            for key, field in (("-file_policy", "policy"),
+                               ("-file_cost", "v")):
+                path = opts.get(key)
+                if not path:
+                    continue
+                _ensure_dir(path)
+                arrays = [np.asarray(getattr(r, field)) for r in results]
+                if len(arrays) == 1:
+                    np.save(path, arrays[0])
+                else:
+                    np.savez(path, **{f"instance_{i}": a
+                                      for i, a in enumerate(arrays)})
 
     def _write_stats(self, opts: Options) -> None:
         """Persist run statistics.  ``jsonl`` (default) appends only the
         entries written since the last solve; ``json`` rewrites one array.
         Switching the format on one path rewrites it whole (JSONL lines
-        after a JSON array would corrupt both)."""
+        after a JSON array would corrupt both).  Callers hold
+        ``self._io_lock``, so concurrent solves write each entry once and
+        every line whole."""
         path = opts.get("-file_stats")
         if not path:
             return

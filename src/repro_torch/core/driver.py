@@ -36,8 +36,10 @@ Checkpoints stay mesh-agnostic: rank 0 writes the unpadded global state
 and any world size (or one device) resumes it.  Monitors and progress
 lines come from rank 0 only.
 
-The adaptive supervisor hook and the fleet-sharded layouts (``solve_many``
-over a mesh, ROADMAP queue 1 item 10) are not ported yet.
+A ``supervisor`` (:mod:`repro_torch.adaptive`) may interrupt a single
+solve between chunks; its state is then checkpointed for a resume under
+another method.  The fleet-sharded layouts (``solve_many`` over a mesh,
+ROADMAP queue 1 item 10) are not ported yet.
 """
 
 from __future__ import annotations
@@ -262,18 +264,22 @@ def _restore_or_init(init, like, dev: torch.device, checkpoint_dir,
 
 
 def _drive(dev_mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
-           *, chunk: int, mid: int, emit, report, after_chunk):
+           *, chunk: int, mid: int, emit, report, after_chunk,
+           supervisor=None):
     """The host loop of :func:`solve` and :func:`solve_many`: chunks of at
     most ``chunk`` outer steps until every lane has stopped or reached
     ``opts.max_outer``.  ``emit(k, res, inner, diverged)`` sends a
     record (per-lane arrays) to monitor ``mid``; ``report(state, res, div,
     done)`` runs before every chunk and at the end, ``after_chunk(state)``
-    after every chunk.  Returns the final state and its ``(stop, res,
-    diverged)`` flags."""
+    after every chunk.  ``supervisor`` (one lane) is asked after every
+    completed chunk, as :func:`solve` describes; a truthy answer stops the
+    loop.  Returns the final state, its ``(stop, res, diverged)`` flags
+    and whether the supervisor stopped it."""
     stream = emit if mid and opts.monitor_mode == "stream" else None
     stop, res, div = ipi.stop_flags(state)
     if mid:   # the k=0 (or resume-point) record
         emit(state.k, res, np.zeros_like(state.k), np.zeros_like(stop))
+    prev = None
     while True:
         k = state.k
         done = stop | (k >= opts.max_outer)
@@ -281,7 +287,13 @@ def _drive(dev_mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
         # converged, a NaN residual (inner-solver breakdown) or a diverged
         # flag: bail out, do not spin
         if done.all():
-            return state, (stop, res, div)
+            return state, (stop, res, div), False
+        # the control values this check already read: no extra sync
+        if supervisor is not None and prev is not None and supervisor(dict(
+                k=int(k[0]), res=float(res[0]), k_prev=prev[0],
+                res_prev=prev[1], diverged=bool(div[0]))):
+            return state, (stop, res, div), True
+        prev = (int(k[0]), float(res[0]))
         k_hi = min(int(k[~done].min()) + chunk, opts.max_outer)
         state = ipi.solve_chunk(dev_mdp, state, k_hi, opts, axes,
                                 on_step=stream)
@@ -399,11 +411,21 @@ def _mesh_device(mesh, device) -> torch.device:
     return want
 
 
+def _reject_virtual(opts: IPIOptions) -> None:
+    if methods.get_method(opts.method).virtual:
+        raise ValueError(
+            f"method {opts.method!r} is a virtual (meta) method — the "
+            f"adaptive layer resolves it to a concrete solver first; use "
+            f"repro_torch.api.Session.solve (which routes -method auto "
+            f"automatically) or repro_torch.adaptive.solve_adaptive")
+
+
 def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, mesh=None,
           layout: str = "1d", v0=None,
           checkpoint_dir: str | None = None, chunk: int = 64,
           checkpoint_mode: str = "chunk", verbose: bool = False,
-          monitor=None, device: str | torch.device = "cuda") -> SolveResult:
+          monitor=None, supervisor=None,
+          device: str | torch.device = "cuda") -> SolveResult:
     """Solve an MDP until ``opts.stop_criterion`` is satisfied (default:
     ``||T v - v||_inf <= opts.atol``) on ``device``.
 
@@ -422,10 +444,18 @@ def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, mesh=None,
     (:func:`repro_torch.core.methods.print_monitor`).  The first record is
     the k=0 (or resume-point) one.  Under a mesh only rank 0 emits them.
 
+    ``supervisor`` is a between-chunks hook for the adaptive layer: a
+    callable receiving ``{"k", "res", "k_prev", "res_prev", "diverged"}``
+    once per completed chunk (the values the loop reads anyway); returning
+    truthy interrupts the solve, and the current state is checkpointed
+    when ``checkpoint_dir`` is set, so the caller can resume it under
+    other options — the hot-swap path.  A diverged state stops the loop
+    on its own.
+
     ``checkpoint_dir`` persists the state in the reference's format and
     resumes from its newest valid step.  ``checkpoint_mode="chunk"``
     (default) writes after every chunk; ``"interrupt"`` writes only when
-    the solve stops early on divergence.
+    the solve is interrupted (supervisor trigger or divergence).
     """
     if not isinstance(mdp, (EllMDP, DenseMDP, MatrixFreeMDP)):
         raise TypeError(f"solve() takes an EllMDP, a DenseMDP or a "
@@ -433,6 +463,7 @@ def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, mesh=None,
     if mdp.batch is not None:
         raise ValueError("solve() takes one MDP instance; for a batched "
                          "fleet use solve_many()")
+    _reject_virtual(opts)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if checkpoint_mode not in ("chunk", "interrupt"):
@@ -496,13 +527,15 @@ def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, mesh=None,
     emit = lambda k, res, inner, div: methods.emit_host(
         mid, np.max(k), res[0], inner[0], div[0])
     try:
-        state, (_, res, div) = _drive(
+        state, (_, res, div), stopped = _drive(
             dev_mdp, state, opts, axes, chunk=chunk, mid=mid, emit=emit,
             report=report,
-            after_chunk=save_state if save_each else lambda state: None)
-        # a NaN-poisoned state is not worth persisting
-        if div[0] and not np.isnan(res[0]) and checkpoint_dir \
-                and not save_each:
+            after_chunk=save_state if save_each else lambda state: None,
+            supervisor=supervisor)
+        # an interrupted solve is kept for its resume; a NaN-poisoned
+        # state is not worth persisting
+        if (stopped or (div[0] and not np.isnan(res[0]))) \
+                and checkpoint_dir and not save_each:
             save_state(state)
     finally:
         if mid:
@@ -540,6 +573,7 @@ def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
     arguments: this package has one device and no fleet layouts yet
     (ROADMAP queue 1 item 10), so anything but the defaults raises.
     """
+    _reject_virtual(opts)
     if mesh is not None or layout != "1d" or pad_fleet is not True:
         raise NotImplementedError(
             f"solve_many(mesh=..., layout=..., pad_fleet=...): meshes and "
@@ -609,8 +643,9 @@ def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
         mid, k[:b_true] if np.ndim(k) else k, res[:b_true], inner[:b_true],
         div[:b_true])
     try:
-        state, _ = _drive(dev_mdp, state, opts, axes, chunk=chunk, mid=mid,
-                          emit=emit, report=report, after_chunk=save_state)
+        state, _, _ = _drive(dev_mdp, state, opts, axes, chunk=chunk,
+                             mid=mid, emit=emit, report=report,
+                             after_chunk=save_state)
     finally:
         if mid:
             methods.monitor_release(mid)

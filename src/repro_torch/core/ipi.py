@@ -136,7 +136,7 @@ class IPIOptions:
         if self.pc_type not in PC_TYPES:
             raise ValueError(f"pc_type must be 'none', 'jacobi' or "
                              f"'bjacobi', got {self.pc_type!r}")
-        if self.pc_type != "none":
+        if self.pc_type != "none" and not spec.virtual:
             if spec.ksp is None:
                 raise ValueError(
                     f"pc_type {self.pc_type!r} preconditions the Krylov "

@@ -67,10 +67,6 @@ __all__ = [
 
 INNER_POLICIES = ("none", "forcing", "sweeps", "tight")
 
-# the reference's builtin methods that this package does not run yet, and
-# the ROADMAP queue 1 item that ports each
-NOT_PORTED_METHODS = {"auto": 12}
-
 
 # --------------------------------------------------------------------------- #
 # Registry records                                                            #
@@ -116,6 +112,10 @@ class MethodSpec:
     #                                inner-solve/backup core (async_vi):
     #                                outer(mdp, state, opts, axes, gamma_t)
     #                                -> (v1, tv1, pi1, res1, inner, win1)
+    virtual: bool = False        # meta-method (e.g. "auto"): validates in the
+    #                              options layer but is resolved to a concrete
+    #                              method by repro_torch.adaptive before any
+    #                              solve loop runs; driver.solve rejects it
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,14 +243,16 @@ def register_ksp(name: str, fn: Callable | None = None, *, doc: str = "",
 
 def register_method(name: str, *, ksp: str | None, inner: str = "forcing",
                     safeguarded: bool = True, doc: str = "",
-                    outer: Callable | None = None,
+                    outer: Callable | None = None, virtual: bool = False,
                     overwrite: bool = False, _builtin: bool = False) \
         -> MethodSpec:
     """Register an outer method: which KSP runs the policy-evaluation step
     and under which inner-stopping policy (see :data:`INNER_POLICIES`) —
     or, with ``outer``, a full custom outer iteration (e.g. ``async_vi``)
-    that replaces the inner-solve/backup core entirely.  The reference's
-    virtual methods are not ported."""
+    that replaces the inner-solve/backup core entirely.  ``virtual=True``
+    marks a meta-method (like the builtin ``auto``) that never reaches a
+    solve loop itself: the adaptive layer resolves it to a concrete
+    method first."""
     _check_free(_METHODS, "method", name, overwrite)
     if inner not in INNER_POLICIES:
         raise ValueError(f"inner policy must be one of {INNER_POLICIES}, "
@@ -260,12 +262,15 @@ def register_method(name: str, *, ksp: str | None, inner: str = "forcing",
     if outer is not None and ksp is not None:
         raise ValueError(f"method {name!r}: a custom outer iteration "
                          f"replaces the inner solve — pass ksp=None")
+    if virtual and (ksp is not None or outer is not None):
+        raise ValueError(f"method {name!r}: virtual methods carry no "
+                         f"solver — pass ksp=None, outer=None")
     if (ksp is None) != (inner == "none"):
         raise ValueError(f"method {name!r}: ksp=None requires inner='none' "
                          f"(and vice versa), got ksp={ksp!r} inner={inner!r}")
     spec = MethodSpec(name=name, ksp=ksp, inner=inner,
                       safeguarded=safeguarded, doc=doc, builtin=_builtin,
-                      outer=outer)
+                      outer=outer, virtual=virtual)
     _METHODS[name] = spec
     return spec
 
@@ -362,10 +367,6 @@ def check_ksp(name) -> str | None:
 def check_method(name) -> str | None:
     if name in _METHODS:
         return None
-    if name in NOT_PORTED_METHODS:
-        return (f"method {name!r} is not yet ported to repro_torch (ROADMAP "
-                f"queue 1 item {NOT_PORTED_METHODS[name]}); use the JAX "
-                f"package's repro.api")
     return _unknown("method", name, list(_METHODS), "register_method")
 
 
@@ -667,6 +668,11 @@ register_method("async_vi", ksp=None, inner="none", safeguarded=False,
                 outer=async_vi_outer,
                 doc="asynchronous VI: async_sweeps stale local sweeps per "
                     "value exchange (span-certified)",
+                _builtin=True)
+register_method("auto", ksp=None, inner="none", safeguarded=False,
+                virtual=True,
+                doc="adaptive: probe the instance, then pick method / stop "
+                    "criterion / preconditioner (repro.adaptive)",
                 _builtin=True)
 
 

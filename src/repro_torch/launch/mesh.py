@@ -107,7 +107,16 @@ def make_fleet_mesh(fleet: int, *, layout: str = "fleet", devices=None):
         f"repro_torch (ROADMAP queue 1 item {FLEET_ITEM})")
 
 
-def shutdown() -> None:
-    """Tear the process group down (every rank, at exit)."""
+def shutdown(*, barrier: bool = True) -> None:
+    """Tear the process group down (every rank, at exit).
+
+    The ranks first meet at a barrier, so none destroys its groups and
+    exits while a peer is still working: a gloo rank that exited early
+    could abort at interpreter exit ("terminate called without an active
+    exception") on a loaded host, failing the whole launch.  A rank that
+    is leaving on an error passes ``barrier=False``: its peers may never
+    arrive."""
     if dist.is_initialized():
+        if barrier:
+            dist.barrier()
         dist.destroy_process_group()

@@ -16,6 +16,14 @@ reaches the whole registry and ``MADUPITE_OPTIONS`` is ingested first:
         --method ipi_bicgstab --option pc_type=jacobi --monitor \\
         --ckpt-dir CKPT
 
+``--method auto`` probes the instance with a few VI backups and picks the
+method by the adaptive rule table (the profile, the choice and its reason
+are printed); ``--option adapt_on_stagnation=true`` watches a fixed
+method and hot-swaps it on stagnation or divergence (each swap printed):
+
+    PYTHONPATH=src python -m repro_torch.launch.solve --instance garnet \
+        --n 1000000 --m 16 --k 8 --method auto --atol 1e-8
+
 ``--load`` reads the block-manifest format of :mod:`repro_torch.core.io`
 (either package's files); ``--ckpt-dir`` checkpoints between chunks and
 resumes from the newest step there; ``--monitor`` prints one line per
@@ -174,6 +182,62 @@ def _launch_line(opts: Options, say=print) -> None:
         say(f"[solve] kernel launches: {counts}")
 
 
+def _run(args, session: Session, opts: Options, say) -> int:
+    """One single solve, or one fleet with ``--batch``, through
+    ``session``; the exit code."""
+    if args.batch > 1:
+        fleet = build_fleet(args)
+        say(f"[solve] fleet B={args.batch} instance={args.instance} "
+            f"n={fleet[0].n_global} m={fleet[0].m_global} "
+            f"gammas={[round(float(m.gamma), 6) for m in fleet]} "
+            f"device={opts.get('-device')}")
+        t0 = time.time()
+        results = session.solve_fleet(fleet)
+        wall = time.time() - t0
+        for b, r in enumerate(results):
+            say(f"[solve] [{b}] {r.summary()}")
+        say(f"[solve] fleet wall={wall:.2f}s "
+            f"({wall / args.batch:.2f}s/instance amortized)")
+        _launch_line(opts, say)
+        return 0 if all(r.converged for r in results) else 1
+
+    mdp = build_instance(args)
+    mesh, layout = session.placement()
+    where = "single" if mesh is None else \
+        f"{layout} over {dist.get_world_size()} ranks"
+    say(f"[solve] instance={args.instance} n={mdp.n} m={mdp.m} "
+        f"gamma={mdp.gamma} mode={mdp.mode} "
+        f"device={opts.get('-device')} layout={where}")
+    t0 = time.time()
+    r = session.solve(mdp)
+    say(f"[solve] {r.summary()}  wall={time.time()-t0:.2f}s")
+    adaptive = session.stats[-1].get("adaptive")
+    if adaptive is not None:
+        # what -method auto / -adapt_on_stagnation actually ran
+        if adaptive["profile"] is not None:
+            p = adaptive["profile"]
+            say(f"[solve] probe: {p['iters']} iterations, "
+                f"contraction={p['contraction']:.6f} "
+                f"span_ratio={p['span_ratio']:.3e} "
+                f"res={p['res']:.3e}")
+        choice = adaptive.get("choice")
+        if choice is not None:
+            say(f"[solve] auto-selected {choice['method']} "
+                f"(stop={choice['stop_criterion']} "
+                f"pc={choice['pc_type']}): {choice['reason']}")
+        for sw in adaptive["swaps"]:
+            say(f"[solve] hot-swap at k={sw['k']}: "
+                f"{sw['from_method']} -> {sw['to_method']} "
+                f"(pc={sw['pc_type']}) — {sw['reason']}")
+        if adaptive["methods"]:
+            say(f"[solve] methods run: "
+                f"{' -> '.join(adaptive['methods'])}")
+    _launch_line(opts, say)
+    say(f"[solve] ||v - v*||_inf <= {r.gap_bound:.3e} (certificate)")
+    ok = _all_ranks(bool(r.converged), opts.get("-device"))
+    return 0 if ok else 1
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__,
@@ -189,7 +253,9 @@ def main(argv=None):
     ap.add_argument("--size", type=int, default=64)
     ap.add_argument("--gamma", type=float, default=0.99)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--method", default=None, help="option -method")
+    ap.add_argument("--method", default=None,
+                    help="option -method (any live-registry name; auto "
+                         "probes the instance and picks one)")
     ap.add_argument("--ksp-type", default=None,
                     help="option -ksp_type (inner solver sugar)")
     ap.add_argument("--mode", default=None,
@@ -248,41 +314,17 @@ def main(argv=None):
     opts = build_options(args)
     lead, started = _start_ranks(args, opts)
     say = print if lead else (lambda *a, **k: None)
+    completed = False
     try:
         with Session(opts) as session:
-            if args.batch > 1:
-                fleet = build_fleet(args)
-                say(f"[solve] fleet B={args.batch} instance={args.instance} "
-                    f"n={fleet[0].n_global} m={fleet[0].m_global} "
-                    f"gammas={[round(float(m.gamma), 6) for m in fleet]} "
-                    f"device={opts.get('-device')}")
-                t0 = time.time()
-                results = session.solve_fleet(fleet)
-                wall = time.time() - t0
-                for b, r in enumerate(results):
-                    say(f"[solve] [{b}] {r.summary()}")
-                say(f"[solve] fleet wall={wall:.2f}s "
-                    f"({wall / args.batch:.2f}s/instance amortized)")
-                _launch_line(opts, say)
-                return 0 if all(r.converged for r in results) else 1
-
-            mdp = build_instance(args)
-            mesh, layout = session.placement()
-            where = "single" if mesh is None else \
-                f"{layout} over {dist.get_world_size()} ranks"
-            say(f"[solve] instance={args.instance} n={mdp.n} m={mdp.m} "
-                f"gamma={mdp.gamma} mode={mdp.mode} "
-                f"device={opts.get('-device')} layout={where}")
-            t0 = time.time()
-            r = session.solve(mdp)
-            say(f"[solve] {r.summary()}  wall={time.time()-t0:.2f}s")
-            _launch_line(opts, say)
-            say(f"[solve] ||v - v*||_inf <= {r.gap_bound:.3e} (certificate)")
-            ok = _all_ranks(bool(r.converged), opts.get("-device"))
-            return 0 if ok else 1
+            rc = _run(args, session, opts, say)
+        completed = True
+        return rc
     finally:
         if started:
-            launch_mesh.shutdown()
+            # the ranks meet before tearing down, unless this one failed:
+            # a peer might then never arrive
+            launch_mesh.shutdown(barrier=completed)
 
 
 if __name__ == "__main__":

@@ -104,7 +104,8 @@ def test_unknown_keys_and_devices_raise():
     with pytest.raises(topts.OptionTypeError, match="'-device' must be"):
         Options({"-device": "tpu"})
     with pytest.raises(topts.OptionTypeError, match="'-method'"):
-        Options({"-method": "auto"})
+        Options({"-method": "autoo"})
+    assert Options({"-method": "auto"}).get("-method") == "auto"
     assert Options().get("-device") == "cuda"
 
 

@@ -371,8 +371,10 @@ def test_session_solve_fleet_guards():
                 for i, mode in enumerate(("mincost", "maxreward"))]
         with pytest.raises(ValueError, match="one shared mode"):
             s.solve_fleet(mdps)
-        with pytest.raises(tapi.OptionTypeError, match="queue 1 item 12"):
-            s.solve_fleet(mdps[:1], method="auto")
+        # -method auto resolves per bucket (ROADMAP queue 1 item 12)
+        assert s.solve_fleet(mdps[:1], method="auto",
+                             atol=1e-4)[0].converged
+        assert s.stats[-1]["fleet"]["auto"][0]["method"] != "auto"
     for key in ("-fleet", "-pad_fleet"):
         with pytest.raises(tapi.UnknownOptionError, match="queue 1 item 10"):
             tapi.Options({key: "fleet"})
@@ -422,5 +424,10 @@ def test_fleet_stats_are_json(tmp_path):
         s.solve_fleet([tgen.garnet(n=30, m=3, k=2, seed=i)
                        for i in range(2)])
     entry = json.loads(path.read_text().splitlines()[-1])
-    assert entry["fleet"] == {"size": 2, "buckets": [[0, 1]]}
+    # the session's device-fleet LRU counters ride along, as in the
+    # reference's entry (an array-backed fleet takes no cache entry)
+    assert entry["fleet"] == {"size": 2, "buckets": [[0, 1]],
+                              "cache": {"size": 0, "capacity": 8, "hits": 0,
+                                        "misses": 0, "evictions": 0,
+                                        "hit_rate": 0.0}}
     assert len(entry["solves"]) == 2

@@ -8,12 +8,11 @@
 * ``unregister_*`` restores the builtin registries.
 * Unknown-name and duplicate-name messages equal the reference's, with
   the hint naming this package's ``repro_torch.api`` where the
-  reference's names ``repro.api``; the registered-name lists lack the
-  reference's one method this package does not run yet (``auto``), which
-  raises a message naming its ROADMAP queue item; ``async_vi``, once in
-  that list, is registered as the reference registers it.
+  reference's names ``repro.api``; the registered-name lists are the
+  reference's; ``async_vi`` and the virtual ``auto``, the last two
+  ported, are registered as the reference registers them.
 * ``method_table``, ``ksp_table`` and ``stop_table`` equal the
-  reference's, less the ``auto`` row.
+  reference's.
 
 Registries are process-global: every test that registers a name
 unregisters it in its fixture's teardown.
@@ -36,7 +35,6 @@ from repro_torch.core import methods as tmethods
 jax.config.update("jax_enable_x64", True)
 
 GARNET = dict(n=97, m=5, k=3, gamma=0.95, seed=1)
-NOT_PORTED = ("auto",)
 SWEEPS = 3
 
 
@@ -188,12 +186,9 @@ def test_unknown_name_messages_match_reference(kind, name):
     with pytest.raises(ValueError) as e:
         getattr(tmethods, f"get_{kind}")(name)
     assert str(e.value) == got
-    # with the builtin registries the name lists are the reference's, less
-    # the two methods this package does not run yet
-    ref_names = [n for n in getattr(jmethods, f"{kind}_names")(
-        builtin_only=True) if n not in NOT_PORTED]
+    # with the builtin registries the name lists are the reference's
     assert getattr(tmethods, f"{kind}_names")(builtin_only=True) == \
-        tuple(ref_names)
+        getattr(jmethods, f"{kind}_names")(builtin_only=True)
 
 
 @pytest.mark.parametrize("kind,name", [("ksp", "gmres"), ("method", "vi"),
@@ -222,45 +217,31 @@ def test_duplicate_name_messages_match_reference(kind, name):
     assert msgs[1] == msgs[0]
 
 
-@pytest.mark.parametrize("name", ("async_vi",) + NOT_PORTED)
+@pytest.mark.parametrize("name", ("async_vi", "auto"))
 def test_unported_methods_name_their_queue_item(name):
+    """The two methods ported last (ROADMAP queue 1 items 10 and 12) are
+    registered as the reference registers them."""
     assert name in jmethods.method_names()
-    if name not in NOT_PORTED:
-        # ported since (ROADMAP queue 1 item 10): registered as the
-        # reference registers it
-        spec, jspec = tmethods.get_method(name), jmethods.get_method(name)
-        assert tmethods.check_method(name) is None
-        assert (spec.ksp, spec.inner, spec.safeguarded, spec.doc) == \
-            (jspec.ksp, jspec.inner, jspec.safeguarded, jspec.doc)
-        assert spec.outer is not None
-        assert tapi.Options({"-method": name}).get("-method") == name
-        return
-    msg = tmethods.check_method(name)
-    item = {"async_vi": 10, "auto": 12}[name]
-    assert f"ROADMAP queue 1 item {item}" in msg and "not yet ported" in msg
-    with pytest.raises(tapi.OptionTypeError):
-        tapi.Options({"-method": name})
-    from repro_torch.core.ipi import IPIOptions
-    with pytest.raises(ValueError, match="not yet ported"):
-        IPIOptions(method=name)
+    spec, jspec = tmethods.get_method(name), jmethods.get_method(name)
+    assert tmethods.check_method(name) is None
+    assert (spec.ksp, spec.inner, spec.safeguarded, spec.doc,
+            spec.virtual) == (jspec.ksp, jspec.inner, jspec.safeguarded,
+                              jspec.doc, jspec.virtual)
+    assert (spec.outer is not None) == (name == "async_vi")
+    assert tapi.Options({"-method": name}).get("-method") == name
 
 
 def test_tables_match_reference_less_unported_rows():
-    drop = tuple(f"| `{n}` |" for n in NOT_PORTED)
-    jrows = [row for row in japi.method_table().splitlines()
-             if not row.startswith(drop)]
-    assert tapi.method_table().splitlines() == jrows
+    assert tapi.method_table() == japi.method_table()
     assert tapi.ksp_table() == japi.ksp_table()
     assert tapi.stop_table() == japi.stop_table()
-    assert tapi.method_names(builtin_only=True) == tuple(
-        n for n in japi.method_names(builtin_only=True)
-        if n not in NOT_PORTED)
+    assert tapi.method_names(builtin_only=True) == \
+        japi.method_names(builtin_only=True)
 
 
 def test_option_table_rows_match_reference_types_and_defaults():
     """Every port key renders with the reference's type column and default
-    (``-device`` is the port's own key; the registry-backed choice lists
-    omit the unported methods)."""
+    (``-device`` is the port's own key)."""
     def rows(table):
         out = {}
         for line in table.splitlines()[2:]:
@@ -275,6 +256,4 @@ def test_option_table_rows_match_reference_types_and_defaults():
         assert key in jrows, key
         jtyp, jdefault = jrows[key]
         assert default == jdefault, key
-        if key == "`-method`":
-            jtyp = jtyp.replace(" \\| `auto`", "")
         assert typ == jtyp, key
