@@ -147,6 +147,30 @@ result) without them.  Phases, each of which raises on failure:
    - geomspace(0.1, 0.01, 4)) in f32 ``mpi``: each lane bit for bit its
    unbatched matrix-free solve, one ``ell_backup`` launch a chunk for the
    lanes, fewer than the four solves', walls beside each other;
+   (3p) the fleet layouts, after 3n on 3m's world-1 group: (a) 3h's
+   B = 4 seed ensemble (the card's tables, f64 ``ipi_gmres`` to ``1e-8``)
+   through ``driver.solve_many(mesh=make_fleet_mesh(1, layout=...))``
+   under ``fleet`` and ``fleet2d``, each bit for bit 3h (e)'s mesh-less
+   fleet with 3h (a)'s ``ell_backup`` / ``ell_matvec`` launches, its wall,
+   its collectives by kind and axis (counted around torch.distributed's
+   calls, by the ``Axes`` method that issued them) and its profile (busy,
+   idle), beside the host time of one fleet gather of a step's flags;
+   (b) ``Session.solve_fleet`` over the fleet mesh of 4 deferred garnets
+   ``n=10^6`` (3n's family: ``place_function_fleet`` builds each lane's
+   block on the card), f32 ``mpi`` to ``1e-4``: the placed tables bit for
+   bit the lanes built one by one by 3n's device pipeline, every lane bit
+   for bit their mesh-less fleet; (c) ``Session.solve_fleet`` and a
+   ``Server`` over the fleet mesh on ten garnets of 10^5 / 2 x 10^5
+   states (f64 ``ipi_gmres``), every request held to its solo solve
+   (policy and counts exact, values within 1e-10 |v|_inf); after the
+   group is torn down, (d) ``torchrun --nproc-per-node <cards> -m
+   repro_torch.launch.solve -- ... --batch 4 --layout fleet --fleet
+   <cards>`` must exit 0 with each lane held to 3h's fleet (bit for bit on
+   one card), and ``python -m repro_torch.launch.elastic --device cuda
+   --batch 4`` must resume its fleet-layout checkpoint (on one card: with
+   no mesh) to ``|dv| < 1e-9``; after 3h (c) the dense fleet under
+   ``fleet`` on a world-1 group of its own, bit for bit with the same
+   ``dense_backup`` launches;
    (3s) ``-method auto`` and solve serving, after 3n on the phase-2
    garnet: (a) the CLI ``--method auto --atol 1e-8`` (float64) must exit
    0, print the probe's profile and the choice, choose what
@@ -209,7 +233,8 @@ result) without them.  Phases, each of which raises on failure:
    paths).  Rows 1-4 carry ``batched``: phase 3h (d)'s rows, keyed by
    ``idx`` kind and dtype; the ELL kernels' also carry phase 3m (a)'s
    ``sharded_1d`` / ``sharded_2d`` counts and phase 3n's ``mf_*`` paths;
-   rows 1-3 also phase 3s's ``auto_cli``, ``auto_swap`` and ``serve``.
+   rows 1-3 also phase 3s's ``auto_cli``, ``auto_swap`` and ``serve``,
+   and phase 3p's ``fleet_*`` paths.
 """
 
 from __future__ import annotations
@@ -1472,33 +1497,18 @@ def matrix_free_paths(meshes, device: str = "cuda", n: int = N,
 
 def collective_costs(mdp, opts, meshes, device: str,
                      reps: int = 200) -> dict:
-    """Phase 3m (a): the collectives one sharded solve issues, by kind
-    (counted around ``torch.distributed``'s calls), and the host-clock
+    """Phase 3m (a): the collectives one sharded solve issues, by kind and
+    axis (:func:`count_collectives`), and the host-clock
     cost of one call of each kind at this solve's sizes (a 0-d float64
     all-reduce, an all-gather of the float64 value vector), between
     device syncs, over ``reps`` calls."""
-    import collections
-    import torch.distributed as dist
-    from repro_torch.core import comm, driver, partition
+    from repro_torch.core import driver, partition
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     out = {}
     for layout, mesh in meshes.items():
-        calls = collections.Counter()
-        saved = dist.all_reduce, comm._all_gather
-
-        def count(kind, fn):
-            def wrapped(*a, **k):
-                calls[kind] += 1
-                return fn(*a, **k)
-            return wrapped
-        dist.all_reduce = count("all_reduce", saved[0])
-        comm._all_gather = count("all_gather", saved[1])
-        try:
-            driver.solve(mdp, opts, mesh=mesh, layout=layout, device=device)
-        finally:
-            dist.all_reduce, comm._all_gather = saved
-        out[f"calls_{layout}"] = dict(calls)
+        _, out[f"calls_{layout}"] = count_collectives(lambda: driver.solve(
+            mdp, opts, mesh=mesh, layout=layout, device=device))
     axes = partition.mesh_axes(meshes["1d"], "1d")
     scalar = torch.ones((), dtype=torch.float64, device=device)
     vec = torch.ones(mdp.n_global, dtype=torch.float64, device=device)
@@ -1705,6 +1715,8 @@ def fleet_paths(mdp) -> dict:
     assert seeds.batch == FLEET_B and not seeds.shared_topology
     rs, prof = device_profile(lambda: driver.solve_many(seeds, opts,
                                                         device="cuda"))
+    # phase 3p holds its fleet layouts to this fleet's bits and launches
+    out["_seeds"], out["_results"] = seeds, rs
     for b, (r, s) in enumerate(zip(rs, singles)):
         if (r.outer_iterations, r.inner_iterations) != \
                 (s.outer_iterations, s.inner_iterations):
@@ -1896,6 +1908,7 @@ def dense_fleet(gen) -> dict:
     log(f"[phase3h] (c) dense fleet B={DENSE_FLEET_B} n={DFN} ipi_gmres f64: "
         f"wall {wall:.2f}s; lanes {json.dumps(lanes)}; launches {launches} "
         f"against {single_launches} for the unbatched solves")
+    layout_launches = dense_fleet_layout(fleet, opts, rs, launches)
 
     p, cost = fleet.p, fleet.cost
     b_, n, m, n_cols = p.shape
@@ -1927,8 +1940,334 @@ def dense_fleet(gen) -> dict:
             f"bitwise equal")
     del dense, fleet
     torch.cuda.empty_cache()
-    return dict(launches={"driver_fleet_ipi_gmres": launches}, wall_s=wall,
-                lanes=lanes, kernel=rows)
+    return dict(launches={"driver_fleet_ipi_gmres": launches,
+                          "fleet_layout_dense": layout_launches},
+                wall_s=wall, lanes=lanes, kernel=rows)
+
+
+def dense_fleet_layout(fleet, opts, base: list, base_launches: dict,
+                       device: str = "cuda") -> dict:
+    """Phase 3p (dense): the dense fleet of 3h (c) under the ``fleet``
+    layout on a world of one rank (a group of its own in this process):
+    bit for bit the mesh-less fleet, with its ``dense_backup`` launches."""
+    import torch.distributed as dist
+    from repro_torch.core import driver
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lm
+
+    lm.init_distributed(device, store=dist.HashStore(), rank=0,
+                        world_size=1)
+    try:
+        mesh = lm.make_fleet_mesh(1, layout="fleet", device=device)
+        ops.reset_launch_counts()
+        rs, wall = timed_solve(lambda: driver.solve_many(
+            fleet, opts, mesh=mesh, layout="fleet", device=device))
+        launches = ops.launch_counts()
+    finally:
+        lm.shutdown()
+    if device == "cuda":
+        require_launched("3p dense fleet layout", launches,
+                         ("dense_backup",))
+    bad = [b for b, (r, w) in enumerate(zip(rs, base)) if not same_bits(r, w)]
+    if bad or launches["dense_backup"] != base_launches["dense_backup"]:
+        raise AssertionError(f"3p dense: lanes {bad} not bit for bit the "
+                             f"mesh-less fleet, or launches {launches} "
+                             f"against {base_launches}")
+    log(f"[phase3p] dense fleet B={len(rs)} under layout fleet (world 1): "
+        f"wall {wall:.2f}s, bit for bit the mesh-less fleet, launches "
+        f"{launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 3p: the fleet layouts                                                  #
+# --------------------------------------------------------------------------- #
+
+SERVE_FLEET_NS = (100_000, 200_000) * 5   # 3p (c): ten garnets
+ELASTIC_N = 100_000                       # 3p (d): launch/elastic.py's n
+
+
+def count_collectives(fn) -> tuple:
+    """``fn()`` with torch.distributed's collective calls counted by kind
+    and by the axis they serve: the :class:`repro_torch.core.comm.Axes`
+    method that issued them (``state`` / ``action`` / ``fleet``; on a
+    world of one the groups of a mesh's dims may be one group, so the
+    group alone cannot tell them apart), or ``other`` (the driver's and
+    the session's own calls)."""
+    import collections
+    import torch.distributed as dist
+    from repro_torch.core import comm
+
+    calls = collections.Counter()
+    axis: list = []
+    tags = {"state": ("allgather_state", "gather_start", "psum_state",
+                      "pmax_state", "psum_ordered"),
+            "action": ("pmin_action", "pmax_action", "psum_action"),
+            "fleet": ("any_fleet", "pmax_fleet", "allgather_fleet")}
+    saved_methods = {m: getattr(comm.Axes, m)
+                     for ms in tags.values() for m in ms}
+
+    def tagged(f, name):
+        def wrapped(self, *a, **k):
+            axis.append(name)
+            try:
+                return f(self, *a, **k)
+            finally:
+                axis.pop()
+        return wrapped
+
+    def count(kind, f):
+        def wrapped(*a, **k):
+            calls[f"{kind}/{axis[0] if axis else 'other'}"] += 1
+            return f(*a, **k)
+        return wrapped
+
+    saved = dist.all_reduce, comm._all_gather, dist.barrier
+    for name, ms in tags.items():
+        for m in ms:
+            setattr(comm.Axes, m, tagged(saved_methods[m], name))
+    dist.all_reduce = count("all_reduce", saved[0])
+    comm._all_gather = count("all_gather", saved[1])
+    dist.barrier = count("barrier", saved[2])
+    try:
+        result = fn()
+    finally:
+        dist.all_reduce, comm._all_gather, dist.barrier = saved
+        for m, f in saved_methods.items():
+            setattr(comm.Axes, m, f)
+    return result, dict(sorted(calls.items()))
+
+
+def fleet_layout_paths(fleet: dict, device: str = "cuda") -> dict:
+    """Phase 3p (a)-(c) on phase 3m's world-1 process group: the fleet
+    layouts' solve of 3h's B = 4 ensemble, ``place_function_fleet``, and
+    ``Session.solve_fleet`` and a ``Server`` over the fleet mesh."""
+    from repro_torch.api import MDP, Session
+    from repro_torch.core import driver, generators, partition
+    from repro_torch.core.ipi import IPIOptions
+    from repro_torch.core.mdp import stack_mdps
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lm
+    from repro_torch.serve import Server
+
+    out, launches = {}, {}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    fmeshes = {lay: lm.make_fleet_mesh(1, layout=lay, device=device)
+               for lay in partition.FLEET_LAYOUTS}
+    # (a) 3h's ensemble, f64 ipi_gmres, under fleet and fleet2d: bit for
+    # bit 3h's mesh-less fleet with its launches; wall, idle, collectives
+    seeds, base = fleet["_seeds"], fleet["_results"]
+    base_launches = fleet["launches"]["cli_fleet_ipi_gmres"]
+    opts = IPIOptions(method="ipi_gmres", dtype="float64", atol=1e-8,
+                      max_outer=2000)
+    for lay, mesh in fmeshes.items():
+        solve = (lambda mesh=mesh, lay=lay: driver.solve_many(
+            seeds, opts, mesh=mesh, layout=lay, device=device))
+        ops.reset_launch_counts()
+        rs, wall = timed_solve(solve)
+        c = launches[f"fleet_layout_{lay}"] = ops.launch_counts()
+        if device == "cuda":
+            require_launched(f"3p (a) {lay}", c, ELL_KERNELS)
+        bad = [b for b, (r, w) in enumerate(zip(rs, base))
+               if not same_bits(r, w)]
+        if bad or any(c[k] != base_launches[k] for k in ELL_KERNELS):
+            raise AssertionError(f"3p (a) {lay}: lanes {bad} not bit for bit "
+                                 f"3h's mesh-less fleet, or launches {c} "
+                                 f"against {base_launches}")
+        _, calls = count_collectives(solve)
+        _, prof = device_profile(solve)
+        out[lay] = dict(wall_s=wall, collectives=calls, profile=prof)
+        log(f"[phase3p] (a) B={len(rs)} ipi_gmres f64 under {lay} (world "
+            f"1): bit for bit 3h's mesh-less fleet, launches {c}; wall "
+            f"{wall:.3f}s; collectives {json.dumps(calls)}; profile "
+            f"{json.dumps(prof)}")
+    axes = partition.mesh_axes(fmeshes["fleet"], "fleet")
+    flags = torch.ones((FLEET_B, 5), dtype=torch.float64, device=device)
+    for _ in range(10):
+        axes.allgather_fleet(flags)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        axes.allgather_fleet(flags)
+    sync()
+    out["fleet_gather_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    out["mesh_less_profile"] = fleet["profile"]
+    log(f"[phase3p] (a) one fleet gather of the step's flags "
+        f"({FLEET_B} x 5 float64): {out['fleet_gather_us']:.1f} us of host "
+        f"time; 3h (e)'s mesh-less fleet: wall "
+        f"{fleet['profile']['wall_ms']:.1f} ms, idle "
+        f"{fleet['profile']['idle_share']}")
+
+    # (b) place_function_fleet of 4 deferred garnets (3n's family) through
+    # a Session over the fleet mesh, held to the lanes built one by one
+    fns = [MDP.from_generator("garnet", deferred=True, n=N, m=M, k=K,
+                              gamma=GAMMA, seed=s) for s in range(FLEET_B)]
+    mpi = dict(method="mpi", dtype="float32", atol=1e-4)
+    ops.reset_launch_counts()
+    with Session({"-device": device, **{f"-{k}": v for k, v in mpi.items()}},
+                 mesh=fmeshes["fleet"]) as sess:
+        rs, wall = timed_solve(lambda: sess.solve_fleet(fns))
+        c = launches["fleet_fn_session"] = ops.launch_counts()
+        placed = list(sess._fleet_cache.values())[0]
+        layout = sess.stats[-1]["layout"]
+        t0 = time.perf_counter()
+        lanes = [m.build(device, materialize="device") for m in fns]
+        sync()
+        t_lanes = time.perf_counter() - t0
+        for b, lane in enumerate(lanes):
+            for f in ("idx", "val", "cost"):
+                if not bits_equal(getattr(placed.block, f)[b],
+                                  getattr(lane, f)):
+                    raise AssertionError(f"3p (b) lane {b}: the placed {f} "
+                                         f"is not the device build's")
+        del placed
+        base_b = driver.solve_many(stack_mdps(lanes), IPIOptions(**mpi),
+                                   device=device)
+    if device == "cuda":
+        require_launched("3p (b) place_function_fleet", c, ELL_KERNELS)
+    bad = [b for b, (r, w) in enumerate(zip(rs, base_b))
+           if not same_bits(r, w)]
+    if bad or layout != "fleet":
+        raise AssertionError(f"3p (b): layout {layout}, lanes {bad} not bit "
+                             f"for bit the stacked device-built lanes")
+    for m in fns:
+        m.evict()
+    del lanes, base_b
+    torch.cuda.empty_cache()
+    out["function_fleet"] = dict(wall_s=wall, build_lanes_s=t_lanes,
+                                 outer=[r.outer_iterations for r in rs])
+    log(f"[phase3p] (b) place_function_fleet of {FLEET_B} deferred garnets "
+        f"n={N} + mpi f32 through a Session over the fleet mesh: "
+        f"{wall:.2f}s; tables bit for bit the lanes built one by one "
+        f"({t_lanes:.2f}s), results bit for bit their mesh-less fleet; "
+        f"launches {c}")
+
+    # (c) Session.solve_fleet and a Server over the fleet mesh, held to
+    # solo solves
+    t0 = time.perf_counter()
+    cores = [generators.garnet(n=n, m=M, k=K, gamma=GAMMA, seed=100 + i)
+             for i, n in enumerate(SERVE_FLEET_NS)]
+    log(f"[phase3p] (c) {len(cores)} garnets of {sorted(set(SERVE_FLEET_NS))}"
+        f" states on the host in {time.perf_counter() - t0:.1f}s")
+    solos = [driver.solve(core, opts, device=device) for core in cores]
+
+    def held(what, rs):
+        for i, (r, w) in enumerate(zip(rs, solos)):
+            dv = float(np.abs(r.v - w.v).max())
+            if not (r.converged and np.array_equal(r.policy, w.policy)
+                    and (r.outer_iterations, r.inner_iterations)
+                    == (w.outer_iterations, w.inner_iterations)
+                    and dv <= 1e-10 * float(np.abs(w.v).max())):
+                raise AssertionError(f"3p (c) {what} request {i}: "
+                                     f"{r.summary()} against its solo "
+                                     f"{w.summary()}, dv {dv}")
+
+    serve_opts = {"-device": device, "-method": "ipi_gmres",
+                  "-dtype": "float64", "-atol": 1e-8,
+                  "-serve_batch_window": 0.05, "-serve_max_batch": 4}
+    with Session(serve_opts, mesh=fmeshes["fleet"]) as sess:
+        ops.reset_launch_counts()
+        rs, wall_s = timed_solve(lambda: sess.solve_fleet(
+            [MDP(core) for core in cores]))
+        c_s = launches["fleet_session_mesh"] = ops.launch_counts()
+        held("Session.solve_fleet", rs)
+        buckets = sess.stats[-1]["fleet"]["buckets"]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with Server(session=sess) as srv:
+            reqs = [srv.submit(MDP(core)) for core in cores]
+            served = [r.result(timeout=600) for r in reqs]
+            st, log_d = srv.stats(), srv.dispatch_log()
+        wall_v = time.perf_counter() - t0
+        c_v = launches["fleet_serve_mesh"] = ops.launch_counts()
+        held("Server", served)
+    if device == "cuda":
+        require_launched("3p (c) Session", c_s, ELL_KERNELS)
+        require_launched("3p (c) Server", c_v, ELL_KERNELS)
+    out["serve"] = dict(session_wall_s=wall_s, buckets=buckets,
+                        server_wall_s=wall_v, dispatches=st["dispatches"],
+                        completed=st["completed"],
+                        dispatch_log=[dict(n_pad=d["n_pad"], slot=d["slot"],
+                                           seconds=d["seconds"])
+                                      for d in log_d])
+    log(f"[phase3p] (c) Session.solve_fleet over the fleet mesh: {wall_s:.2f}s"
+        f", buckets {buckets}, launches {c_s}; Server: {len(served)} "
+        f"requests in {st['dispatches']} dispatches, {wall_v:.2f}s, launches "
+        f"{c_v}; every request held to its solo solve")
+    del cores
+    return dict(launches=launches, **out)
+
+
+def fleet_layout_cli(fleet: dict, device: str = "cuda") -> dict:
+    """Phase 3p (d): ``torchrun --nproc-per-node <cards>`` of the solve CLI
+    on 3h's ensemble (``--batch 4 --layout fleet --fleet <cards>``): exit
+    0, each rank on its own card, every lane held to 3h's mesh-less fleet
+    (bit for bit on one card); then ``launch/elastic.py --device cuda
+    --batch 4``: a fleet-layout checkpoint resumed (on one card: with no
+    mesh), ``|dv| < 1e-9``."""
+    n_dev = torch.cuda.device_count() if device == "cuda" else 2
+    v_path, pi_path = OUT / "fleet_torchrun_v.npz", OUT / "fleet_torchrun_pi.npz"
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(n_dev), "-m", "repro_torch.launch.solve",
+            "--", "--instance", "garnet", "--n", str(N), "--m", str(M),
+            "--k", str(K), "--gamma", str(GAMMA), "--batch", str(FLEET_B),
+            "--layout", "fleet", "--fleet", str(n_dev), "--method",
+            "ipi_gmres", "--dtype", "float64", "--atol", "1e-8", "--device",
+            device, "--option", f"file_cost={v_path}",
+            "--option", f"file_policy={pi_path}"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    log("\n".join(ln for ln in proc.stdout.splitlines()
+                   if ln.startswith("[solve]")))
+    if proc.returncode != 0:
+        raise AssertionError(f"3p (d) torchrun CLI --layout fleet exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    ranks = re.findall(r"\[solve\] rank (\d+) of (\d+) on (\S+)",
+                       proc.stdout)
+    if len(ranks) != n_dev or (device == "cuda" and
+                               len({d for _, _, d in ranks}) != n_dev):
+        raise AssertionError(f"3p (d): ranks {ranks}: want {n_dev} ranks "
+                             f"each on its own device")
+    counts = re.findall(r"\[solve\] kernel launches: (.*)", proc.stdout)
+    launches = {k: int(v) for k, v in (kv.split("=") for kv in
+                                       counts[-1].split())} if counts else {}
+    if device == "cuda":
+        require_launched("3p (d) CLI --layout fleet", launches, ELL_KERNELS)
+    with np.load(v_path) as zv, np.load(pi_path) as zp:
+        for b, w in enumerate(fleet["_results"]):
+            v, pi = zv[f"instance_{b}"], zp[f"instance_{b}"]
+            dv = float(np.abs(v - w.v).max())
+            exact = n_dev == 1 and np.array_equal(v.view(np.uint64),
+                                                  w.v.view(np.uint64))
+            if not (np.array_equal(pi, w.policy) and (exact or (
+                    n_dev > 1 and dv <= 1e-10 * float(np.abs(w.v).max())))):
+                raise AssertionError(f"3p (d) lane {b}: max |dv| {dv} "
+                                     f"against 3h's fleet")
+    log(f"[phase3p] (d) torchrun --nproc-per-node {n_dev} --batch {FLEET_B} "
+        f"--layout fleet --fleet {n_dev}: exit 0 in {wall:.1f}s, lanes held "
+        f"to 3h's fleet{' bit for bit' if n_dev == 1 else ''}; launches "
+        f"{launches}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.elastic",
+                           "--device", device, "--batch", str(FLEET_B),
+                           "--n", str(ELASTIC_N), "--timeout", "400"],
+                          env=env,
+                          capture_output=True, text=True, timeout=900)
+    e_wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("[elastic]")]
+    log("\n".join(lines))
+    dv = re.findall(r"\|v - v_ref\|_inf = (\S+)", proc.stdout)
+    if proc.returncode != 0 or not dv or not float(dv[0]) < 1e-9:
+        raise AssertionError(f"3p (d) elastic exited {proc.returncode}: "
+                             f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    log(f"[phase3p] (d) launch/elastic.py --device {device} --batch "
+        f"{FLEET_B}: exit 0 in {e_wall:.1f}s, |dv| {dv[0]}")
+    return dict(launches={"fleet_layout_cli": launches}, cli_wall_s=wall,
+                world=n_dev, elastic_wall_s=e_wall, elastic_dv=float(dv[0]))
 
 
 def qvalues_checks(mdp, gen: np.random.Generator) -> dict:
@@ -2623,9 +2962,22 @@ def main() -> int:
     fleet = fleet_paths(mdp)
     path["launches"].update(fleet["launches"])
     stamp("3m/3n")
-    sharded = sharded_paths(mdp, path, then=matrix_free_paths)
+
+    def after_3m(meshes):
+        mf = matrix_free_paths(meshes)
+        stamp("3p (a)-(c)")
+        fl = fleet_layout_paths(fleet)
+        return dict(launches={**mf["launches"], **fl["launches"]}, mf=mf,
+                    fleet_layouts=fl)
+
+    sharded = sharded_paths(mdp, path, then=after_3m)
     path["launches"].update(sharded["launches"])
     path["launches"].update(sharded["then"]["launches"])
+    stamp("3p (d)")
+    fleet_cli = fleet_layout_cli(fleet)
+    path["launches"].update(fleet_cli["launches"])
+    del fleet["_seeds"], fleet["_results"]
+    torch.cuda.empty_cache()
     stamp("3s")
     serve = serve_paths(mdp, path)
     path["launches"].update(serve["launches"])

@@ -26,7 +26,7 @@ default session.
 
 from __future__ import annotations
 
-from repro_torch.api.mdp import MDP
+from repro_torch.api.mdp import MDP, place_function_fleet
 from repro_torch.api.methods import (StopMetrics, ksp_names, ksp_table,
                                      method_names, method_table,
                                      register_ksp, register_method,
@@ -41,7 +41,8 @@ from repro_torch.api.session import Session, madupite_session
 __all__ = ["MDP", "Options", "OptionTypeError", "OPTION_SPECS", "Session",
            "StopMetrics", "UnknownOptionError", "ksp_names", "ksp_table",
            "madupite_session", "method_names", "method_table",
-           "option_table", "register_ksp", "register_method",
+           "option_table", "place_function_fleet", "register_ksp",
+           "register_method",
            "register_stop_criterion", "solve", "stop_names", "stop_table",
            "unregister_ksp", "unregister_method",
            "unregister_stop_criterion"]

@@ -38,14 +38,14 @@ never selects matrix-free.  Nothing falls back: a constructor that fails
 on the device raises.
 
 Under a mesh (:meth:`MDP.place`) each rank builds only its own block of a
-function-backed MDP, on its own device.  The fleet-sharded layouts
-(``place_function_fleet``) are not ported yet (ROADMAP queue 1 item 10).
+function-backed MDP, on its own device; under the fleet layouts
+(:func:`place_function_fleet`) only its own instances' blocks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -60,7 +60,7 @@ from repro_torch.core.mdp import MDP as CoreMDP, DenseMDP, EllMDP, \
 from repro_torch.device import resolve_device
 from repro_torch.kernels import matrix_free, ref
 
-__all__ = ["MDP", "MATERIALIZE_MODES"]
+__all__ = ["MDP", "MATERIALIZE_MODES", "place_function_fleet"]
 
 _BIG = 1e30
 
@@ -89,14 +89,16 @@ class _FunctionSpec:
 
 
 def _device_block(spec: _FunctionSpec, row0: int, n_rows: int, acts: tuple,
-                  mode: str, device: torch.device, axes=None) -> tuple:
+                  mode: str, device: torch.device, axes=None,
+                  counters: list | None = None) -> tuple:
     """The device pipeline: the ELL block of global rows ``[row0, row0 +
     n_rows)`` x ``acts``, built on ``device`` over row chunks of
     :func:`~repro_torch.kernels.matrix_free.chunk_rows` into preallocated
     tables.  The chunks' validation counters stay on the device and are
     read once (reduced over ``axes``' ranks first, so every rank of a
     sharded build raises together); they raise the host pipeline's
-    errors."""
+    errors.  With ``counters`` the block's counters are appended there
+    instead, for the caller to check (:func:`_check_counters`)."""
     bad = torch.zeros((2,), dtype=torch.int64, device=device)
 
     def body(lo, hi):
@@ -109,16 +111,26 @@ def _device_block(spec: _FunctionSpec, row0: int, n_rows: int, acts: tuple,
     out = ref._blocked_rows(body, n_rows,
                             matrix_free.chunk_rows(spec, len(acts)),
                             (0, 0, 0))
+    if counters is not None:
+        counters.append(bad)
+    else:
+        _check_counters(bad, spec.n, axes)
+    return out
+
+
+def _check_counters(bad: torch.Tensor, n: int, axes=None) -> None:
+    """Raise the host pipeline's errors for the validation counters
+    ``bad`` (``(2,)``: ids out of range, rows not summing to 1), reduced
+    over ``axes``' ranks first so every rank raises together."""
     if axes is not None:
-        bad = axes.pmax_action(axes.pmax_state(bad))
+        bad = axes.pmax_fleet(axes.pmax_action(axes.pmax_state(bad)))
     n_ids, n_sum = bad.tolist()
     if n_ids:
         raise ValueError(f"P_fn produced successor ids outside "
-                         f"[0, {spec.n}) ({n_ids} offending entries)")
+                         f"[0, {n}) ({n_ids} offending entries)")
     if n_sum:
         raise ValueError(f"P_fn probability rows do not sum to ~1 "
                          f"({n_sum} offending (s, a) rows)")
-    return out
 
 
 class MDP:
@@ -560,6 +572,94 @@ class MDP:
             raise ValueError("P_fn produced successor ids outside "
                              f"[0, {s.n})")
         return idx, val, cost
+
+
+# --------------------------------------------------------------------------- #
+# Fleet-sharded materialization of function-backed fleets                      #
+# --------------------------------------------------------------------------- #
+
+def place_function_fleet(mdps: Sequence[MDP], mesh, layout: str,
+                         mode: str = "mincost", *, pad_fleet: bool = True,
+                         device: str | torch.device = "cuda") \
+        -> partition.FleetBlock:
+    """Build a fleet of function-backed MDPs straight into a fleet layout
+    (``layout="fleet"`` / ``"fleet2d"``).
+
+    Each rank owns ``(B_local, n_local, m_local)`` — a slice of
+    *instances* on top of its state/action slice — and builds exactly that
+    block from its own instances' torch constructors on ``device``
+    (the device pipeline, one block a lane).  Neither the instance dim
+    nor the state dim is ever built whole on one rank.
+
+    Instances must share the action count and ``nnz``; heterogeneous
+    state counts pad to the fleet maximum (absorbing zero-cost states, as
+    :func:`repro_torch.core.mdp.stack_mdps` pads them).  ``B`` pads to the
+    fleet-axis multiple with zero-cost dummy instances (``pad_fleet=False``
+    raises instead).  The result is the rank's
+    :class:`~repro_torch.core.partition.FleetBlock`, which
+    :func:`repro_torch.core.driver.solve_many` takes as it is."""
+    axes = partition.mesh_axes(mesh, layout)
+    if axes.fleet is None:
+        raise ValueError(f"place_function_fleet serves the fleet layouts, "
+                         f"got {layout!r}; a single function-backed MDP "
+                         f"places via MDP.place")
+    mdps = list(mdps)
+    specs = []
+    for i, m_ in enumerate(mdps):
+        if not isinstance(m_, MDP) or not m_.deferred:
+            raise ValueError(f"place_function_fleet wants function-backed "
+                             f"MDPs; instance {i} is "
+                             f"{type(m_).__name__}")
+        if m_.materialization("device") != "device":   # raises with reason
+            raise ValueError(f"instance {i} cannot materialize on device")
+        specs.append(m_._spec)
+    K, m_acts = specs[0].nnz, specs[0].m
+    if any(sp.nnz != K or sp.m != m_acts for sp in specs):
+        raise ValueError(
+            f"fleet instances must share the action count and nnz, got "
+            f"m={sorted({sp.m for sp in specs})} "
+            f"nnz={sorted({sp.nnz for sp in specs})}")
+    dev = resolve_device(device)
+    n_to, m_to = partition.padded_extents(mesh, layout,
+                                          max(sp.n for sp in specs), m_acts)
+    b = len(mdps)
+    b_to = partition.fleet_padded_batch(b, axes.fleet_size(), pad_fleet)
+    b_loc = b_to // axes.fleet_size()
+    lo = axes.fleet_index() * b_loc
+    n_loc, m_loc = n_to // axes.state_size(), m_to // axes.action_size()
+    r0, a0 = axes.state_index() * n_loc, axes.action_index() * m_loc
+    acts = tuple(range(a0, a0 + m_loc))
+    counters: list = []
+    per = []
+    for bi in range(lo, lo + b_loc):
+        if bi < b:
+            per.append(_device_block(specs[bi], r0, n_loc, acts, mode, dev,
+                                     counters=counters))
+        else:
+            # a zero-cost dummy instance (fleet padding): absorbing
+            # self-loops, optimal value identically 0, done at k=0
+            idx = torch.zeros((n_loc, m_loc, K), dtype=torch.int32,
+                              device=dev)
+            idx[..., 0] = torch.arange(r0, r0 + n_loc, dtype=torch.int32,
+                                       device=dev)[:, None]
+            val = torch.zeros((n_loc, m_loc, K), dtype=torch.float32,
+                              device=dev)
+            val[..., 0] = 1.0
+            per.append((idx, val, torch.zeros((n_loc, m_loc),
+                                              dtype=torch.float32,
+                                              device=dev)))
+    bad = torch.stack(counters).sum(0) if counters \
+        else torch.zeros((2,), dtype=torch.int64, device=dev)
+    _check_counters(bad, max(sp.n for sp in specs), axes)
+    idx, val, cost = (torch.stack(t) for t in zip(*per))
+    gammas = tuple(sp.gamma for sp in specs)
+    gammas = gammas + (gammas[-1],) * (b_to - b)
+    local = gammas[lo:lo + b_loc]
+    block = EllMDP(idx=idx, val=val, cost=cost,
+                   gamma=gammas[0] if len(set(gammas)) == 1 else local,
+                   n_global=n_to, m_global=m_to)
+    return partition.FleetBlock(block=block, batch=b_to, lane0=lo,
+                                gammas=gammas, layout=layout)
 
 
 def _host(x) -> np.ndarray:

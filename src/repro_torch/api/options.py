@@ -14,12 +14,12 @@ Ported keys: the solver keys of ``IPIOptions`` (``-method``, ``-mode``,
 ``-divtol``, ``-dtype``, ``-halo``, ``-gather_dtype``, ``-comm_overlap``,
 ``-async_sweeps``), the adaptive layer's ``-probe_iters`` and
 ``-adapt_on_stagnation``, the solve loop's ``-chunk``, ``-checkpoint_dir``
-and ``-verbose``, the placement's ``-layout`` (``auto|single|1d|2d``; the
-fleet layouts raise) and ``-fleet_bucketing``, function-backed MDPs'
-``-mdp_materialize``, the solve server's ``-serve_*`` keys, the outputs
-``-file_stats`` / ``-file_stats_format`` / ``-file_policy`` /
-``-file_cost``, and the port's own ``-device``.  The reference's fleet-mesh keys ``-fleet`` /
-``-pad_fleet`` raise, naming the ROADMAP item that ports them.
+and ``-verbose``, the placement's ``-layout``
+(``auto|single|1d|2d|fleet|fleet2d``), ``-fleet``, ``-pad_fleet`` and
+``-fleet_bucketing``, function-backed MDPs' ``-mdp_materialize``, the
+solve server's ``-serve_*`` keys, the outputs ``-file_stats`` /
+``-file_stats_format`` / ``-file_policy`` / ``-file_cost``, and the
+port's own ``-device``.
 :func:`option_table` renders the registry as the README's table.
 """
 
@@ -43,19 +43,7 @@ ENV_VAR = "MADUPITE_OPTIONS"
 # precedence levels (higher wins); `set()` without a source is "user"
 _SOURCES = {"default": 0, "env": 1, "cli": 2, "user": 3}
 
-# the reference's keys this package does not take yet, and the ROADMAP
-# queue 1 item that ports each
-NOT_PORTED_OPTIONS = {"-fleet": 10, "-pad_fleet": 10}
-
 _LAYOUT_CHOICES = ("auto", "single", "1d", "2d", "fleet", "fleet2d")
-
-
-def _ported_layout(v) -> str | None:
-    if v in ("fleet", "fleet2d"):
-        return (f"layout {v!r} shards the fleet (instance) dim, which is "
-                f"not yet ported to repro_torch (ROADMAP queue 1 item 10: "
-                f"the fleet layouts); use auto, single, 1d or 2d")
-    return None
 
 
 def _gather_dtype(v) -> str | None:
@@ -283,10 +271,14 @@ _SPECS = [
                "device the solve runs on; cuda raises when no GPU is "
                "visible (nothing falls back to the CPU)", choices=DEVICES),
     OptionSpec("-layout", str, "auto",
-               "mesh layout; 'auto' picks 1d over the torch.distributed "
-               "world when it has more than one rank, 'single' forces "
-               "single-device (the fleet layouts are not yet ported)",
-               choices=_LAYOUT_CHOICES, validate=_ported_layout),
+               "mesh layout; 'auto' picks 1d (a fleet: fleet) over the "
+               "torch.distributed world when it has more than one rank, "
+               "'single' forces single-device",
+               choices=_LAYOUT_CHOICES),
+    OptionSpec("-fleet", int, None,
+               "fleet-axis size for the fleet layouts (default: largest "
+               "world-size divisor <= B)", nullable=True,
+               validate=_positive),
     OptionSpec("-chunk", int, 64,
                "outer iterations per chunk between progress reports",
                validate=_positive),
@@ -294,6 +286,8 @@ _SPECS = [
                "persist solver state between chunks (and resume from it)",
                nullable=True),
     OptionSpec("-verbose", bool, False, "per-chunk progress lines"),
+    OptionSpec("-pad_fleet", bool, True,
+               "pad B up to the fleet-axis size with dummy instances"),
     OptionSpec("-fleet_bucketing", str, "auto",
                "group ragged fleets by state count into pad-efficient "
                "buckets (one batched loop per bucket)",
@@ -378,11 +372,6 @@ def _normalize(key: Any) -> str:
         raise UnknownOptionError(f"option keys are strings like '-atol', "
                                  f"got {key!r}")
     name = key if key.startswith("-") else "-" + key
-    if name in NOT_PORTED_OPTIONS:
-        raise UnknownOptionError(
-            f"option {name!r} is not yet ported to repro_torch (ROADMAP "
-            f"queue 1 item {NOT_PORTED_OPTIONS[name]}: the fleet layouts); "
-            f"this package shards one MDP under -layout 1d|2d")
     if name not in OPTION_SPECS:
         raise UnknownOptionError(
             f"unknown option {key!r}{_methods.suggest(name, OPTION_SPECS)} "

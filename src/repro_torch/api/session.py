@@ -19,9 +19,11 @@ per-solve statistics (:attr:`Session.stats`) and writes the
 
 Under ``torch.distributed`` (``torchrun``, or
 :func:`repro_torch.launch.mesh.init_distributed`) :meth:`Session.placement`
-shards a single solve over the world (``-layout auto|1d|2d``); every rank
-calls ``solve`` with the same MDP and gets the same result, and only rank
-0 writes the outputs.
+shards a single solve over the world (``-layout auto|1d|2d``) and a fleet
+over a fleet layout (``auto`` picks ``fleet`` for ``B > 1``; ``-fleet``
+sizes its fleet axis, ``-pad_fleet`` allows dummy lanes); every rank calls
+``solve`` / ``solve_fleet`` with the same MDPs and gets the same results,
+and only rank 0 writes the outputs.
 
 Function-backed MDPs (:meth:`repro_torch.api.MDP.from_functions`,
 ``from_generator(..., deferred=True)``) are built per solve as
@@ -36,7 +38,6 @@ choice (``_auto_cache``) — and ``-adapt_on_stagnation`` supervises any
 solve with the hot-swap; a fleet resolves ``auto`` once per bucket.
 Solves may come from several threads (the solve server's scheduler and
 its clients): statistics and output files are written under one lock.
-The fleet-sharded layouts are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,9 +54,9 @@ import numpy as np
 import torch.distributed as dist
 
 from repro_torch.api.fleet import bucket_indices
-from repro_torch.api.mdp import MDP
+from repro_torch.api.mdp import MDP, place_function_fleet
 from repro_torch.api.options import Options
-from repro_torch.core import driver
+from repro_torch.core import driver, partition
 from repro_torch.core import methods as _methods
 from repro_torch.core.driver import SolveResult
 from repro_torch.core.mdp import MDP as CoreMDP, DenseMDP, EllMDP, \
@@ -158,39 +159,59 @@ class Session:
             else resolve_device(name)
 
     # ---- placement ---------------------------------------------------------
-    def placement(self, opts: Options | None = None):
+    def placement(self, opts: Options | None = None, *,
+                  fleet_size: int | None = None):
         """``(mesh, layout)`` for a solve: auto-built unless overridden.
 
         Auto policy: no ``torch.distributed`` process group, or a world of
-        one rank -> single-device (no mesh); otherwise the paper-faithful
-        ``1d`` layout over every rank.  ``-layout`` forces a layout:
-        ``single`` no mesh, ``1d`` / ``2d`` a mesh over the world (a world
-        of one included; ``2d`` is ``(world // 2, 2)``, or ``(world, 1)``
-        for an odd world), which needs a process group.  A mesh given to
-        the session is used as it is.
+        one rank -> single-device (no mesh); otherwise a single solve gets
+        the paper-faithful ``1d`` layout over every rank, and a fleet of
+        ``fleet_size`` > 1 the ``fleet`` layout, its instance dim over a
+        leading fleet axis whose size is the largest divisor of the world
+        <= B.  ``-layout`` forces a layout: ``single`` no mesh, the others
+        a mesh over the world (a world of one included; ``2d`` is ``(world
+        // 2, 2)``, or ``(world, 1)`` for an odd world), which needs a
+        process group; ``-fleet`` sets the fleet-axis size.  A mesh given
+        to the session is used as it is (``auto``: ``fleet`` / ``fleet2d``
+        when it has a ``fleet`` axis, else ``1d``).
         """
         opts = opts or self.options
         layout = opts.get("-layout")
         if layout == "single":
             return None, "1d"
         if self._mesh_override is not None:
-            return self._mesh_override, "1d" if layout == "auto" else layout
+            mesh = self._mesh_override
+            if layout == "auto":
+                names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+                layout = "1d" if "fleet" not in names else \
+                    "fleet2d" if len(names) > 2 else "fleet"
+            return mesh, layout
         up = dist.is_available() and dist.is_initialized()
         world = dist.get_world_size() if up else 1
         if layout == "auto":
             if world == 1:
                 return None, "1d"
-            layout = "1d"
+            layout = "fleet" if (fleet_size or 0) > 1 else "1d"
         if not up:
             raise ValueError(
                 f"-layout {layout} shards over the ranks of a "
                 f"torch.distributed process group, and none is up: launch "
                 f"under torchrun, or call repro_torch.launch.mesh."
                 f"init_distributed() first (or use -layout single)")
+        device = opts.get("-device")
+        if layout in partition.FLEET_LAYOUTS:
+            f = opts.get("-fleet")
+            if f is None:
+                f = _largest_divisor(world, at_most=max(fleet_size or 1, 1))
+            key = (layout, f, device)
+            if key not in self._mesh_cache:
+                from repro_torch.launch.mesh import make_fleet_mesh
+                self._mesh_cache[key] = make_fleet_mesh(f, layout=layout,
+                                                        device=device)
+            return self._mesh_cache[key], layout
         shape = (world // 2, 2) if layout == "2d" and world % 2 == 0 \
             else (world, 1)
-        device = opts.get("-device")
-        key = (shape, device)
+        key = (layout, shape, device)
         if key not in self._mesh_cache:
             from repro_torch.launch.mesh import make_host_mesh
             self._mesh_cache[key] = make_host_mesh(shape, device=device)
@@ -297,12 +318,6 @@ class Session:
             raise ValueError(f"solve_fleet needs one shared mode, got "
                              f"{sorted(modes)}; solve mixed-mode instances "
                              f"separately")
-        if self.placement(opts)[0] is not None:
-            raise NotImplementedError(
-                "solve_fleet over a mesh (the fleet layouts, and fleets "
-                "replicated over 1d/2d shards) is not yet ported to "
-                "repro_torch (ROADMAP queue 1 item 10); use -layout single "
-                "or solve each instance with Session.solve")
         ipi = opts.to_ipi()
         mode = modes.pop()
         if not opts.is_set("-mode") and ipi.mode != mode:
@@ -317,6 +332,7 @@ class Session:
         auto_choices: list[dict] | None = [] if spec.virtual else None
         t0 = time.time()
         for j, bucket in enumerate(buckets):
+            mesh, layout = self.placement(opts, fleet_size=len(bucket))
             bucket_ckpt = ckpt if ckpt is None or len(buckets) == 1 \
                 else os.path.join(ckpt, f"bucket{j}")
             # tag records by bucket so interleaved per-bucket streams stay
@@ -331,23 +347,27 @@ class Session:
                     bucket=j, method=choice.method, pc_type=choice.pc_type,
                     stop_criterion=choice.stop_criterion,
                     reason=choice.reason))
-            cores = self._fleet_cores(bmdps, ipi.mode, device, mat)
+            cores = self._fleet_cores(bmdps, ipi.mode, device, opts, mesh,
+                                      layout)
             origin = None if isinstance(cores, list) else \
-                (len(bmdps), bmdps[0].n)
+                (len(bmdps), max(m.n for m in bmdps))
             rs = driver.solve_many(
                 cores, bucket_ipi, origin=origin,
                 checkpoint_dir=bucket_ckpt, chunk=opts.get("-chunk"),
                 verbose=opts.get("-verbose"), monitor=bucket_cb,
-                device=device)
+                device=device, mesh=mesh, layout=layout,
+                pad_fleet=opts.get("-pad_fleet"))
             for i, r in zip(bucket, rs):
-                results[i] = r
+                results[i] = _trim(r, wrapped[i].n)
         wall = time.time() - t0
         fleet_info = dict(size=len(wrapped),
                           buckets=[sorted(b) for b in buckets])
         if auto_choices is not None:
             fleet_info["auto"] = auto_choices
+        mesh, layout = self.placement(opts, fleet_size=len(wrapped))
         self._record(results, wrapped, ipi, opts, wall,
-                     fleet=fleet_info, monitor=mon_records)
+                     fleet=fleet_info, monitor=mon_records, mesh=mesh,
+                     layout=layout)
         self._write_outputs(results, opts)
         return results  # type: ignore[return-value]
 
@@ -384,37 +404,60 @@ class Session:
 
         return opts, mon_cb, records
 
-    def _fleet_cores(self, bmdps: list[MDP], mode: str, device, mat: str):
+    def _fleet_cores(self, bmdps: list[MDP], mode: str, device,
+                     opts: Options, mesh=None, layout: str = "1d"):
         """What one bucket hands :func:`repro_torch.core.driver.solve_many`.
 
-        A bucket of function-backed MDPs of one shape (``n``, ``m``,
-        ``nnz``) built on the device is one stacked device container,
-        kept in the session's fleet LRU under its builders' identities, so
-        solving the same builders again skips the build and the stack.
-        Otherwise the per-instance cores as built — array-backed tables
-        where they are (stacked and placed once by the driver), matrix-free
-        operators sharing one row spec — which need no cache entry."""
+        A bucket of function-backed MDPs built on the device is one device
+        container kept in the session's fleet LRU under its placement and
+        its builders' identities, so solving the same builders again skips
+        the build: under a fleet layout this rank's
+        :class:`~repro_torch.core.partition.FleetBlock`
+        (:func:`~repro_torch.api.mdp.place_function_fleet`, keyed by
+        ``(mesh, layout, mode, pad_fleet, instances)`` as the reference
+        keys it), on one device the stacked fleet (one shape only).  Under
+        a mesh every rank takes a hit only when all do, so no rank skips
+        the build's collectives.  Otherwise the per-instance cores as built
+        — array-backed tables where they are (the driver stacks and places
+        them), matrix-free operators sharing one row spec."""
+        mat = opts.get("-mdp_materialize")
         for m in bmdps:
             if m.deferred:
                 self._solved.add(m)
-        if not (len(bmdps) > 1 and all(m.deferred for m in bmdps)
-                and len({(m.n, m._spec.m, m._spec.nnz) for m in bmdps}) == 1
-                and all(m.materialization(mat) == "device" for m in bmdps)):
+        on_device = all(m.deferred for m in bmdps) \
+            and len({(m._spec.m, m._spec.nnz) for m in bmdps}) == 1 \
+            and all(m.materialization(mat) == "device" for m in bmdps)
+        fleet = mesh is not None and layout in partition.FLEET_LAYOUTS
+        if fleet and on_device:
+            pad = opts.get("-pad_fleet")
+            key = (mesh, layout, mode, pad)
+        elif mesh is None and on_device and len(bmdps) > 1 \
+                and len({m.n for m in bmdps}) == 1:
+            key = (device, mode, mat)
+        else:
             return [m.build(device, materialize=mat) if m.deferred
                     else m.core for m in bmdps]
         # weakly keyed on the builders: an entry whose fleet the caller
         # dropped can never be asked for again, so purge it
         for k in self._fleet_cache.keys():
-            if not all(r() is not None for r in k[3]):
+            if not all(r() is not None for r in k[-1]):
                 self._fleet_cache.pop(k)
-        key = (device, mode, mat, tuple(weakref.ref(m) for m in bmdps))
+        key = key + (tuple(weakref.ref(m) for m in bmdps),)
         batched = self._fleet_cache.get(key)
+        if mesh is not None:
+            from repro_torch.launch.mesh import all_ranks
+            if not all_ranks(batched is not None):
+                batched = None
         if batched is None:
-            batched = stack_mdps([m.build(device, materialize=mat)
-                                  for m in bmdps])
-            for m in bmdps:
-                # the stacked copy is the one kept
-                m._device_cache.pop(("built", "device", device), None)
+            if fleet:
+                batched = place_function_fleet(bmdps, mesh, layout, mode,
+                                               pad_fleet=pad, device=device)
+            else:
+                batched = stack_mdps([m.build(device, materialize=mat)
+                                      for m in bmdps])
+                for m in bmdps:
+                    # the stacked copy is the one kept
+                    m._device_cache.pop(("built", "device", device), None)
             self._fleet_cache.put(key, batched)
         return batched
 
@@ -552,6 +595,13 @@ def madupite_session(options: Options | Mapping[str, Any] | None = None) \
             r = s.solve(mdp)
     """
     return Session(options)
+
+
+def _largest_divisor(n: int, *, at_most: int) -> int:
+    for d in range(min(n, at_most), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
 
 
 def _trim(r: SolveResult, n: int) -> SolveResult:

@@ -20,9 +20,15 @@ all-reduced tensor, which has the same bits on every rank, so all ranks
 take the same branch.
 
 Vectors may carry a leading fleet axis (``(B, n_local)``, the solver's
-fleet of one): the state collectives act on the last dimension.  The
-fleet-sharded layouts (a ``fleet`` axis) are not ported yet (ROADMAP
-queue 1 item 10).
+fleet of one): the state collectives act on the last dimension.
+
+* ``fleet`` — the fleet-sharded layouts: the leading instance dim of a
+  :func:`repro_torch.core.driver.solve_many` fleet is partitioned over
+  the group's ranks (each owns ``B / fleet_size`` lanes on top of its
+  state slice).  Lanes are independent, so the solver body needs no fleet
+  collective; the host loops gather each lane's flags over the group
+  (:meth:`Axes.allgather_fleet`), so every fleet shard agrees on when a
+  loop ends and the lead rank's monitor sees every lane.
 """
 
 from __future__ import annotations
@@ -32,9 +38,6 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
-
-# the ROADMAP queue 1 item that ports the fleet-sharded layouts
-FLEET_ITEM = 10
 
 # all_gather_into_tensor's newer name (same arguments) where torch has it
 _all_gather = getattr(dist, "all_gather_single", None) \
@@ -58,6 +61,16 @@ def _gather_last(x: torch.Tensor, group, *, async_op: bool = False):
                        device=x.device)
     work = _all_gather(flat, x.reshape(-1), group=group, async_op=async_op)
     return flat.view(_size(group), *x.shape), work
+
+
+def _gather_lanes(x: torch.Tensor, group) -> torch.Tensor:
+    """All-gather ``x`` (``(B_local, ...)``) over ``group`` along its first
+    dim, in rank order: ``(size * B_local, ...)``.  A bool tensor moves as
+    uint8 (gloo's all-gather takes no bool)."""
+    if x.dtype == torch.bool:
+        return _gather_lanes(x.to(torch.uint8), group).bool()
+    buf, _ = _gather_last(x, group)
+    return buf.reshape(-1, *x.shape[1:])
 
 
 def _gathered(buf: torch.Tensor) -> torch.Tensor:
@@ -102,6 +115,7 @@ class Axes:
 
     state: Any = None
     action: Any = None
+    fleet: Any = None
 
     # ---- state-axis collectives -------------------------------------------
     def allgather_state(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -203,13 +217,31 @@ class Axes:
     def action_size(self) -> int:
         return _size(self.action)
 
-    # ---- fleet-axis collectives: the fleet layouts are not ported ---------
-    def _no_fleet(self, *_):
-        raise NotImplementedError(
-            f"the fleet axis (layouts 'fleet' / 'fleet2d') is not yet "
-            f"ported to repro_torch (ROADMAP queue 1 item {FLEET_ITEM})")
+    # ---- fleet-axis collectives ------------------------------------------
+    def any_fleet(self, x: torch.Tensor) -> torch.Tensor:
+        """Logical OR of a boolean across fleet shards (keeps the shared
+        host loops in lockstep when lanes stop on some shards first)."""
+        if self.fleet is None:
+            return x
+        return self._all_reduce(x.to(torch.int32), self.fleet,
+                                dist.ReduceOp.MAX) > 0
 
-    any_fleet = fleet_index = pmax_fleet = allgather_fleet = _no_fleet
+    def fleet_index(self) -> int:
+        return _rank(self.fleet)
+
+    def fleet_size(self) -> int:
+        return _size(self.fleet)
+
+    def pmax_fleet(self, x: torch.Tensor) -> torch.Tensor:
+        return self._all_reduce(x, self.fleet, dist.ReduceOp.MAX)
+
+    def allgather_fleet(self, x: torch.Tensor) -> torch.Tensor:
+        """Gather per-lane rows (``(B_local, ...)``) across fleet shards
+        into the fleet's ``(B, ...)``, lanes in order (the monitor's
+        fleet-wide record, the driver's per-chunk flags, the results)."""
+        if self.fleet is None:
+            return x
+        return _gather_lanes(x, self.fleet)
 
     # ---- derived linear-algebra helpers -----------------------------------
     def dot(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

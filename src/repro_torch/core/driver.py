@@ -36,10 +36,18 @@ Checkpoints stay mesh-agnostic: rank 0 writes the unpadded global state
 and any world size (or one device) resumes it.  Monitors and progress
 lines come from rank 0 only.
 
+``solve_many(mdps, opts, mesh=, layout=)`` shards a fleet the same way:
+replicated over ``1d`` / ``2d`` (every rank holds its rows of every
+lane), or under ``fleet`` / ``fleet2d`` with its lanes over the mesh's
+leading axis (``B`` padded with dummy lanes to a multiple of it).  The
+fleet's flags are gathered over the fleet group once a step and once a
+chunk, so every fleet shard runs the same steps; results and checkpoints
+hold every true lane, unpadded, and a checkpoint resumes on any
+fleet-axis size or none.
+
 A ``supervisor`` (:mod:`repro_torch.adaptive`) may interrupt a single
 solve between chunks; its state is then checkpointed for a resume under
-another method.  The fleet-sharded layouts (``solve_many`` over a mesh,
-ROADMAP queue 1 item 10) are not ported yet.
+another method.
 """
 
 from __future__ import annotations
@@ -65,9 +73,6 @@ CKPT_FIELDS = ("v", "tv", "pi", "res", "k", "inner_total", "trace_res",
                "trace_inner", "res0", "span", "done", "diverged", "n_true",
                "win")
 _CKPT_TREEDEF = f"SolveState({', '.join(CKPT_FIELDS)})"
-
-# the ROADMAP queue 1 item that ports meshes and the fleet layouts
-MESH_ITEM = 10
 
 
 @dataclasses.dataclass
@@ -233,14 +238,17 @@ def _state_from_leaves(leaves, dev: torch.device) -> SolveState:
 
 def _restore_or_init(init, like, dev: torch.device, checkpoint_dir,
                      verbose: bool, expect=None, single: bool = False,
-                     rows: slice = slice(None)) -> SolveState:
+                     rows: slice = slice(None),
+                     lanes: slice = slice(None)) -> SolveState:
     """The state restored from ``checkpoint_dir``'s newest valid step, or
     ``init()``.  ``expect`` maps checkpoint-meta keys (``n``) to the
     values this solve requires — a mismatch means the directory holds
     another problem's checkpoint, which zero-padding would otherwise
     silently absorb.  ``single``: the checkpoint holds one instance's
-    unbatched leaves, restored as the fleet of one.  ``rows``: the states
-    this rank holds of the (zero-padded) global vectors."""
+    unbatched leaves, restored as the fleet of one.  ``rows`` / ``lanes``:
+    the states and lanes this rank holds of the (zero-padded) global
+    leaves; padded lanes restore done (a bool leaf pads with True), so
+    they stay frozen."""
     if checkpoint_dir and ckpt.latest_step(checkpoint_dir) is not None:
         restored = ckpt.restore(checkpoint_dir, len(like))
         if restored is not None:
@@ -255,6 +263,7 @@ def _restore_or_init(init, like, dev: torch.device, checkpoint_dir,
             leaves = _pad_restored(leaves, like)
             if single:
                 leaves = [a[None] for a in leaves]
+            leaves = [a[lanes] for a in leaves]
             leaves[:3] = [a[..., rows] for a in leaves[:3]]
             state = _state_from_leaves(leaves, dev)
             if verbose:
@@ -269,21 +278,23 @@ def _drive(dev_mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
     """The host loop of :func:`solve` and :func:`solve_many`: chunks of at
     most ``chunk`` outer steps until every lane has stopped or reached
     ``opts.max_outer``.  ``emit(k, res, inner, diverged)`` sends a
-    record (per-lane arrays) to monitor ``mid``; ``report(state, res, div,
+    record (per-lane arrays) to monitor ``mid``; ``report(k, res, div,
     done)`` runs before every chunk and at the end, ``after_chunk(state)``
     after every chunk.  ``supervisor`` (one lane) is asked after every
     completed chunk, as :func:`solve` describes; a truthy answer stops the
-    loop.  Returns the final state, its ``(stop, res, diverged)`` flags
-    and whether the supervisor stopped it."""
+    loop.  Under a fleet axis the flags cover every fleet shard's lanes
+    (:func:`repro_torch.core.ipi.stop_flags`), so every rank takes the
+    same branch, and the chunk monitor drains the whole fleet's traces.
+    Returns the final state, its ``(stop, res, diverged)`` flags and
+    whether the supervisor stopped it."""
     stream = emit if mid and opts.monitor_mode == "stream" else None
-    stop, res, div = ipi.stop_flags(state)
+    stop, res, div, k = ipi.stop_flags(state, axes)
     if mid:   # the k=0 (or resume-point) record
-        emit(state.k, res, np.zeros_like(state.k), np.zeros_like(stop))
+        emit(k, res, np.zeros_like(k), np.zeros_like(stop))
     prev = None
     while True:
-        k = state.k
         done = stop | (k >= opts.max_outer)
-        report(state, res, div, done)
+        report(k, res, div, done)
         # converged, a NaN residual (inner-solver breakdown) or a diverged
         # flag: bail out, do not spin
         if done.all():
@@ -297,10 +308,14 @@ def _drive(dev_mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
         k_hi = min(int(k[~done].min()) + chunk, opts.max_outer)
         state = ipi.solve_chunk(dev_mdp, state, k_hi, opts, axes,
                                 on_step=stream)
-        if mid and opts.monitor_mode == "chunk":
-            _drain_monitor(emit, state, done, k)
+        if opts.monitor and opts.monitor_mode == "chunk":
+            # every fleet shard joins the traces' gather; the lead drains
+            whole = state if axes.fleet is None \
+                else _fleet_view(state, axes)
+            if mid:
+                _drain_monitor(emit, whole, done, k)
         after_chunk(state)
-        stop, res, div = ipi.stop_flags(state)
+        stop, res, div, k = ipi.stop_flags(state, axes)
 
 
 def _validate_banded(mdp: MDP, halo: int, axes: Axes,
@@ -392,13 +407,36 @@ def _with_window(state: SolveState, opts: IPIOptions,
 
 def _global_state(state: SolveState, axes: Axes) -> SolveState:
     """``state`` with its per-state vectors gathered over the state shards
-    (every other field is the same on every rank)."""
-    if axes.state is None:
+    and, under a fleet axis, every field over the fleet shards (every
+    other field is the same on every rank of a fleet slice)."""
+    if axes.state is not None:
+        state = dataclasses.replace(
+            state, v=axes.allgather_state(state.v),
+            tv=axes.allgather_state(state.tv),
+            pi=axes.allgather_state(state.pi))
+    if axes.fleet is None:
         return state
+    return _fleet_view(state, axes, every=True)
+
+
+def _fleet_view(state: SolveState, axes: Axes,
+                every: bool = False) -> SolveState:
+    """The per-lane fields of ``state`` gathered over the fleet shards:
+    the residual, flags, counts and traces (a chunk monitor's drain), or
+    ``every`` field.  The host counts travel as device tensors."""
+    dev = state.res.device
+    count = lambda a: axes.allgather_fleet(
+        torch.from_numpy(np.asarray(a, np.int64)).to(dev)).cpu().numpy()
+    lanes = axes.allgather_fleet
+    kept = ("v", "tv", "pi", "res0", "span", "done", "n_true") if every \
+        else ()
     return dataclasses.replace(
-        state, v=axes.allgather_state(state.v),
-        tv=axes.allgather_state(state.tv),
-        pi=axes.allgather_state(state.pi))
+        state, res=lanes(state.res), k=count(state.k),
+        inner_total=count(state.inner_total),
+        trace_res=lanes(state.trace_res),
+        trace_inner=lanes(state.trace_inner),
+        diverged=lanes(state.diverged), win=None,
+        **{f: lanes(getattr(state, f)) for f in kept})
 
 
 def _mesh_device(mesh, device) -> torch.device:
@@ -516,9 +554,9 @@ def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, mesh=None,
         if mesh is not None:
             dist.barrier()
 
-    def report(state, res, div, done) -> None:
+    def report(k, res, div, done) -> None:
         if verbose and lead:
-            print(f"[driver] k={state.k[0]} residual={res[0]:.3e}"
+            print(f"[driver] k={k[0]} residual={res[0]:.3e}"
                   + (" DIVERGED" if div[0] else ""))
 
     mid = 0
@@ -560,37 +598,53 @@ def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
     under the active mask), but every kernel runs once for the fleet.
     Returns one :class:`SolveResult` per instance, padding trimmed.
 
+    ``mesh`` (a ``torch.distributed`` device mesh; every rank calls with
+    the same fleet and options, and gets every lane's result) shards the
+    fleet under ``layout``:
+
+    * ``"1d"`` / ``"2d"`` — the instance dim is replicated: every rank
+      holds its state (x action) slice of all ``B`` lanes;
+    * ``"fleet"`` / ``"fleet2d"`` — the instance dim is sharded over the
+      mesh's leading axis (:func:`repro_torch.launch.mesh.make_fleet_mesh`),
+      states (and actions) over the rest within each fleet slice: a rank
+      holds ``B / fleet_size`` lanes, stacked only from its own instances.
+      ``B`` is padded to a multiple of the fleet-axis size with zero-cost
+      dummy instances (trimmed from the results); ``pad_fleet=False``
+      raises instead.  ``mdps`` may also be a placed
+      :class:`repro_torch.core.partition.FleetBlock`
+      (:func:`repro_torch.api.mdp.place_function_fleet`), taken as it is.
+
     ``v0s`` warm-starts: per-instance ``(n_i,)`` vectors (zero-padded to
     the fleet width) or a stacked ``(B, n)`` tensor.  ``origin=(B, n)``
     names the true fleet size and state count of a pre-batched container
     that carries padding, to trim results and checkpoints to.
     ``checkpoint_dir`` persists the fleet state after every chunk, in the
-    reference's unpadded format (meta ``batch`` and ``n``), and resumes
-    from its newest step.  ``monitor`` (with ``opts.monitor``) receives one
-    fleet-wide record per outer step, one entry a lane.
-
-    ``mesh`` / ``layout`` / ``pad_fleet`` are the reference's fleet-layout
-    arguments: this package has one device and no fleet layouts yet
-    (ROADMAP queue 1 item 10), so anything but the defaults raises.
+    reference's unpadded, unsharded format (meta ``batch`` and ``n``;
+    under a mesh gathered over the fleet and state groups and written by
+    rank 0), and resumes from its newest step on any mesh or none.
+    ``monitor`` (with ``opts.monitor``) receives one fleet-wide record per
+    outer step, one entry a lane (under a mesh, on rank 0).
     """
     _reject_virtual(opts)
-    if mesh is not None or layout != "1d" or pad_fleet is not True:
-        raise NotImplementedError(
-            f"solve_many(mesh=..., layout=..., pad_fleet=...): meshes and "
-            f"the fleet layouts are not yet ported to repro_torch (ROADMAP "
-            f"queue 1 item {MESH_ITEM}); this package solves a fleet on one "
-            f"device")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if isinstance(mdps, (EllMDP, DenseMDP, MatrixFreeMDP)):
-        if mdps.batch is None:
+    if layout not in partition.LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; pick one of "
+                         f"{partition.LAYOUTS}")
+    if layout in partition.FLEET_LAYOUTS and mesh is None:
+        raise ValueError(f"layout={layout!r} shards the fleet dim over a "
+                         "mesh; pass mesh=... (see "
+                         "repro_torch.launch.mesh.make_fleet_mesh)")
+    fleet_block = isinstance(mdps, partition.FleetBlock)
+    if fleet_block or isinstance(mdps, (EllMDP, DenseMDP, MatrixFreeMDP)):
+        if not fleet_block and mdps.batch is None:
             raise ValueError("solve_many() wants a fleet; for a single "
                              "instance use solve()")
-        batched = mdps
-        b_true, n_true = origin or (batched.batch, batched.n_global)
-        if b_true > batched.batch or n_true > batched.n_global:
+        b_all = mdps.batch
+        b_true, n_true = origin or (b_all, mdps.n_global)
+        if b_true > b_all or n_true > mdps.n_global:
             raise ValueError(f"origin={origin} exceeds the container's "
-                             f"(B={batched.batch}, n={batched.n_global})")
+                             f"(B={b_all}, n={mdps.n_global})")
         n_origs = [n_true] * b_true
     else:
         if origin is not None:
@@ -598,46 +652,88 @@ def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
                              "per-instance MDPs carry their own true n")
         mdps = list(mdps)
         n_origs = [m.n_global for m in mdps]
-        batched = stack_mdps(mdps)
-        b_true, n_true = batched.batch, batched.n_global
-    dev = resolve_device(device)
-    dev_mdp = batched.to(dev)
-    gammas = gammas_of(batched)
-    axes = Axes()
+        b_true, n_true = len(mdps), max(n_origs)
+    if fleet_block and (mesh is None or layout != mdps.layout):
+        raise ValueError(f"a FleetBlock placed under layout "
+                         f"{mdps.layout!r} solves on its mesh under that "
+                         f"layout, not layout={layout!r}"
+                         + ("" if mesh is not None else " without a mesh"))
+
+    lead = mesh is None or dist.get_rank() == 0
+    if mesh is None:
+        dev = resolve_device(device)
+        axes = Axes()
+        batched = mdps if not isinstance(mdps, list) else stack_mdps(mdps)
+        dev_mdp = batched.to(dev)
+        gammas, lane0 = gammas_of(batched), 0
+    else:
+        dev = _mesh_device(mesh, device)
+        axes = partition.mesh_axes(mesh, layout)
+        if axes.fleet is not None:
+            fb = mdps if fleet_block else partition.shard_fleet(
+                mdps, mesh, layout, mode=opts.mode, device=dev,
+                pad_fleet=pad_fleet)
+            block, gammas, lane0 = fb.block, fb.gammas, fb.lane0
+        else:
+            batched = mdps if not isinstance(mdps, list) \
+                else stack_mdps(mdps)
+            block, _, _ = partition.shard_mdp(batched, mesh, layout,
+                                              mode=opts.mode, device=dev)
+            gammas, lane0 = gammas_of(batched), 0
+        if opts.halo:
+            _validate_banded(block, opts.halo, axes, axes.state_size())
+        opts = _resolve_overlap(opts, block, axes, True)
+        dev_mdp = partition.place_block(block, axes, halo=opts.halo,
+                                        plan=opts.overlap_plan)
+    # the padded fleet's lanes and states, and the ones this rank holds
+    b_pad, n_pad = len(gammas), dev_mdp.n_global
+    b_loc, n_loc = dev_mdp.batch, dev_mdp.n_local
+    lanes = slice(lane0, lane0 + b_loc)
+    rows = slice(axes.state_index() * n_loc, (axes.state_index() + 1) * n_loc)
 
     v0 = None
     if v0s is not None:
         if isinstance(v0s, (list, tuple)):
-            n_to = batched.n_local
             v0 = torch.stack([torch.nn.functional.pad(
-                torch.as_tensor(np.asarray(x)), (0, n_to - len(x)))
+                torch.as_tensor(np.asarray(x)), (0, n_pad - len(x)))
                 for x in v0s])
         else:
             v0 = torch.as_tensor(v0s)
-    # per-lane unpadded state counts (0 for the lanes past origin's B)
-    nt = list(n_origs) + [0] * (batched.batch - len(n_origs))
+        v0 = torch.nn.functional.pad(v0, (0, n_pad - v0.shape[-1], 0,
+                                          b_pad - v0.shape[0]))
+        v0 = v0[lanes, rows]
+    # per-lane unpadded state counts (0 for dummy lanes and the lanes past
+    # origin's B)
+    nt = (list(n_origs) + [0] * (b_pad - len(n_origs)))[lanes]
     state = _restore_or_init(
         lambda: ipi.init_state(dev_mdp, axes, opts, v0, n_true=nt),
-        _state_like(batched.n_global, opts, batched.batch), dev,
-        checkpoint_dir, verbose, expect=dict(n=n_true, batch=b_true))
-    state = _with_window(state, opts, batched.n_global)
+        _state_like(n_pad, opts, b_pad), dev, checkpoint_dir,
+        verbose and lead, expect=dict(n=n_true, batch=b_true), rows=rows,
+        lanes=lanes)
+    state = _with_window(state, opts,
+                         n_loc + 2 * opts.halo if opts.halo else n_pad)
 
-    def report(state, res, div, done) -> None:
-        if verbose:
-            print(f"[driver] fleet B={len(state.k)} active="
-                  f"{int((~done).sum())} k_max={int(state.k.max())} "
-                  f"res_max={float(res.max()):.3e}")
+    def report(k, res, div, done) -> None:
+        if verbose and lead:
+            print(f"[driver] fleet B={len(k)} active={int((~done).sum())} "
+                  f"k_max={int(k.max())} res_max={float(res.max()):.3e}")
 
     def save_state(state: SolveState) -> None:
-        if checkpoint_dir:
-            ckpt.save(checkpoint_dir, int(np.max(state.k[:b_true])),
-                      _trim_ckpt_state(state, n_true, b_true),
+        if not checkpoint_dir:
+            return
+        # every rank gathers; rank 0 writes; all wait for the file
+        whole = _global_state(state, axes)
+        if lead:
+            ckpt.save(checkpoint_dir, int(np.max(whole.k[:b_true])),
+                      _trim_ckpt_state(whole, n_true, b_true),
                       meta=dict(method=opts.method, batch=b_true, n=n_true,
                                 layout=layout),
                       treedef=_CKPT_TREEDEF)
+        if mesh is not None:
+            dist.barrier()
 
     mid = 0
-    if opts.monitor:
+    if opts.monitor and lead:
         mid = methods.monitor_handle(monitor or methods.print_monitor)
     emit = lambda k, res, inner, div: methods.emit_host(
         mid, k[:b_true] if np.ndim(k) else k, res[:b_true], inner[:b_true],
@@ -649,5 +745,6 @@ def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
     finally:
         if mid:
             methods.monitor_release(mid)
+    state = _global_state(state, axes)
     return [_result(state, b, opts, gammas[b], n_origs[b])
             for b in range(b_true)]

@@ -22,7 +22,9 @@ only while active), so each step writes one trace column.  One host read
 per outer step carries every lane's flags and residual (a stream monitor
 gets its record from it); the safeguard is a per-lane select behind one
 more read.  ``n_true`` (per lane) keeps a ragged fleet's padding states
-out of the span.
+out of the span.  Under a fleet axis (the fleet layouts) the step's read
+gathers every fleet shard's flags, so all shards agree on the step count:
+one whose lanes have all stopped runs no-op steps until the fleet has.
 """
 
 from __future__ import annotations
@@ -295,14 +297,28 @@ def init_state(mdp: MDP, axes: Axes, opts: IPIOptions,
         win=win.to(dt) if methods.get_method(opts.method).outer else None)
 
 
-def stop_flags(state: SolveState) -> tuple:
-    """``(stop, res, diverged)`` of every lane in one device read: host
-    arrays ``(B,)``."""
+def stop_flags(state: SolveState, axes: Axes = Axes()) -> tuple:
+    """``(stop, res, diverged, k)`` of every lane in one device read: host
+    arrays ``(B,)``.  Under a fleet axis they hold the lanes of every
+    fleet shard, in order (one all-gather over the fleet group)."""
     stop = state.done | torch.isnan(state.res) | state.diverged
-    flags = torch.stack([stop.to(torch.float64),
-                         state.res.to(torch.float64),
-                         state.diverged.to(torch.float64)]).cpu().numpy()
-    return flags[0] != 0, flags[1], flags[2] != 0
+    flags = _read([stop, state.res, state.diverged], state.k, axes)
+    return flags[0] != 0, flags[1], flags[2] != 0, \
+        state.k if axes.fleet is None else flags[-1].astype(np.int64)
+
+
+def _read(rows: list, k: np.ndarray, axes: Axes) -> np.ndarray:
+    """Stack per-lane ``rows`` (``(B_local,)`` tensors) as float64 and read
+    them to the host: ``(len(rows), B_local)``; under a fleet axis the host
+    ``k`` joins them and the lanes of every fleet shard are gathered first:
+    ``(len(rows) + 1, B)``."""
+    dev = rows[0].device
+    flags = torch.stack([r.to(torch.float64) for r in rows])
+    if axes.fleet is not None:
+        flags = torch.cat([flags, torch.from_numpy(k.astype(
+            np.float64))[None].to(dev)])
+        flags = axes.allgather_fleet(flags.T.contiguous()).T
+    return flags.cpu().numpy()
 
 
 def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
@@ -392,16 +408,35 @@ def solve_chunk(mdp: MDP, state: SolveState, k_hi: int,
     residual, diverged or reached ``k == k_hi`` (module docstring): one
     device read of the lanes' flags and residuals per step.
     ``on_step(k, res, inner, diverged)``, if given, receives each step's
-    record from that read (the stream monitor), one entry a lane."""
+    record from that read (the stream monitor), one entry a lane.
+
+    Under a fleet axis the read gathers the lanes of every fleet shard, so
+    every shard runs the same steps: one whose lanes have all stopped runs
+    no-op steps (its state frozen) until the whole fleet has, and the
+    record covers the whole fleet."""
     dt = DTYPES[opts.dtype]
     dev = state.v.device
     gamma_t = batch_parts(mdp, dt)
     gamma = mdp.gamma if gamma_t is None else gamma_t
-    stop_h, _, _ = stop_flags(state)
+    lo = axes.fleet_index() * mdp.batch
+    lanes_here = slice(lo, lo + mdp.batch)
+    stop_g, _, _, k_g = stop_flags(state, axes)
     while True:
-        act_h = ~stop_h & (state.k < k_hi)
-        if not act_h.any():
+        act_g = ~stop_g & (k_g < k_hi)
+        if not act_g.any():
             return state
+        act_h = act_g[lanes_here]
+        if not act_h.any():
+            # this fleet shard's lanes have all stopped while others run:
+            # a no-op step that joins the step's gather
+            stop = state.done | torch.isnan(state.res) | state.diverged
+            flags = _read([stop, state.res, state.diverged,
+                           torch.zeros_like(state.res)], state.k, axes)
+            stop_g, k_g = flags[0] != 0, flags[-1].astype(np.int64)
+            if on_step is not None:
+                on_step(int(k_g[act_g].max()), flags[1],
+                        flags[3].astype(np.int64), flags[2] != 0)
+            continue
         # with every lane active no lane is masked, and nothing is copied
         act = None if act_h.all() else lanes.to_device(act_h, dev)
         v1, tv1, pi1, res1, span1, inner, win1 = _outer_core(
@@ -427,17 +462,17 @@ def solve_chunk(mdp: MDP, state: SolveState, k_hi: int,
         done = sel(done1, state.done)
         stop = done | torch.isnan(res) | div1
         # the step's one read: every lane's flags, residual, inner count
-        flags = torch.stack([stop.to(torch.float64), res.to(torch.float64),
-                             div1.to(torch.float64),
-                             inner.to(torch.float64)]).cpu().numpy()
-        stop_h, inner_h = flags[0] != 0, flags[3].astype(np.int64)
+        flags = _read([stop, res, div1, inner], k1, axes)
+        stop_g = flags[0] != 0
+        inner_g = flags[3].astype(np.int64)
+        k_g = k1 if axes.fleet is None else flags[-1].astype(np.int64)
         state = SolveState(
             v=sel(v1, state.v), tv=sel(tv1, state.tv),
             pi=sel(pi1, state.pi), res=res, k=k1,
-            inner_total=state.inner_total + inner_h,
+            inner_total=state.inner_total + inner_g[lanes_here],
             trace_res=state.trace_res, trace_inner=state.trace_inner,
             res0=state.res0, span=sel(span1, state.span), done=done,
             diverged=div1, n_true=state.n_true,
             win=None if win1 is None else sel(win1, state.win))
         if on_step is not None:
-            on_step(k_col, flags[1], inner_h, flags[2] != 0)
+            on_step(k_col, flags[1], inner_g, flags[2] != 0)

@@ -1,18 +1,23 @@
 """Partitioning of a global MDP over the ranks of a device mesh.
 
 Counterpart of :mod:`repro.core.partition`.  madupite/PETSc row-partitions
-states over MPI ranks (1-D).  The port has that layout and the reference's
-beyond-paper 2-D (state x action) layout, over a
-``torch.distributed.device_mesh.DeviceMesh``:
+states over MPI ranks (1-D).  The port has that layout, the reference's
+beyond-paper 2-D (state x action) layout and its fleet-sharded layouts,
+over a ``torch.distributed.device_mesh.DeviceMesh``:
 
 * ``layout="1d"`` — states sharded over *all* mesh axes (paper-faithful);
 * ``layout="2d"`` — states over all-but-last axis, actions over the last;
   the greedy min and the policy-evaluation matvec gain a reduction over
-  the action axis (see :mod:`repro_torch.core.bellman`).
+  the action axis (see :mod:`repro_torch.core.bellman`);
+* ``layout="fleet"`` — the leading mesh axis shards a fleet's instance
+  dim ``B``; states are sharded over the remaining axes within each fleet
+  slice, so a rank holds ``B / fleet_size`` lanes of its state rows
+  (``solve_many`` only);
+* ``layout="fleet2d"`` — instances over the first axis, states over the
+  middle axes, actions over the last.
 
-The fleet-sharded layouts (``fleet``, ``fleet2d``) and with them
-``fleet_padded_batch`` / ``pad_fleet_dim`` are not ported yet (ROADMAP
-queue 1 item 10).
+Under ``1d`` / ``2d`` a fleet is replicated: every rank holds its rows of
+all ``B`` lanes.
 
 A matrix-free block (:class:`~repro_torch.core.mdp.MatrixFreeMDP`) has no
 tables to cut: placing it is a zero tag of its padded local extent (the
@@ -23,13 +28,17 @@ states only.
 Padding: states are padded with absorbing zero-cost self-loops (their value
 is identically 0 and they are unreachable, so the solution and residuals on
 real states are untouched); actions are padded with cost ``±BIG`` rows that
-can never be greedy.
+can never be greedy; a fleet-sharded fleet is padded to a multiple of the
+fleet-axis size with zero-cost dummy instances whose optimal value is
+identically 0 — they are done at k=0 and stay frozen under the solver's
+active mask, so they cost one no-op lane (:func:`pad_fleet_dim`).
 
 Each rank holds only its own block (:func:`shard_mdp`): the rows of its
-state shard and the columns of its action shard, on its own device.  An
-ELL block's successor ids are rewritten once, at placement, into the
-coordinates of the value window its backups read (the gathered vector, or
-the halo window), so no backup shifts ``idx`` again.
+state shard and the columns of its action shard (and, under the fleet
+layouts, its lanes), on its own device.  An ELL block's successor ids are
+rewritten once, at placement, into the coordinates of the value window its
+backups read (the gathered vector, or the halo window), so no backup
+shifts ``idx`` again.
 """
 
 from __future__ import annotations
@@ -39,8 +48,9 @@ import math
 
 import torch
 
-from repro_torch.core.comm import Axes, FLEET_ITEM
-from repro_torch.core.mdp import MDP, DenseMDP, EllMDP, MatrixFreeMDP
+from repro_torch.core.comm import Axes
+from repro_torch.core.mdp import (MDP, DenseMDP, EllMDP, MatrixFreeMDP,
+                                  gammas_of, stack_mdps)
 
 _BIG_COST = 1e30
 
@@ -51,26 +61,39 @@ FLEET_LAYOUTS = ("fleet", "fleet2d")
 _GROUPS: dict = {}
 
 
-def layout_dims(mesh, layout: str) -> tuple[tuple, tuple]:
-    """The mesh dimension names ``(state, action)`` that ``layout`` shards
-    over (the reference's :func:`mesh_axes`, by name).  ``mesh`` needs only
-    ``mesh_dim_names``."""
+def _check_layout(mesh, layout: str) -> tuple:
     # Raised (not assert'd): layout validation must survive `python -O`.
     names = tuple(mesh.mesh_dim_names)
     need = {"1d": 1, "2d": 2, "fleet": 2, "fleet2d": 3}.get(layout)
     if need is None:
         raise ValueError(f"unknown layout {layout!r}; pick one of {LAYOUTS}")
-    if layout in FLEET_LAYOUTS:
-        raise NotImplementedError(
-            f"layout {layout!r} shards the fleet (instance) dim, which is "
-            f"not yet ported to repro_torch (ROADMAP queue 1 item "
-            f"{FLEET_ITEM}); use layout '1d' or '2d'")
     if len(names) < need:
+        hint = ("; see launch.mesh.make_fleet_mesh"
+                if layout in FLEET_LAYOUTS else "")
         raise ValueError(f"layout {layout!r} needs >= {need} mesh axes, "
-                         f"got {names}")
+                         f"got {names}{hint}")
+    return names
+
+
+def layout_dims(mesh, layout: str) -> tuple[tuple, tuple]:
+    """The mesh dimension names ``(state, action)`` that ``layout`` shards
+    over (the reference's :func:`mesh_axes`, by name).  ``mesh`` needs only
+    ``mesh_dim_names``."""
+    names = _check_layout(mesh, layout)
     if layout == "1d":
         return names, ()
-    return names[:-1], names[-1:]
+    if layout == "2d":
+        return names[:-1], names[-1:]
+    if layout == "fleet":
+        return names[1:], ()
+    return names[1:-1], names[-1:]
+
+
+def fleet_dims(mesh, layout: str) -> tuple:
+    """The mesh dimension name that shards the fleet's lanes under
+    ``layout`` (the leading one of the fleet layouts), or ``()``."""
+    names = _check_layout(mesh, layout)
+    return names[:1] if layout in FLEET_LAYOUTS else ()
 
 
 def _group(mesh, names: tuple):
@@ -100,7 +123,8 @@ def _group(mesh, names: tuple):
 def mesh_axes(mesh, layout: str) -> Axes:
     """The :class:`Axes` (process groups) of ``layout`` on ``mesh``."""
     s, a = layout_dims(mesh, layout)
-    return Axes(state=_group(mesh, s), action=_group(mesh, a))
+    return Axes(state=_group(mesh, s), action=_group(mesh, a),
+                fleet=_group(mesh, fleet_dims(mesh, layout)))
 
 
 def _axis_size(mesh, names) -> int:
@@ -139,66 +163,71 @@ def pad_mdp(mdp: MDP, n_mult: int, m_mult: int, *,
     backup and ``-BIG`` under the argmax (``"maxreward"``) one, and move to
     state 0 with probability 1, so they are never greedy.  Padded states
     are zero-cost absorbing self-loops (value identically 0) under every
-    action.  Unbatched ELL, dense and matrix-free containers: a
+    action.  ELL, dense and matrix-free containers, unbatched or a fleet
+    (every lane padded alike; a shared ``idx`` stays shared): a
     matrix-free one pads its tag (its row builder makes the padding rows)
     and shards states only."""
     if isinstance(mdp, MatrixFreeMDP):
         return _pad_matrix_free(mdp, n_mult, m_mult)
-    if mdp.batch is not None:
-        raise NotImplementedError(
-            f"padding a fleet for a mesh layout is not yet ported to "
-            f"repro_torch (ROADMAP queue 1 item {FLEET_ITEM})")
+    n, m = mdp.n_global, mdp.m_global
+    return pad_to(mdp, -(-n // n_mult) * n_mult, -(-m // m_mult) * m_mult,
+                  mode=mode)
+
+
+def pad_to(mdp: MDP, n_to: int, m_to: int, *,
+           mode: str = "mincost") -> MDP:
+    """:func:`pad_mdp` to the extents ``(n_to, m_to)`` themselves."""
     big = _BIG_COST if mode == "mincost" else -_BIG_COST
     n, m = mdp.n_global, mdp.m_global
-    n_pad, m_pad = (-n) % n_mult, (-m) % m_mult
+    n_pad, m_pad = n_to - n, m_to - m
     if not (n_pad or m_pad):
         return mdp
-    m_tot = m + m_pad
     cost = mdp.cost
     dev = cost.device
+    lead = tuple(cost.shape[:-2])
+    zeros = lambda shape, like: torch.zeros(shape, dtype=like.dtype,
+                                            device=dev)
     if m_pad:
-        cost = torch.cat([cost, torch.full((n, m_pad), big,
-                                           dtype=cost.dtype, device=dev)], 1)
+        cost = torch.cat([cost, torch.full(lead + (n, m_pad), big,
+                                           dtype=cost.dtype, device=dev)],
+                         -1)
     if n_pad:
         # zero cost on the absorbing self-loop -> v_pad == 0 exactly; big
         # cost on padded actions stays (still never greedy)
-        pad_cost = torch.zeros((n_pad, m_tot), dtype=cost.dtype, device=dev)
-        pad_cost[:, m:] = big
-        cost = torch.cat([cost, pad_cost])
-    pad_rows = torch.arange(n, n + n_pad, device=dev)
+        pad_cost = zeros(lead + (n_pad, m_to), cost)
+        pad_cost[..., m:] = big
+        cost = torch.cat([cost, pad_cost], -2)
+    pad_rows = torch.arange(n, n_to, device=dev)
     if isinstance(mdp, EllMDP):
         idx, val = mdp.idx, mdp.val
         k = idx.shape[-1]
         if m_pad:
-            idx = torch.cat([idx, torch.zeros((n, m_pad, k), dtype=idx.dtype,
-                                              device=dev)], 1)
-            pv = torch.zeros((n, m_pad, k), dtype=val.dtype, device=dev)
+            idx = torch.cat([idx, zeros(idx.shape[:-3] + (n, m_pad, k),
+                                        idx)], -2)
+            pv = zeros(val.shape[:-3] + (n, m_pad, k), val)
             pv[..., 0] = 1.0     # to state 0 (the row sums to 1)
-            val = torch.cat([val, pv], 1)
+            val = torch.cat([val, pv], -2)
         if n_pad:
-            pad_idx = torch.zeros((n_pad, m_tot, k), dtype=idx.dtype,
-                                  device=dev)
+            pad_idx = zeros(idx.shape[:-3] + (n_pad, m_to, k), idx)
             pad_idx[..., 0] = pad_rows.to(idx.dtype)[:, None]
-            pad_val = torch.zeros((n_pad, m_tot, k), dtype=val.dtype,
-                                  device=dev)
+            pad_val = zeros(val.shape[:-3] + (n_pad, m_to, k), val)
             pad_val[..., 0] = 1.0
-            idx, val = torch.cat([idx, pad_idx]), torch.cat([val, pad_val])
+            idx = torch.cat([idx, pad_idx], -3)
+            val = torch.cat([val, pad_val], -3)
         return EllMDP(idx=idx, val=val, cost=cost, gamma=mdp.gamma,
-                      n_global=n + n_pad, m_global=m_tot)
+                      n_global=n_to, m_global=m_to)
     p = mdp.p
     if m_pad:
-        pp = torch.zeros((n, m_pad, n), dtype=p.dtype, device=dev)
+        pp = zeros(lead + (n, m_pad, n), p)
         pp[..., 0] = 1.0
-        p = torch.cat([p, pp], 1)
+        p = torch.cat([p, pp], -2)
     if n_pad:
-        p = torch.cat([p, torch.zeros((n, m_tot, n_pad), dtype=p.dtype,
-                                      device=dev)], 2)
-        pad_p = torch.zeros((n_pad, m_tot, n + n_pad), dtype=p.dtype,
-                            device=dev)
-        pad_p[torch.arange(n_pad, device=dev), :, pad_rows] = 1.0
-        p = torch.cat([p, pad_p])
-    return DenseMDP(p=p, cost=cost, gamma=mdp.gamma, n_global=n + n_pad,
-                    m_global=m_tot)
+        p = torch.cat([p, zeros(lead + (n, m_to, n_pad), p)], -1)
+        pad_p = zeros(lead + (n_pad, m_to, n_to), p)
+        pad_p[..., torch.arange(n_pad, device=dev), :, pad_rows] = 1.0
+        p = torch.cat([p, pad_p], -3)
+    return DenseMDP(p=p, cost=cost, gamma=mdp.gamma, n_global=n_to,
+                    m_global=m_to)
 
 
 def _pad_matrix_free(mdp: MatrixFreeMDP, n_mult: int,
@@ -217,6 +246,131 @@ def _pad_matrix_free(mdp: MatrixFreeMDP, n_mult: int,
                              device=mdp.device), n_global=n_to)
 
 
+def fleet_padded_batch(b: int, fleet_size: int, pad: bool = True) -> int:
+    """Fleet size after padding ``b`` up to a multiple of ``fleet_size``.
+
+    Raises an actionable ``ValueError`` (before any device work) when
+    ``b`` is incompatible and padding is off."""
+    b_pad = -(-b // fleet_size) * fleet_size
+    if b_pad != b and not pad:
+        raise ValueError(
+            f"fleet of B={b} instances does not divide over the "
+            f"{fleet_size}-way fleet axis and fleet padding is disabled; "
+            f"either pass pad_fleet=True (adds {b_pad - b} zero-cost dummy "
+            f"instance(s), trimmed from the results), solve a B divisible "
+            f"by {fleet_size}, or build the mesh with a fleet axis that "
+            f"divides {b}")
+    return b_pad
+
+
+def _dummy(mdp: MDP, gamma: float) -> MDP:
+    """A fleet-padding lane made from the unbatched ``mdp``: its (valid,
+    row-stochastic) transitions with identically-zero costs, so its
+    optimal value is exactly 0 and the solver's ``v0 = 0`` start is
+    already done; a matrix-free lane instead re-solves ``mdp``'s rows (no
+    stored cost to zero) and is trimmed like the others."""
+    if isinstance(mdp, MatrixFreeMDP):
+        return dataclasses.replace(mdp, gamma=gamma)
+    return dataclasses.replace(mdp, cost=torch.zeros_like(mdp.cost),
+                               gamma=gamma)
+
+
+def fleet_lanes(mdps, lo: int, hi: int, *, pin: bool = False) -> MDP:
+    """Lanes ``[lo, hi)`` of the fleet ``mdps`` (unbatched instances, or a
+    batched container) padded with dummy lanes past its ``B``
+    (:func:`pad_fleet_dim`'s), as one batched container with the fleet's
+    state count: only these lanes are stacked, never the whole fleet.
+    Per-instance gammas come along, the dummies' the last lane's.
+    ``pin``: host tables are stacked straight into page-locked memory,
+    the one host copy a rank makes before its copy to the card."""
+    if isinstance(mdps, (EllMDP, DenseMDP, MatrixFreeMDP)):
+        if mdps.batch is None:
+            raise ValueError("fleet_lanes() takes a fleet")
+        b, n_to = mdps.batch, mdps.n_global
+        gammas = gammas_of(mdps)
+        pick = lambda i: mdps.instance(i if i < b else 0)
+    else:
+        mdps = list(mdps)
+        b, n_to = len(mdps), max(m.n_global for m in mdps)
+        gammas = tuple(float(m.gamma) for m in mdps)
+        pick = lambda i: mdps[i if i < b else 0]
+    lanes = [pick(i) if i < b else _dummy(pick(0), gammas[-1])
+             for i in range(lo, hi)]
+    if isinstance(lanes[0], EllMDP):
+        # every lane padded to the fleet's state count, as stack_mdps pads
+        # them to the largest it is given
+        lanes = [pad_to(m, n_to, m.m_global) for m in lanes]
+    if pin and not isinstance(lanes[0], MatrixFreeMDP) \
+            and lanes[0].device.type == "cpu":
+        return _stack_pinned(lanes)
+    return stack_mdps(lanes)
+
+
+def _stack_pinned(lanes: list) -> MDP:
+    """:func:`repro_torch.core.mdp.stack_mdps` of host lanes of one shape
+    (a shared ``idx`` stays one table), written into page-locked
+    memory."""
+    def stack(ts):
+        out = torch.empty((len(ts),) + tuple(ts[0].shape),
+                          dtype=ts[0].dtype, pin_memory=True)
+        return torch.stack(ts, out=out)
+
+    gammas = tuple(float(m.gamma) for m in lanes)
+    gamma = gammas[0] if len(set(gammas)) == 1 else gammas
+    first = lanes[0]
+    cost = stack([m.cost for m in lanes])
+    if isinstance(first, DenseMDP):
+        return DenseMDP(p=stack([m.p for m in lanes]), cost=cost,
+                        gamma=gamma, n_global=first.n_global,
+                        m_global=first.m_global)
+    shared = all(torch.equal(m.idx, first.idx) for m in lanes[1:])
+    idx = first.idx.contiguous().pin_memory() if shared \
+        else stack([m.idx for m in lanes])
+    return EllMDP(idx=idx, val=stack([m.val for m in lanes]), cost=cost,
+                  gamma=gamma, n_global=first.n_global,
+                  m_global=first.m_global)
+
+
+def pad_fleet_dim(mdp: MDP, b_to: int) -> MDP:
+    """Pad a batched fleet to ``b_to`` instances.
+
+    Dummy instances reuse instance 0's (valid, row-stochastic) transitions
+    with identically-zero costs, so their optimal value is exactly 0: at
+    the solver's ``v0 = 0`` start their Bellman residual is 0 and the
+    active mask freezes them at once — they never do real work and are
+    trimmed from the results.  Their gamma is the last lane's.  A
+    matrix-free fleet's dummies re-solve its (one, shared) row spec."""
+    b = mdp.batch
+    if b is None:
+        raise ValueError("pad_fleet_dim() requires a batched MDP")
+    if b_to == b:
+        return mdp
+    if b_to < b:
+        raise ValueError(f"cannot pad fleet of {b} down to {b_to}")
+    return fleet_lanes(mdp, 0, b_to)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetBlock:
+    """This rank's part of a fleet placed under a fleet layout
+    (:func:`shard_fleet`, :func:`repro_torch.api.mdp.place_function_fleet`):
+    ``block`` holds lanes ``[lane0, lane0 + block.batch)`` of the padded
+    fleet of ``batch`` lanes — the rows of its state shard and the actions
+    of its action shard, on its device — and ``gammas`` the padded fleet's
+    per-lane discounts.  :func:`repro_torch.core.driver.solve_many` takes
+    it as it is (the reference's ``already_placed`` container)."""
+
+    block: MDP
+    batch: int
+    lane0: int
+    gammas: tuple
+    layout: str
+
+    @property
+    def n_global(self) -> int:
+        return self.block.n_global
+
+
 def _eff_extents(idx: torch.Tensor, val: torch.Tensor, n: int):
     """Per-row ``(min, max)`` *nonzero-weight* ELL successor ids, reduced
     over (action, slot) — the effective column extents the communication
@@ -231,8 +385,9 @@ def _eff_extents(idx: torch.Tensor, val: torch.Tensor, n: int):
 
 def _block_frontier(mdp: EllMDP, n_shards: int, axes: Axes):
     """``(reach, lo_bad, hi_bad)`` of the rows ``mdp`` holds (the whole
-    MDP, or with ``axes`` this rank's block of global row ids ``start ..``),
-    reduced over the ranks of ``axes``: how far any row's nonzero
+    MDP, or with ``axes`` this rank's block of global row ids ``start ..``,
+    of every lane of a fleet), reduced over the ranks of ``axes``: how far
+    any row's nonzero
     successors reach past its shard, and the last bad row of each shard's
     low half / the first of its high half."""
     n_local = mdp.n_global // n_shards
@@ -249,7 +404,7 @@ def _block_frontier(mdp: EllMDP, n_shards: int, axes: Axes):
     lo_bad = torch.amax(torch.where(bad & (i_loc < half), i_loc, -1))
     hi_bad = torch.amin(torch.where(bad & (i_loc >= half), i_loc, n_local))
     out = torch.stack([reach, lo_bad, -hi_bad])
-    out = axes.pmax_action(axes.pmax_state(out)).tolist()
+    out = axes.pmax_fleet(axes.pmax_action(axes.pmax_state(out))).tolist()
     return out[0], out[1], -out[2]
 
 
@@ -348,28 +503,81 @@ def shard_mdp(mdp: MDP, mesh, layout: str = "1d", *,
     Returns ``(block, axes, n_orig)``: the rows of this rank's state shard
     and the actions of its action shard (the ``2d`` layout), contiguous on
     ``device``, successor ids still global (:func:`place_block` moves them
-    into window coordinates once the solve's halo is known).  An MDP that
-    is already this rank's block (:func:`already_placed`) is not copied."""
+    into window coordinates once the solve's halo is known).  A fleet
+    keeps all its lanes (the fleet layouts place one with
+    :func:`shard_fleet`).  An MDP that is already this rank's block
+    (:func:`already_placed`) is not copied."""
     axes = mesh_axes(mesh, layout)
-    ns, ms = axes.state_size(), axes.action_size()
+    if axes.fleet is not None:
+        raise ValueError(f"layout {layout!r} shards the fleet (batch) dim; "
+                         f"place a fleet with shard_fleet() (solve_many "
+                         f"does), or use layout '1d'/'2d'")
     if already_placed(mdp, mesh, layout, device):
         return mdp, axes, mdp.n_global
+    return _place(mdp, axes, mode, device), axes, mdp.n_global
+
+
+def _place(mdp: MDP, axes: Axes, mode: str, device: torch.device) -> MDP:
+    """Pad ``mdp`` (one instance or lanes of a fleet) to the state and
+    action shards of ``axes`` and cut this rank's rows and actions onto
+    ``device``."""
+    ns, ms = axes.state_size(), axes.action_size()
     padded = pad_mdp(mdp, ns, ms, mode=mode)
     n_loc, m_loc = padded.n_global // ns, padded.m_global // ms
     r, c = axes.state_index() * n_loc, axes.action_index() * m_loc
-    cut = lambda t: t[r:r + n_loc, c:c + m_loc].contiguous().to(device)
+
+    def cut(t, d):
+        # the state dim sits d dims from the end, the action dim after it
+        t = t.narrow(t.dim() - d, r, n_loc).narrow(t.dim() - d + 1, c, m_loc)
+        return t.contiguous().to(device)
+
     if isinstance(padded, MatrixFreeMDP):
-        block = dataclasses.replace(padded, tag=torch.zeros(
-            (n_loc,), dtype=torch.int8, device=device))
-    elif isinstance(padded, EllMDP):
-        block = EllMDP(idx=cut(padded.idx), val=cut(padded.val),
-                       cost=cut(padded.cost), gamma=padded.gamma,
-                       n_global=padded.n_global, m_global=padded.m_global)
-    else:
-        block = DenseMDP(p=cut(padded.p), cost=cut(padded.cost),
-                         gamma=padded.gamma, n_global=padded.n_global,
-                         m_global=padded.m_global)
-    return block, axes, mdp.n_global
+        return dataclasses.replace(padded, tag=torch.zeros(
+            padded.tag.shape[:-1] + (n_loc,), dtype=torch.int8,
+            device=device))
+    if isinstance(padded, EllMDP):
+        return EllMDP(idx=cut(padded.idx, 3), val=cut(padded.val, 3),
+                      cost=cut(padded.cost, 2), gamma=padded.gamma,
+                      n_global=padded.n_global, m_global=padded.m_global)
+    return DenseMDP(p=cut(padded.p, 3), cost=cut(padded.cost, 2),
+                    gamma=padded.gamma, n_global=padded.n_global,
+                    m_global=padded.m_global)
+
+
+def shard_fleet(mdps, mesh, layout: str, *, mode: str = "mincost",
+                device: torch.device, pad_fleet: bool = True) -> FleetBlock:
+    """This rank's :class:`FleetBlock` of the fleet ``mdps`` (unbatched
+    instances or a batched container) under a fleet layout: ``B`` padded
+    to a multiple of the fleet-axis size (:func:`fleet_padded_batch`),
+    only this rank's lanes stacked (:func:`fleet_lanes`), then padded and
+    cut to its state and action shards."""
+    axes = mesh_axes(mesh, layout)
+    if axes.fleet is None:
+        raise ValueError(f"shard_fleet serves the fleet layouts, got "
+                         f"{layout!r}")
+    batched = isinstance(mdps, (EllMDP, DenseMDP, MatrixFreeMDP))
+    if not batched:
+        mdps = list(mdps)
+    if isinstance(mdps if batched else mdps[0], MatrixFreeMDP) \
+            and axes.action_size() > 1:
+        raise ValueError(
+            f"matrix-free operators shard states only (every shard traces "
+            f"the full static action tuple); layout {layout!r} shards the "
+            f"action dim — use layout '1d'/'fleet', or materialize via "
+            f"-mdp_materialize device")
+    b = mdps.batch if batched else len(mdps)
+    gammas = gammas_of(mdps) if batched else tuple(float(m.gamma)
+                                                   for m in mdps)
+    b_to = fleet_padded_batch(b, axes.fleet_size(), pad_fleet)
+    b_loc = b_to // axes.fleet_size()
+    lo = axes.fleet_index() * b_loc
+    # one fleet shard of the whole fleet (a world of one): the container
+    # itself, not a copy of its lanes
+    local = mdps if batched and b_loc == b else fleet_lanes(
+        mdps, lo, lo + b_loc, pin=torch.device(device).type == "cuda")
+    return FleetBlock(block=_place(local, axes, mode, device), batch=b_to,
+                      lane0=lo, gammas=gammas + (gammas[-1],) * (b_to - b),
+                      layout=layout)
 
 
 def place_block(block: MDP, axes: Axes, *, halo: int = 0,
@@ -387,8 +595,9 @@ def place_block(block: MDP, axes: Axes, *, halo: int = 0,
     if plan is not None:
         f_lo, f_hi = plan
         row_start = axes.state_index() * n_loc
-        own = torch.clamp(block.idx[f_lo:n_loc - f_hi] - row_start, 0,
-                          n_loc - 1).to(block.idx.dtype).contiguous()
+        own = torch.clamp(block.idx.narrow(-3, f_lo, n_loc - f_lo - f_hi)
+                          - row_start, 0, n_loc - 1).to(
+                              block.idx.dtype).contiguous()
     return dataclasses.replace(
         block, idx=window_idx(block.idx, axes, n_loc, halo).contiguous(),
         own_idx=own)

@@ -11,12 +11,12 @@ madupite runs one MPI rank per core, and builds a
 ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``, or from an explicit store, as
 tests do) on NCCL for the card's tensors and gloo for the host's, after
 putting the rank on its own card; :func:`make_host_mesh` lays a named mesh
-over the world.  A rank without a card, or a process group that fails to
-come up, raises.
+over the world, :func:`make_fleet_mesh` the fleet layouts' mesh with a
+leading ``fleet`` axis.  A rank without a card, or a process group that
+fails to come up, raises.
 
 ``make_production_mesh`` and ``mesh_kwargs`` of the reference shape XLA's
-TPU pod meshes and stay reference-only; ``make_fleet_mesh`` waits for the
-fleet layouts (ROADMAP queue 1 item 10).
+TPU pod meshes and stay reference-only.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
-from repro_torch.core.comm import FLEET_ITEM
 from repro_torch.device import resolve_device
 
 # one collective or rendezvous may wait this long before the rank raises
@@ -100,11 +99,48 @@ def make_host_mesh(shape=None, axes=("data", "model"),
                             mesh_dim_names=tuple(axes))
 
 
-def make_fleet_mesh(fleet: int, *, layout: str = "fleet", devices=None):
-    """The mesh of the fleet layouts: not yet ported."""
-    raise NotImplementedError(
-        f"make_fleet_mesh: the fleet layouts are not yet ported to "
-        f"repro_torch (ROADMAP queue 1 item {FLEET_ITEM})")
+def make_fleet_mesh(fleet: int, *, layout: str = "fleet",
+                    device: str = "cuda", world: int | None = None):
+    """A mesh over every rank with a leading ``fleet`` axis, for
+    fleet-sharded ``solve_many``.
+
+    ``fleet`` ranks shard the instance dim; the remaining ``world //
+    fleet`` shard states within each fleet slice (``layout="fleet"``:
+    names ``("fleet", "data")``), or states x actions (``"fleet2d"``:
+    ``("fleet", "data", "model")``, the trailing axis 2 — or 1 when the
+    rest is odd — shards actions).  ``world`` (default: the process
+    group's) only sizes the mesh; the reference's errors."""
+    if world is None:
+        if not dist.is_initialized():
+            raise RuntimeError("no torch.distributed process group is up; "
+                               "call repro_torch.launch.mesh."
+                               "init_distributed() (or launch under "
+                               "torchrun) first")
+        world = dist.get_world_size()
+    if fleet < 1 or world % fleet:
+        raise ValueError(f"fleet-axis size {fleet} must divide the device "
+                         f"count {world}")
+    rest = world // fleet
+    if layout == "fleet":
+        shape, names = (fleet, rest), ("fleet", "data")
+    elif layout == "fleet2d":
+        am = 2 if rest % 2 == 0 and rest >= 2 else 1
+        shape, names = (fleet, rest // am, am), ("fleet", "data", "model")
+    else:
+        raise ValueError(f"make_fleet_mesh serves the fleet layouts, "
+                         f"got {layout!r}")
+    return make_host_mesh(shape, names, device=device)
+
+
+def all_ranks(flag: bool) -> bool:
+    """``flag`` on every rank of the world (a MIN all-reduce of a host
+    tensor, which the process group's gloo side carries); ``flag`` itself
+    when no process group is up."""
+    if not dist.is_initialized():
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t.item())
 
 
 def shutdown(*, barrier: bool = True) -> None:

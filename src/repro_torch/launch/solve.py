@@ -47,14 +47,18 @@ gloo ranks on the host with ``--device cpu``:
         -- --instance garnet --n 1000000 --m 16 --k 8 --layout 1d
 
 (the ``--`` keeps torchrun from reading ``--n`` / ``--m`` as abbreviations
-of its own options; the CLI drops it).
+of its own options; the CLI drops it).  A fleet under torchrun shards its
+instances (``--layout fleet|fleet2d``, the default for ``--batch`` over
+more than one rank; ``--fleet F`` sizes the fleet axis):
 
-Every rank builds the instance, keeps its block and prints one ``[solve]
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.solve \
+        -- --instance garnet --n 2000 --batch 8 --layout fleet --fleet 4 \
+        --device cpu
+
+Every rank builds the instances, keeps its block and prints one ``[solve]
 rank`` line naming its device; rank 0 prints the rest.  Under torchrun the
-layout defaults to ``1d`` over the world (``-layout auto``).  The fleet
-layouts (``--layout fleet|fleet2d``, ``--fleet``) are not yet ported and
-exit with an error that says so.  Exit code 0 iff every instance
-converged, on every rank.
+layout defaults to ``1d`` over the world (a fleet: ``fleet``; ``-layout
+auto``).  Exit code 0 iff every instance converged, on every rank.
 """
 
 from __future__ import annotations
@@ -118,7 +122,7 @@ def build_options(args) -> Options:
                 "atol": "-atol", "stop_criterion": "-stop_criterion",
                 "max_outer": "-max_outer", "dtype": "-dtype",
                 "ckpt_dir": "-checkpoint_dir", "mode": "-mode",
-                "device": "-device", "layout": "-layout"}
+                "device": "-device", "layout": "-layout", "fleet": "-fleet"}
     for flag, key in flag_map.items():
         val = getattr(args, flag)
         if val is not None:
@@ -137,17 +141,6 @@ def build_options(args) -> Options:
     return opts
 
 
-def _not_ported(args) -> str | None:
-    if args.fleet is not None or args.layout in ("fleet", "fleet2d"):
-        flag = "--fleet" if args.fleet is not None \
-            else f"--layout {args.layout}"
-        return (f"{flag} is not yet ported to repro_torch (ROADMAP queue 1 "
-                f"item 10: the fleet layouts; this package shards one MDP "
-                f"under --layout 1d|2d); use the JAX package's "
-                f"repro.launch.solve")
-    return None
-
-
 def _start_ranks(args, opts: Options) -> tuple[bool, bool]:
     """Bring the process group up under torchrun (``WORLD_SIZE`` set) or
     for a forced ``1d`` / ``2d`` layout, unless one is up already:
@@ -155,25 +148,14 @@ def _start_ranks(args, opts: Options) -> tuple[bool, bool]:
     Each rank names its device."""
     if dist.is_initialized():
         return dist.get_rank() == 0, False
-    if "WORLD_SIZE" not in os.environ and args.layout not in ("1d", "2d"):
+    if "WORLD_SIZE" not in os.environ \
+            and args.layout not in ("1d", "2d", "fleet", "fleet2d"):
         return True, False
     dev = launch_mesh.init_distributed(opts.get("-device"))
     rank, world = dist.get_rank(), dist.get_world_size()
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
     print(f"[solve] rank {rank} of {world} on {dev} ({name})", flush=True)
     return rank == 0, True
-
-
-def _all_ranks(ok: bool, device: str) -> bool:
-    """``ok`` on every rank (a MIN all-reduce; the value itself when no
-    process group is up)."""
-    if not dist.is_initialized():
-        return ok
-    dev = torch.device("cuda", torch.cuda.current_device()) \
-        if device == "cuda" else torch.device("cpu")
-    flag = torch.tensor([int(ok)], dtype=torch.int32, device=dev)
-    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
-    return bool(flag.item())
 
 
 def _launch_line(opts: Options, say=print) -> None:
@@ -187,10 +169,13 @@ def _run(args, session: Session, opts: Options, say) -> int:
     ``session``; the exit code."""
     if args.batch > 1:
         fleet = build_fleet(args)
+        mesh, layout = session.placement(fleet_size=args.batch)
+        where = "single" if mesh is None else \
+            f"{layout} over mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
         say(f"[solve] fleet B={args.batch} instance={args.instance} "
             f"n={fleet[0].n_global} m={fleet[0].m_global} "
             f"gammas={[round(float(m.gamma), 6) for m in fleet]} "
-            f"device={opts.get('-device')}")
+            f"device={opts.get('-device')} layout={where}")
         t0 = time.time()
         results = session.solve_fleet(fleet)
         wall = time.time() - t0
@@ -199,7 +184,8 @@ def _run(args, session: Session, opts: Options, say) -> int:
         say(f"[solve] fleet wall={wall:.2f}s "
             f"({wall / args.batch:.2f}s/instance amortized)")
         _launch_line(opts, say)
-        return 0 if all(r.converged for r in results) else 1
+        ok = launch_mesh.all_ranks(all(r.converged for r in results))
+        return 0 if ok else 1
 
     mdp = build_instance(args)
     mesh, layout = session.placement()
@@ -234,7 +220,7 @@ def _run(args, session: Session, opts: Options, say) -> int:
                 f"{' -> '.join(adaptive['methods'])}")
     _launch_line(opts, say)
     say(f"[solve] ||v - v*||_inf <= {r.gap_bound:.3e} (certificate)")
-    ok = _all_ranks(bool(r.converged), opts.get("-device"))
+    ok = launch_mesh.all_ranks(bool(r.converged))
     return 0 if ok else 1
 
 
@@ -270,11 +256,11 @@ def main(argv=None):
     ap.add_argument("--layout", default=None,
                     choices=["auto", "single", "1d", "2d", "fleet",
                              "fleet2d"],
-                    help="option -layout (1d/2d shard over the "
-                         "torch.distributed world; fleet layouts not yet "
-                         "ported, ROADMAP queue 1 item 10)")
+                    help="option -layout (1d/2d shard one MDP over the "
+                         "torch.distributed world; fleet/fleet2d shard a "
+                         "--batch fleet's instances)")
     ap.add_argument("--fleet", type=int, default=None,
-                    help="not yet ported (ROADMAP queue 1 item 10)")
+                    help="option -fleet (fleet-axis size)")
     ap.add_argument("--dtype", default=None, help="option -dtype")
     ap.add_argument("--device", default=None, choices=list(DEVICES),
                     help="option -device (default cuda)")
@@ -301,9 +287,6 @@ def main(argv=None):
         argv = argv[1:]
     args = ap.parse_args(argv)
 
-    err = _not_ported(args)
-    if err:
-        raise SystemExit(err)
     if args.sweep_gamma is not None and args.batch <= 1:
         raise SystemExit("--sweep-gamma needs --batch N (the sweep IS the "
                          "fleet); e.g. --batch 8 --sweep-gamma 0.9 0.9999")
@@ -312,6 +295,9 @@ def main(argv=None):
     if args.single_device:
         args.layout = "single"
     opts = build_options(args)
+    if opts.get("-layout") in ("fleet", "fleet2d") and args.batch <= 1:
+        raise SystemExit(f"-layout {opts.get('-layout')} shards the fleet "
+                         "dim; it needs a fleet (--batch N)")
     lead, started = _start_ranks(args, opts)
     say = print if lead else (lambda *a, **k: None)
     completed = False

@@ -28,7 +28,9 @@ both packages.  Loop shape (continuous batching over shape buckets):
 
 Every device-facing call runs on this one thread; clients only build
 their MDPs, submit, and wait on their request handles (events and record
-queues).
+queues).  Under a mesh the thread runs on rank 0 and relays each dispatch
+to the other ranks first (:class:`repro_torch.serve.server.Server`), so
+every rank runs the same ``solve_fleet`` calls in the same order.
 """
 
 from __future__ import annotations
@@ -77,8 +79,11 @@ class Scheduler:
 
     def __init__(self, session, queue: RequestQueue, cache: ProgramCache,
                  telemetry: Telemetry, *, window: float, max_batch: int,
-                 slot_policy: str, bucketing: str):
+                 slot_policy: str, bucketing: str, relay=None):
         self._session = session
+        # under a mesh: relay(mdps, overrides, monitored) hands each
+        # dispatch to the other ranks before this one solves it
+        self._relay = relay
         self._queue = queue
         self._cache = cache
         self._telemetry = telemetry
@@ -215,9 +220,12 @@ class Scheduler:
         overrides["fleet_bucketing"] = "off"
         on_card = self._session.device.type == "cuda"
         before = ops.launch_counts() if on_card else None
+        monitor = self._demux(batch)
+        if self._relay is not None:
+            self._relay(mdps, overrides, monitor is not None)
         t0 = time.perf_counter()
-        results = self._session.solve_fleet(
-            mdps, monitor=self._demux(batch), **overrides)
+        results = self._session.solve_fleet(mdps, monitor=monitor,
+                                            **overrides)
         seconds = time.perf_counter() - t0
         launches = None if before is None else {
             k: v - before[k] for k, v in ops.launch_counts().items()}

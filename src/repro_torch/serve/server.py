@@ -16,16 +16,29 @@ Counterpart of :mod:`repro.serve.server`:
 Many client threads submit concurrently; one scheduler thread batches
 compatible arrivals into fleet dispatches (see
 :mod:`repro_torch.serve.scheduler`).  Admission control rejects — with
-actionable errors — rather than queueing unboundedly.  A server over a
-mesh (the fleet-sharded layouts) is not ported yet (ROADMAP queue 1 item
-10): it raises when it opens.
+actionable errors — rather than queueing unboundedly.
+
+Under a mesh (a ``torch.distributed`` world whose session places on a
+mesh: ``torchrun``, or a session given a mesh) every rank opens the
+server with the same options.  Rank 0 owns the queue, admission and the
+scheduler; each of its dispatches — the bucket's MDPs, its options and
+whether it is monitored — is broadcast to the other ranks over a gloo
+group, and a follower thread on each of them runs the same
+``Session.solve_fleet`` call, so every bucket is solved by the whole mesh
+(the fleet layouts for ``B > 1``).  Clients submit on rank 0 only; on
+another rank :meth:`Server.submit` raises, and :meth:`Server.close` /
+:meth:`Server.drain` wait for rank 0 to end the stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import traceback
 import weakref
 from typing import Any, Iterator, Mapping
+
+import torch.distributed as dist
 
 from repro_torch.api.mdp import MDP
 from repro_torch.api.options import Options
@@ -37,6 +50,21 @@ from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.stats import Telemetry
 
 __all__ = ["Server"]
+
+
+def _sharded(session: Session) -> bool:
+    """Whether ``session``'s fleet solves run on a mesh (so every rank of
+    the world must run them): a mesh given to it, or a process group and a
+    layout other than ``single`` that is not ``auto`` on a world of one
+    (:meth:`Session.placement`)."""
+    layout = session.options.get("-layout")
+    if layout == "single":
+        return False
+    if session._mesh_override is not None:
+        return True
+    if not (dist.is_available() and dist.is_initialized()):
+        return False
+    return layout != "auto" or dist.get_world_size() > 1
 
 
 def _mdp_family(mdp: MDP) -> tuple:
@@ -69,28 +97,34 @@ class Server:
                              "configure the server)")
         self._own_session = session is None
         self._session = session if session is not None else Session(options)
-        if self._session.placement()[0] is not None:
-            if self._own_session:
-                self._session.close()
-            raise NotImplementedError(
-                "a Server over a mesh (fleet-sharded buckets, the fleet "
-                "layouts) is not yet ported to repro_torch (ROADMAP queue 1 "
-                "item 10); serve on one device (-layout single, or no "
-                "torch.distributed world)")
         opts = self._session.options
         self._queue = RequestQueue(opts.get("-serve_max_queue"),
                                    opts.get("-serve_max_states"))
         self._cache = ProgramCache(opts.get("-serve_program_cache"))
         self._telemetry = Telemetry()
+        self._requests: weakref.WeakValueDictionary = \
+            weakref.WeakValueDictionary()
+        self._closed = False
+        # under a mesh: a gloo group for the dispatch broadcasts, built on
+        # every rank in the same order; rank 0 schedules, the others follow
+        self._group = dist.new_group(backend="gloo") \
+            if _sharded(self._session) else None
+        self._rank = 0 if self._group is None else dist.get_rank()
+        self._ended = self._group is None or dist.get_world_size() == 1
+        self._follower = None
+        if self._rank != 0:
+            self._follower = threading.Thread(
+                target=self._follow, name="madupite-serve-follower",
+                daemon=True)
+            self._follower.start()
+            return
         self._scheduler = Scheduler(
             self._session, self._queue, self._cache, self._telemetry,
             window=opts.get("-serve_batch_window"),
             max_batch=opts.get("-serve_max_batch"),
             slot_policy=opts.get("-serve_slot_policy"),
-            bucketing=opts.get("-fleet_bucketing"))
-        self._requests: weakref.WeakValueDictionary = \
-            weakref.WeakValueDictionary()
-        self._closed = False
+            bucketing=opts.get("-fleet_bucketing"),
+            relay=None if self._ended else self._relay)
         self._scheduler.start()
 
     # ---- lifecycle ---------------------------------------------------------
@@ -107,27 +141,85 @@ class Server:
     def drain(self, timeout: float | None = None) -> bool:
         """Graceful wind-down: reject new submits, finish every queued and
         in-flight bucket.  True when the server went quiescent within
-        ``timeout`` (None = wait indefinitely)."""
-        return self._scheduler.drain(timeout)
+        ``timeout`` (None = wait indefinitely).  Under a mesh a quiescent
+        rank 0 ends the other ranks' follower loops, and on those ranks
+        this waits for that."""
+        if self._rank != 0:
+            self._follower.join(timeout)
+            return not self._follower.is_alive()
+        done = self._scheduler.drain(timeout)
+        if done:
+            self._end_followers()
+        return done
 
     def close(self, timeout: float | None = None) -> None:
         """Drain, stop the scheduler thread, release the owned session.
         Requests still queued after a ``timeout``-bounded drain fail with
-        ``AdmissionError('closed')``."""
+        ``AdmissionError('closed')``.  Under a mesh rank 0 then ends the
+        follower loops, which the other ranks' ``close`` waits for."""
         if self._closed:
             return
         self._closed = True
-        self._scheduler.drain(timeout)
-        self._scheduler.stop()
-        leftovers = self._queue.drain_all()
-        if leftovers:
-            self._telemetry.on_fail(len(leftovers))
-            for r in leftovers:
-                r._fail(AdmissionError(
-                    "closed", f"server closed before request {r.id} was "
-                              f"dispatched"))
+        if self._rank != 0:
+            self._follower.join()
+        else:
+            self._scheduler.drain(timeout)
+            self._scheduler.stop()
+            self._end_followers()
+            leftovers = self._queue.drain_all()
+            if leftovers:
+                self._telemetry.on_fail(len(leftovers))
+                for r in leftovers:
+                    r._fail(AdmissionError(
+                        "closed", f"server closed before request {r.id} "
+                                  f"was dispatched"))
         if self._own_session:
             self._session.close()
+
+    # ---- the mesh: rank 0 relays, the other ranks follow -------------------
+    def _relay(self, mdps: list, overrides: dict, monitored: bool) -> None:
+        """Broadcast one dispatch to the follower ranks (the scheduler
+        thread, before it solves the bucket itself).  Each distinct MDP
+        travels once, as its host tables or its function spec."""
+        seen: dict = {}
+        items, order = [], []
+        for m in mdps:
+            if id(m) not in seen:
+                seen[id(m)] = len(items)
+                core = None if m._core is None else m._core.to("cpu")
+                items.append((core, m._spec, m.mode))
+            order.append(seen[id(m)])
+        dist.broadcast_object_list(
+            [("solve", items, order, overrides, monitored)], src=0,
+            group=self._group)
+
+    def _end_followers(self) -> None:
+        if not self._ended:
+            self._ended = True
+            dist.broadcast_object_list([("stop",)], src=0,
+                                       group=self._group)
+
+    def _follow(self) -> None:
+        """A follower rank's loop: run every dispatch rank 0 relays, until
+        it ends the stream.  A failed dispatch fails on rank 0 too (the
+        same solve), where its requests report it; here it is printed and
+        counted, and the loop goes on to the next."""
+        while True:
+            msg = [None]
+            dist.broadcast_object_list(msg, src=0, group=self._group)
+            if msg[0][0] == "stop":
+                return
+            _, items, order, overrides, monitored = msg[0]
+            made = [MDP(core, mode=mode, spec=spec)
+                    for core, spec, mode in items]
+            try:
+                self._session.solve_fleet(
+                    [made[i] for i in order],
+                    monitor=(lambda rec: None) if monitored else None,
+                    **overrides)
+            except Exception:   # noqa: BLE001 — the loop must go on
+                traceback.print_exc()
+                self._telemetry.on_fail(len(order))
 
     # ---- the client surface ------------------------------------------------
     def submit(self, mdp, *, monitor: bool = False,
@@ -144,6 +236,11 @@ class Server:
         ``too_large`` / ``draining`` / ``closed``) instead of queueing
         unboundedly.
         """
+        if self._rank != 0:
+            raise RuntimeError(
+                f"submit on rank {self._rank}: under a mesh clients submit "
+                f"on rank 0 only (it owns the queue and the scheduler; this "
+                f"rank follows its dispatches)")
         if self._closed:
             self._reject("closed", "server is closed; create a new one")
         if self._scheduler.draining:
@@ -180,6 +277,8 @@ class Server:
         "method" (the one it ran: ``-method auto``'s choice for the
         bucket), "launches" (kernel launches by name on the card, else
         None)}``."""
+        if self._rank != 0:
+            return []
         return self._scheduler.dispatch_log()
 
     def stats(self) -> dict:
@@ -188,8 +287,10 @@ class Server:
         the owning session's cache counters."""
         out = self._telemetry.snapshot()
         out["queue_depth"] = len(self._queue)
-        out["in_flight"] = self._scheduler.in_flight_count()
-        out["draining"] = self._scheduler.draining
+        lead = self._rank == 0
+        out["in_flight"] = self._scheduler.in_flight_count() if lead else 0
+        out["draining"] = self._scheduler.draining if lead \
+            else self._follower is not None and not self._follower.is_alive()
         out["program_cache"] = self._cache.stats()
         out["session_caches"] = self._session.cache_stats
         return out

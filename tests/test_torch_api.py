@@ -196,12 +196,27 @@ def test_cli_on_cpu(capsys):
                                     "--layout", "fleet2d"],
                                    ["--fleet", "2"],
                                    ["--fleet", "4", "--ckpt-dir", "d"]])
-def test_cli_unported_flags_raise(flags):
-    # the fleet-mesh flags are still unported (--layout 1d / 2d are,
-    # tests/test_torch_distributed.py); --batch / --sweep-gamma are ported
-    # (tests/test_torch_fleet.py) and no longer raise on their own
-    with pytest.raises(SystemExit, match="not yet ported.*item 10"):
-        tcli.main(["--device", "cpu", *flags])
+def test_cli_unported_flags_raise(flags, tmp_path, capsys):
+    # the fleet-mesh flags are ported: a fleet layout without a fleet
+    # (--batch) and a sweep without --batch still exit with the
+    # reference's messages; the rest solve (a forced fleet layout on a
+    # world of one rank, here in-process; --fleet sizes a fleet axis that
+    # only a fleet layout has)
+    flags = [str(tmp_path / f) if f == "d" else f for f in flags]
+    argv = ["--device", "cpu", "--instance", "garnet", "--n", "60", "--m",
+            "4", "--k", "3", "--method", "vi", "--atol", "1e-6", *flags]
+    if "--sweep-gamma" in flags:
+        with pytest.raises(SystemExit, match="needs --batch N"):
+            tcli.main(argv)
+    elif "--layout" in flags and "--batch" not in flags:
+        with pytest.raises(SystemExit, match="needs a fleet"):
+            tcli.main(argv)
+    else:
+        assert tcli.main(argv) == 0
+        out = capsys.readouterr().out
+        assert "converged=True" in out and "converged=False" not in out
+        if "--layout" in flags:
+            assert "layout=fleet over mesh {'fleet': 1, 'data': 1}" in out
 
 
 # --------------------------------------------------------------------------- #

@@ -872,3 +872,34 @@ def test_matrix_free_solve_on_the_card_is_the_materialized_solve(cuda,
     solo = [driver.solve(c, opts, device=cuda) for c in cores]
     assert all(_same_bits(f, s) for f, s in zip(fleet, solo))
     assert n_fleet % chunks == 0 and n_fleet < 3 * n_mf["ell_backup"]
+
+
+@pytest.mark.parametrize("layout", ["fleet", "fleet2d"])
+def test_fleet_layout_on_the_card_is_the_mesh_less_fleet(cuda, layout):
+    """A fleet of host garnets under a fleet layout on a world of one rank
+    (NCCL, in this process): the rank stacks its lanes into page-locked
+    memory and copies them to the card; every lane bit for bit the
+    mesh-less fleet, with the same kernel launches."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as lm
+    mdps = [generators.garnet(n=n, m=6, k=4, gamma=0.97, seed=s)
+            for s, n in enumerate((300, 257, 300))]
+    opts = IPIOptions(method="ipi_gmres", dtype="float64", atol=1e-9)
+    ops.reset_launch_counts()
+    base = driver.solve_many(mdps, opts, device="cuda")
+    want = ops.launch_counts()
+    lm.init_distributed("cuda", store=dist.HashStore(), rank=0,
+                        world_size=1)
+    try:
+        mesh = lm.make_fleet_mesh(1, layout=layout, device="cuda")
+        ops.reset_launch_counts()
+        got = driver.solve_many(mdps, opts, mesh=mesh, layout=layout,
+                                device="cuda")
+        assert ops.launch_counts() == want
+    finally:
+        lm.shutdown()
+    for g, w in zip(got, base):
+        assert np.array_equal(g.v.view(np.uint64), w.v.view(np.uint64))
+        assert np.array_equal(g.policy, w.policy)
+        assert (g.outer_iterations, g.inner_iterations) == \
+            (w.outer_iterations, w.inner_iterations)

@@ -216,10 +216,15 @@ def test_warm_start_and_guards():
         tsolve_many(tm[0], to, device="cpu")
     with pytest.raises(ValueError, match="origin"):
         tsolve_many(tm, to, origin=(2, 120), device="cpu")
-    for kw in (dict(mesh=object()), dict(layout="fleet"),
-               dict(pad_fleet=False)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            tsolve_many(tm, to, device="cpu", **kw)
+    # the fleet layouts need a mesh; pad_fleet only acts on one
+    with pytest.raises(ValueError, match="mesh"):
+        tsolve_many(tm, to, device="cpu", layout="fleet")
+    with pytest.raises(ValueError, match="unknown layout"):
+        tsolve_many(tm, to, device="cpu", layout="3d")
+    plain = tsolve_many(tm, to, device="cpu")
+    unpadded = tsolve_many(tm, to, device="cpu", pad_fleet=False)
+    for a, b in zip(unpadded, plain):
+        np.testing.assert_array_equal(_bits(a.v), _bits(b.v))
 
 
 def test_pre_batched_container_with_origin_is_trimmed():
@@ -375,12 +380,16 @@ def test_session_solve_fleet_guards():
         assert s.solve_fleet(mdps[:1], method="auto",
                              atol=1e-4)[0].converged
         assert s.stats[-1]["fleet"]["auto"][0]["method"] != "auto"
-    for key in ("-fleet", "-pad_fleet"):
-        with pytest.raises(tapi.UnknownOptionError, match="queue 1 item 10"):
-            tapi.Options({key: "fleet"})
-    # -layout is a key now (1d / 2d are ported); its fleet values are not
-    with pytest.raises(tapi.OptionTypeError, match="queue 1 item 10"):
-        tapi.Options({"-layout": "fleet"})
+    # the fleet-mesh keys are ported, with the reference's types and rules
+    opts = tapi.Options({"-fleet": 2, "-pad_fleet": False,
+                         "-layout": "fleet2d"})
+    assert (opts.get("-fleet"), opts.get("-pad_fleet"),
+            opts.get("-layout")) == (2, False, "fleet2d")
+    assert tapi.Options().get("-fleet") is None
+    with pytest.raises(tapi.OptionTypeError, match="must be > 0"):
+        tapi.Options({"-fleet": 0})
+    with pytest.raises(tapi.OptionTypeError):
+        tapi.Options({"-layout": "fleet3d"})
 
 
 def test_cli_gamma_sweep_on_cpu(capsys):

@@ -160,8 +160,12 @@ def test_layouts_name_their_dims_and_fleet_raises():
     _, mesh = _fake_mesh((2, 2), ("data", "model"))
     assert tpart.layout_dims(mesh, "1d") == (("data", "model"), ())
     assert tpart.layout_dims(mesh, "2d") == (("data",), ("model",))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tpart.layout_dims(mesh, "fleet")
+    # the fleet layouts are ported: the leading axis shards the lanes
+    assert tpart.layout_dims(mesh, "fleet") == (("model",), ())
+    assert tpart.fleet_dims(mesh, "fleet") == ("data",)
+    assert tpart.fleet_dims(mesh, "2d") == ()
+    with pytest.raises(ValueError, match="make_fleet_mesh"):
+        tpart.layout_dims(mesh, "fleet2d")
     with pytest.raises(ValueError, match="unknown layout"):
         tpart.layout_dims(mesh, "3d")
     _, flat = _fake_mesh((4,), ("data",))
@@ -209,5 +213,7 @@ def test_single_shard_windows(halo, lead):
     w32 = bellman.gather_v(x, axes, halo=halo, dtype=torch.float32)
     assert w32.dtype == torch.float32 and torch.equal(w32, want.float())
     assert axes.psum_ordered(x) is x and axes.state_size() == 1
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        axes.any_fleet(x)
+    # no fleet axis: the fleet collectives are the identity
+    assert axes.any_fleet(x) is x and axes.pmax_fleet(x) is x
+    assert axes.allgather_fleet(x) is x
+    assert (axes.fleet_index(), axes.fleet_size()) == (0, 1)

@@ -329,9 +329,34 @@ def test_close_fails_undispatched_requests_and_junk_submits():
 
 
 def test_server_over_a_mesh_is_not_ported():
-    with tapi.Session(TBASE, mesh="a mesh") as s:
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            Server(session=s)
+    """A Server over a mesh (a world of one gloo rank in this process, a
+    fleet mesh given to its session) solves its buckets under the fleet
+    layout, each request bit for bit its solo solve; the multi-rank server
+    runs in tests/test_torch_fleet_sharded.py."""
+    import torch.distributed as dist
+    from repro_torch.core import driver as tdriver
+    from repro_torch.core.ipi import IPIOptions as TOpts
+    from repro_torch.launch import mesh as lm
+    lm.init_distributed("cpu", store=dist.HashStore(), rank=0,
+                        world_size=1)
+    try:
+        mesh = lm.make_fleet_mesh(1, device="cpu")
+        mdps = [_mdps(_garnet(n, i), tapi) for i, n in
+                enumerate((60, 80, 60))]
+        with tapi.Session({**TBASE, **BASE}, mesh=mesh) as s:
+            assert s.placement(fleet_size=3) == (mesh, "fleet")
+            with Server(session=s) as srv:
+                reqs = [srv.submit(m) for m in mdps]
+                got = [r.result(timeout=TIMEOUT) for r in reqs]
+            assert s.stats[-1]["layout"] == "fleet"
+        for m, r in zip(mdps, got):
+            solo = tdriver.solve(m.core, TOpts(method="vi", atol=1e-8,
+                                               dtype="float64"),
+                                 device="cpu")
+            assert np.array_equal(r.v.view(np.uint64), solo.v.view(np.uint64))
+            assert r.outer_iterations == solo.outer_iterations
+    finally:
+        lm.shutdown()
     with pytest.raises(ValueError, match="OR an existing session"):
         Server(BASE, session=tapi.Session(TBASE))
 
