@@ -4,7 +4,11 @@
 
 Run from the repository root; it needs one CUDA device, ``nvcc`` and the
 repository's ``src/`` next to this file, and exits non-zero (printing no
-result) without them.  Phases, each of which raises on failure:
+result) without them.  Every phase but 3t runs with the kernels' launch
+tuner off (their fixed launch shapes), in this process and in every
+process it starts (``MADUPITE_OPTIONS``), and every process points the
+tuner at ``build/chip_smoke/autotune.json``.  Phases, each of which
+raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
@@ -202,6 +206,23 @@ result) without them.  Phases, each of which raises on failure:
    ``-serve_max_states`` (materialized) and one over its byte budget
    (matrix-free) raise ``AdmissionError("too_large")``, and ``drain``
    completes the work in flight;
+   (3t) the kernel options and the launch tuner: (a) where the tables
+   live — the phase-2 garnet after 3s, 3h (d)'s B = 4 fleets, 3n (a)'s
+   shared-table chunk (B = 4), phase 5's P — every candidate launch
+   shape (``ell_backup`` / ``ell_matvec``: 128, 256, 512 threads a CTA,
+   for a fleet each in both grid orders; ``dense_backup``: 4, 8, 16 warps)
+   bit for bit the plain version in float32 and float64, each timed
+   (median of 10, as ``time_ms``), beside the default's time and the
+   winner the dispatch picks with the tuner on; after 3s, (b) 3a's CLI
+   solve with a fresh cache and tuning on: 3a's policy, counts, value
+   bits and launches, the tune launches and the tuning's share of the
+   wall; (c) the same CLI in a second process on the same file: 0 tune
+   launches, the same shapes, the file unchanged; (d) ``driver.solve``
+   with ``impl="torch"`` on the card: no hand kernel launched, 3a's bits;
+   (e) the CLI with ``--device cpu --option kernel_impl=cuda`` exits
+   non-zero; (f) ``examples/torch/quickstart.py`` and
+   ``epidemic_control.py`` exit 0 on the card with both ELL kernels
+   launched;
 9. the LM serving path, minitron-8b (32 layers, d_model 4096, 32 query /
    8 KV heads, d_head 128, vocab 256,000, bf16, random weights from a
    seed):
@@ -234,7 +255,8 @@ result) without them.  Phases, each of which raises on failure:
    ``idx`` kind and dtype; the ELL kernels' also carry phase 3m (a)'s
    ``sharded_1d`` / ``sharded_2d`` counts and phase 3n's ``mf_*`` paths;
    rows 1-3 also phase 3s's ``auto_cli``, ``auto_swap`` and ``serve``,
-   and phase 3p's ``fleet_*`` paths.
+   and phase 3p's ``fleet_*`` paths; rows 1-3 carry ``launch_shapes``,
+   phase 3t (a)'s rows.
 """
 
 from __future__ import annotations
@@ -246,6 +268,7 @@ import io
 import json
 import os
 import re
+import shlex
 import shutil
 import statistics
 import subprocess
@@ -1295,6 +1318,8 @@ def chunk_kernel_checks(spec, n: int, bn: int, gammas, device: str) -> list:
             out.append(row)
             log(f"[phase3n] (a) ell_backup_chunk: {json.dumps(row)}; bit "
                 f"for bit the plain version on the CPU")
+            if lanes is not None and device == "cuda":
+                chunk_candidates(tables, g, v)
     return out
 
 
@@ -1593,6 +1618,7 @@ def ranks_main(device: str, n: int = N, maze_size: int = MAZE_SIZE) -> int:
     from repro_torch.core.ipi import IPIOptions
     from repro_torch.launch import mesh as lm
 
+    tuner_off()
     dev = lm.init_distributed(device)
     world, rank = dist.get_world_size(), dist.get_rank()
     try:
@@ -1766,6 +1792,8 @@ def fleet_paths(mdp) -> dict:
     out["kernels"] = fleet_kernel_checks(
         {"shared": shared, "batched": seeds}, gammas,
         np.random.default_rng(7))
+    fleet_candidates({"shared": shared, "batched": seeds}, gammas,
+                     np.random.default_rng(9))
     ops.reset_launch_counts()
     q = ops.ell_qvalues(seeds.idx, seeds.val, seeds.cost, GAMMA,
                         torch.zeros((FLEET_B, N), dtype=torch.float64,
@@ -2914,11 +2942,400 @@ def serve_paths(mdp, main: dict) -> dict:
 
 
 
+# --------------------------------------------------------------------------- #
+# phase 3t: the kernel options and the launch tuner                           #
+# --------------------------------------------------------------------------- #
+
+TUNE_CACHE = OUT / "autotune.json"       # the tuner cache of every process
+TUNE_CANDIDATES = OUT / "autotune_3t_a.json"  # 3t (a)'s winners
+TUNE_REPS = 10                           # 3t (a): timed calls a candidate
+EXAMPLE_TIMEOUT = 300                    # 3t (c), (e), (f): each process
+# 3t (a)'s rows (kernel, form, dtype, the candidates' ms, the default's,
+# the tuner's winner, the bound), and each sub-phase's seconds
+TUNE = {"rows": [], "seconds": {}}
+
+
+def tuner_off() -> None:
+    """Before phase 2: the earlier phases run with the launch tuner off
+    (the kernels' fixed shapes, so that their walls compare with runs
+    before the tuner), in this process and every process it starts, all pointed at :data:`TUNE_CACHE` under
+    ``build/`` (``MADUPITE_OPTIONS``), so that no run writes elsewhere."""
+    from repro_torch.kernels import tuning
+
+    os.environ["MADUPITE_OPTIONS"] = " ".join(filter(None, (
+        os.environ.get("MADUPITE_OPTIONS", ""), "-kernel_tune off",
+        f"-kernel_tune_cache {shlex.quote(str(TUNE_CACHE))}")))
+    tuning.configure(enabled=False, cache_path=str(TUNE_CACHE))
+    TUNE_CANDIDATES.unlink(missing_ok=True)
+
+
+@contextlib.contextmanager
+def tuner_on(path: Path, fresh: bool = True):
+    """The tuner on, on the file ``path`` (emptied first if ``fresh``), for
+    the body; off again on :data:`TUNE_CACHE` after it."""
+    from repro_torch.kernels import tuning
+
+    if fresh:
+        path.unlink(missing_ok=True)
+    tuning.reset(cache_path=str(path))
+    try:
+        yield tuning
+    finally:
+        tuning.reset(cache_path=str(TUNE_CACHE))
+        tuning.configure(enabled=False)
+
+
+def tune_key(kernel: str, n: int, m: int, k: int, dt) -> str:
+    from repro_torch.kernels import tuning
+
+    return tuning.cache_key(kernel, tuning.backend(torch.device("cuda")), n,
+                            m, k, str(dt).replace("torch.", ""))
+
+
+def candidate_rows(kernel: str, case: str, key: str, dt, cands, default,
+                   run, plain, tuned, nbytes: int, flops: int) -> dict:
+    """3t (a): every candidate launch shape of one call bit for bit its
+    plain version's outputs, each timed (median of :data:`TUNE_REPS`
+    CUDA-event calls behind a spin); then ``tuned()``, the dispatch with
+    the tuner on, whose winner is read back by its key."""
+    from repro_torch.kernels import ops
+
+    want = plain()
+    torch.cuda.synchronize()
+    times = {}
+    for c in cands:
+        got = run(c)
+        torch.cuda.synchronize()
+        if not all(bits_equal(a, w) for a, w in zip(got, want)):
+            raise AssertionError(
+                f"3t (a) {key} candidate {c}: != plain version (max |diff| "
+                f"{max(max_abs_diff(a, w) for a, w in zip(got, want))})")
+        times[str(c)] = time_ms(lambda c=c: run(c), reps=TUNE_REPS)
+    del got, want
+    with tuner_on(TUNE_CANDIDATES, fresh=False):
+        out = tuned()
+        torch.cuda.synchronize()
+        winner = ops.launch_shapes()[key]
+    del out
+    b_ms, b_by = bound_ms(nbytes, flops, dt)
+    row = dict(kernel=kernel, case=case, key=key,
+               dtype=str(dt).replace("torch.", ""),
+               ms_by_candidate=times, default=str(default),
+               default_ms=times[str(default)], winner=str(winner),
+               winner_ms=times[str(winner)],
+               best=min(times, key=times.get), bound_ms=b_ms, bound_by=b_by)
+    TUNE["rows"].append(row)
+    log(f"[phase3t] (a) {json.dumps(row)}; every candidate bitwise equal")
+    return row
+
+
+def ell_candidates(mdp, gen) -> None:
+    """3t (a) on the phase-2 garnet: ``ell_backup`` and ``ell_matvec``
+    unbatched, each CTA size, in both dtypes."""
+    from repro_torch.kernels import bellman_ell, lanes, ops, ref, spmv_ell
+
+    t0 = time.perf_counter()
+    idx, val, cost = mdp.idx, mdp.val, mdp.cost
+    n, m, k = idx.shape
+    rows_i, rows_v = idx[:, 0].contiguous(), val[:, 0].contiguous()
+    for dt in (torch.float64, torch.float32):
+        v = torch.from_numpy(gen.random(n) * 50.0).to("cuda", dt)
+        candidate_rows(
+            "ell_backup", "unbatched", tune_key("ell_backup", n, m, k, dt),
+            dt,
+            lanes.THREADS, lanes.DEFAULT_THREADS,
+            lambda t: bellman_ell.ell_backup(idx, val, cost, GAMMA, v,
+                                             threads=t),
+            lambda: ref.ell_backup(idx, val, cost, GAMMA, v),
+            lambda: ops.ell_backup(idx, val, cost, GAMMA, v),
+            idx.nbytes + val.nbytes + cost.nbytes + v.nbytes
+            + n * (v.element_size() + 4), n * m * (2 * k + 3))
+        candidate_rows(
+            "ell_matvec", "unbatched", tune_key("ell_matvec", n, 1, k, dt),
+            dt,
+            lanes.THREADS, lanes.DEFAULT_THREADS,
+            lambda t: (spmv_ell.ell_matvec(rows_i, rows_v, v, threads=t),),
+            lambda: (ref.ell_matvec(rows_i, rows_v, v),),
+            lambda: ops.ell_matvec(rows_i, rows_v, v),
+            rows_i.nbytes + rows_v.nbytes + 2 * v.nbytes, 2 * n * k)
+    TUNE["seconds"]["(a) ell"] = time.perf_counter() - t0
+
+
+def fleet_candidates(fleets: dict, gammas, gen) -> None:
+    """3t (a) on 3h's B = 4 fleets (a shared and a batched ``idx``):
+    ``ell_backup`` and ``ell_matvec``, each CTA size in both grid
+    orders, in both dtypes."""
+    from repro_torch.kernels import bellman_ell, lanes, ops, ref, spmv_ell
+
+    t0 = time.perf_counter()
+    cands = [f"{t}/{o}" for t in lanes.THREADS for o in lanes.LANE_ORDERS]
+    default = f"{lanes.DEFAULT_THREADS}/{lanes.LANE_ORDER}"
+    split = lambda c: (int(c.split("/")[0]), c.split("/")[1])
+    for kind, f in fleets.items():
+        b_, n, m, k = f.val.shape
+        rows_i = f.idx[..., 0, :].contiguous()
+        rows_v = f.val[:, :, 0].contiguous()
+        for dt in (torch.float64, torch.float32):
+            v = torch.from_numpy(gen.random((b_, n)) * 50.0).to("cuda", dt)
+            g = torch.tensor(gammas, dtype=dt, device="cuda") \
+                if kind == "shared" else GAMMA
+            candidate_rows(
+                "ell_backup", f"B={b_} {kind} idx",
+                tune_key("ell_backup[fleet]", n, m, k, dt), dt, cands,
+                default,
+                lambda c: bellman_ell.ell_backup(
+                    f.idx, f.val, f.cost, g, v, threads=split(c)[0],
+                    lane_order=split(c)[1]),
+                lambda: ref.ell_backup(f.idx, f.val, f.cost, g, v),
+                lambda: ops.ell_backup(f.idx, f.val, f.cost, g, v),
+                f.idx.nbytes + f.val.nbytes + f.cost.nbytes + v.nbytes
+                + b_ * n * (v.element_size() + 4), b_ * n * m * (2 * k + 3))
+            candidate_rows(
+                "ell_matvec", f"B={b_} {kind} idx",
+                tune_key("ell_matvec[fleet]", n, 1, k, dt), dt, cands,
+                default,
+                lambda c: (spmv_ell.ell_matvec(
+                    rows_i, rows_v, v, threads=split(c)[0],
+                    lane_order=split(c)[1]),),
+                lambda: (ref.ell_matvec(rows_i, rows_v, v),),
+                lambda: ops.ell_matvec(rows_i, rows_v, v),
+                rows_i.nbytes + rows_v.nbytes + 2 * v.nbytes, 2 * b_ * n * k)
+    TUNE["seconds"]["(a) fleet"] = time.perf_counter() - t0
+
+
+def chunk_candidates(tables, g, v) -> None:
+    """3t (a) on 3n (a)'s rebuilt chunk in its shared-table fleet form
+    (B = 4 value vectors over one chunk): each CTA size in both grid
+    orders."""
+    from repro_torch.kernels import bellman_ell, lanes, ops, ref
+
+    t0 = time.perf_counter()
+    idx, val, cost = tables
+    bn, m, k = idx.shape
+    b_ = v.shape[0]
+    split = lambda c: (int(c.split("/")[0]), c.split("/")[1])
+    candidate_rows(
+        "ell_backup", f"3n chunk of {bn} rows, B={b_} shared tables",
+        tune_key("ell_backup[shared]", bn, m, k, v.dtype), v.dtype,
+        [f"{t}/{o}" for t in lanes.THREADS for o in lanes.LANE_ORDERS],
+        f"{lanes.DEFAULT_THREADS}/{lanes.LANE_ORDER}",
+        lambda c: bellman_ell.ell_backup(idx, val, cost, g, v,
+                                         threads=split(c)[0],
+                                         lane_order=split(c)[1]),
+        lambda: ref.ell_backup(idx, val, cost, g, v),
+        lambda: ops.ell_backup_chunk(idx, val, cost, g, v),
+        idx.nbytes + val.nbytes + cost.nbytes + v.nbytes
+        + b_ * bn * (v.element_size() + 4),
+        b_ * idx.numel() * 2 + b_ * cost.numel() * 3)
+    TUNE["seconds"]["(a) chunk"] = TUNE["seconds"].get("(a) chunk", 0.0) \
+        + time.perf_counter() - t0
+
+
+def dense_candidates(dmdp, gen) -> None:
+    """3t (a) on phase 5's P: ``dense_backup`` at each CTA size (warps),
+    in both dtypes."""
+    from repro_torch.kernels import dense_backup, ops, ref
+
+    t0 = time.perf_counter()
+    p, cost = dmdp.p, dmdp.cost
+    n, m, n_cols = p.shape
+    for dt in (torch.float32, torch.float64):
+        v = torch.from_numpy(gen.random(n_cols) * 50.0).to("cuda", dt)
+        candidate_rows(
+            "dense_backup", "unbatched", tune_key("dense_backup", n, m, n_cols, dt), dt,
+            dense_backup.WARPS, dense_backup.DEFAULT_WARPS,
+            lambda w: dense_backup.dense_backup(p, cost, GAMMA, v, warps=w),
+            lambda: ref.dense_backup(p, cost, GAMMA, v),
+            lambda: ops.dense_backup(p, cost, GAMMA, v),
+            p.nbytes + cost.nbytes + v.nbytes + n * (v.element_size() + 4),
+            n * m * (2 * n_cols + 3))
+    TUNE["seconds"]["(a) dense"] = time.perf_counter() - t0
+
+
+def solve_lines(out: str) -> dict:
+    """The CLI's kernel launches, tune launches and launch shapes."""
+    counts = lambda tag: {k: int(v) for k, v in re.findall(
+        r"(\w+)=(\d+)", _line(out, f"[solve] {tag}:"))}
+    return dict(launches=counts("kernel launches"),
+                tune_launches=counts("tune launches"),
+                shapes=json.loads(_line(out, "[solve] launch shapes:")
+                                  .split(":", 1)[1]))
+
+
+def _line(out: str, prefix: str) -> str:
+    lines = [ln for ln in out.splitlines() if ln.startswith(prefix)]
+    if len(lines) != 1:
+        raise AssertionError(f"want one {prefix!r} line, got {lines}")
+    return lines[0]
+
+
+def run_example(name: str, *args, env=None) -> tuple[int, str, float]:
+    """``python examples/torch/<name>.py ARGS`` in a process of its own:
+    its exit code, standard output and wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py"),
+         *args], env=env or dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT)
+    if proc.returncode != 0:
+        log(f"[phase3t] {name} stderr: {proc.stderr[-2000:]}")
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
+def kernel_option_paths(mdp, main: dict) -> dict:
+    """Phase 3t (b)-(f) on the phase-2 garnet (module docstring); 3t (a)'s
+    rows were taken where their tables lived."""
+    from repro_torch.core import driver
+    from repro_torch.core.ipi import IPIOptions
+    from repro_torch.kernels import ops, tuning
+    from repro_torch.launch import solve as cli
+
+    t_start = time.perf_counter()
+    out = {"earlier_phases": "tuning off, cache " + str(TUNE_CACHE)}
+    log(f"[phase3t] phases 2-3s, 2d-4f ran with the launch tuner off (the "
+        f"kernels' fixed shapes, as before the tuner), MADUPITE_OPTIONS="
+        f"{os.environ['MADUPITE_OPTIONS']!r}")
+    env_src = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # (e) -kernel_impl cuda on the host must fail: started first, on the CPU
+    bad = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.solve", "--instance",
+         "garnet", "--n", "1000", "--device", "cpu", "--option",
+         "kernel_impl=cuda"], env=env_src, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    # (b) 3a's CLI solve with a fresh cache and tuning on
+    argv = ["--instance", "garnet", "--n", str(N), "--m", str(M), "--k",
+            str(K), "--gamma", str(GAMMA), "--method", "ipi_gmres",
+            "--atol", "1e-8"]
+    v_path, pi_path = OUT / "tuned_v.npy", OUT / "tuned_pi.npy"
+    with tuner_on(TUNE_CACHE):
+        ops.reset_launch_counts()
+        s0 = tuning.tuned_seconds()
+        t0 = time.perf_counter()
+        rc, text = run_cli(cli.main, argv + [
+            "--option", "kernel_tune=on", "--option",
+            f"kernel_tune_cache={TUNE_CACHE}", "--option",
+            f"file_cost={v_path}", "--option", f"file_policy={pi_path}"])
+        wall = time.perf_counter() - t0
+        tuned_s = tuning.tuned_seconds() - s0
+    if rc != 0:
+        raise AssertionError(f"3t (b) tuned CLI exited {rc}")
+    first = solve_lines(text)
+    v, pi = np.load(v_path), np.load(pi_path)
+    counts = tuple(map(int, re.search(r"outer=(\d+) inner=(\d+)",
+                                      text).groups()))
+    want = {k: c for k, c in main["launches"]["cli_ipi_gmres"].items()}
+    if not (np.array_equal(v.view(np.uint64), main["cli_v"].view(np.uint64))
+            and np.array_equal(pi, main["cli_pi"])
+            and counts == (main["cli_outer"], main["cli_inner"])
+            and first["launches"] == want):
+        raise AssertionError(
+            f"3t (b) tuned CLI: counts {counts}, launches "
+            f"{first['launches']} against 3a's "
+            f"{(main['cli_outer'], main['cli_inner'])}, {want}; values "
+            f"bitwise {np.array_equal(v.view(np.uint64), main['cli_v'].view(np.uint64))}")
+    if not sum(first["tune_launches"].values()):
+        raise AssertionError("3t (b): a fresh cache and tuning on timed "
+                             "no candidate")
+    cache = TUNE_CACHE.read_bytes()
+    out["b"] = dict(wall_s=wall, tuning_s=tuned_s,
+                    tuning_share=tuned_s / wall, launches=first["launches"],
+                    tune_launches=first["tune_launches"])
+    log(f"[phase3t] (b) CLI ipi_gmres f64, fresh cache, tuning on: 3a's "
+        f"policy, counts {counts}, value bits and launches "
+        f"{first['launches']}; tune launches {first['tune_launches']}; "
+        f"wall {wall:.2f}s of which tuning {tuned_s:.3f}s "
+        f"({100 * tuned_s / wall:.1f}%)")
+
+    # (c) a second process reading the same file tunes nothing
+    env_tuned = dict(env_src, MADUPITE_OPTIONS=(
+        f"-kernel_tune on -kernel_tune_cache "
+        f"{shlex.quote(str(TUNE_CACHE))}"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.solve",
+                           *argv], env=env_tuned, capture_output=True,
+                          text=True, timeout=EXAMPLE_TIMEOUT)
+    wall_c = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"3t (c) second CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    second = solve_lines(proc.stdout)
+    # the in-process CLI printed every shape this process resolved so far
+    out["b"]["shapes"] = {key: first["shapes"].get(key)
+                          for key in second["shapes"]}
+    same = out["b"]["shapes"] == second["shapes"]
+    if sum(second["tune_launches"].values()) or not same \
+            or not second["shapes"] \
+            or second["launches"] != first["launches"] \
+            or TUNE_CACHE.read_bytes() != cache:
+        raise AssertionError(f"3t (c) second process: tune launches "
+                             f"{second['tune_launches']}, shapes "
+                             f"{second['shapes']} against "
+                             f"{out['b']['shapes']}, launches "
+                             f"{second['launches']}")
+    out["c"] = dict(wall_s=wall_c, **second)
+    log(f"[phase3t] (c) a second CLI process on the same file: 0 tune "
+        f"launches, the same shapes {json.dumps(second['shapes'])}, "
+        f"launches {second['launches']}, file unchanged, {wall_c:.1f}s")
+
+    # (d) -kernel_impl torch on the card: no hand kernel, 3a's bits
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = driver.solve(mdp, IPIOptions(method="ipi_gmres", dtype="float64",
+                                     atol=1e-8, max_outer=2000,
+                                     impl="torch"), device="cuda")
+    wall_d = time.perf_counter() - t0
+    plain = ops.launch_counts()
+    if any(plain.values()) or not (
+            np.array_equal(r.v.view(np.uint64),
+                           main["cli_v"].view(np.uint64))
+            and np.array_equal(r.policy, main["cli_pi"])
+            and (r.outer_iterations, r.inner_iterations)
+            == (main["cli_outer"], main["cli_inner"])):
+        raise AssertionError(f"3t (d) -kernel_impl torch: launches {plain}, "
+                             f"{r.summary()}")
+    out["d"] = dict(wall_s=wall_d, launches=plain)
+    log(f"[phase3t] (d) -kernel_impl torch on the card: no kernel launched "
+        f"{plain}, 3a's bits, policy and counts; wall {wall_d:.2f}s")
+
+    # (f) two examples on the card, their MDP kernels launched
+    out["f"] = {}
+    for name, args in (("quickstart", ()), ("epidemic_control", ())):
+        rc, text, wall_f = run_example(name, *args, env=env_tuned)
+        launched = {k: int(c) for k, c in re.findall(
+            r"(\w+)=(\d+)", _line(text, "kernel launches:"))} if rc == 0 \
+            else {}
+        if rc != 0 or not (launched.get("ell_backup")
+                           and launched.get("ell_matvec")):
+            raise AssertionError(f"3t (f) examples/torch/{name}.py exited "
+                                 f"{rc}, launches {launched}")
+        out["f"][name] = dict(wall_s=wall_f, launches=launched)
+        log(f"[phase3t] (f) examples/torch/{name}.py on the card: exit 0 in "
+            f"{wall_f:.1f}s, launches {launched}")
+
+    # (e) collected last
+    try:
+        _, err = bad.communicate(timeout=EXAMPLE_TIMEOUT)
+    finally:
+        if bad.poll() is None:
+            bad.kill()
+            bad.wait()
+    if bad.returncode == 0 or "take CUDA tensors" not in err:
+        raise AssertionError(f"3t (e) --device cpu kernel_impl=cuda exited "
+                             f"{bad.returncode}: {err[-1000:]}")
+    out["e"] = dict(returncode=bad.returncode)
+    log(f"[phase3t] (e) CLI --device cpu --option kernel_impl=cuda: exit "
+        f"{bad.returncode}, {err.strip().splitlines()[-1]}")
+    TUNE["seconds"]["(b)-(f)"] = time.perf_counter() - t_start
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    tuner_off()
     t_start = time.perf_counter()
 
     def stamp(phase: str) -> None:
@@ -2981,6 +3398,9 @@ def main() -> int:
     stamp("3s")
     serve = serve_paths(mdp, path)
     path["launches"].update(serve["launches"])
+    stamp("3t")
+    ell_candidates(mdp, np.random.default_rng(11))
+    kopt = kernel_option_paths(mdp, path)
     del mdp
     torch.cuda.empty_cache()
 
@@ -2993,6 +3413,8 @@ def main() -> int:
         f"({dmdp.p.nbytes / 1e9:.1f} GB) in {time.perf_counter() - t0:.1f}s")
     stamp("2d")
     dchecks = dense_kernel_checks(dmdp, np.random.default_rng(2))
+    stamp("3t (a) dense")
+    dense_candidates(dmdp, np.random.default_rng(10))
     dpath = dense_main_path(ell, dmdp)
     where_time_goes(dmdp, "phase3e")
     del ell, dmdp
@@ -3030,7 +3452,8 @@ def main() -> int:
             library_ms=f64["library_ms"], dtype="float64", float32=f32,
             local_ms=f64["local_ms"], resources=ell_resources[name],
             shape=dict(n=N, m=M, k=K),
-            batched=batched_rows(fleet["kernels"][name])))
+            batched=batched_rows(fleet["kernels"][name]),
+            launch_shapes=[r for r in TUNE["rows"] if r["kernel"] == name]))
     f32, f64 = dchecks["float32"], dchecks["float64"]
     kernels.append(dict(
         name="dense_backup", route="cuda",
@@ -3045,7 +3468,9 @@ def main() -> int:
         bound_by=f32["bound_by"], library_ms=f32["library_ms"],
         library=f32["library"], dtype="float32", float64=f64,
         shape=dict(n=DN, m=DM, n_cols=DN),
-        batched=batched_rows(dfleet["kernel"])))
+        batched=batched_rows(dfleet["kernel"]),
+        launch_shapes=[r for r in TUNE["rows"]
+                       if r["kernel"] == "dense_backup"]))
     f64, f32 = qchecks["float64"], qchecks["float32"]
     kernels.append(dict(
         name="ell_qvalues", route="cuda",
@@ -3079,6 +3504,10 @@ def main() -> int:
                 "enable_gqa=True)",
         dtype="bfloat16", shape=main_case["shape"], cases=fchecks,
         resources=fresources))
+    log(f"[phase3t] kernel options and the tuner: "
+        f"{json.dumps(TUNE['seconds'])}, "
+        f"{sum(TUNE['seconds'].values()):.1f}s in all; "
+        f"{json.dumps(kopt)}")
     stamp("end")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,14 +12,21 @@ Ported keys: the solver keys of ``IPIOptions`` (``-method``, ``-mode``,
 ``-mpi_sweeps``, ``-anderson_window``, ``-monitor``, ``-monitor_mode``,
 ``-safeguard``, ``-deterministic_dots``, ``-pc_type``, ``-pc_block``,
 ``-divtol``, ``-dtype``, ``-halo``, ``-gather_dtype``, ``-comm_overlap``,
-``-async_sweeps``), the adaptive layer's ``-probe_iters`` and
+``-async_sweeps``, ``-kernel_impl`` with its alias ``-impl``), the
+kernel tuner's ``-kernel_tune`` and ``-kernel_tune_cache``, the adaptive
+layer's ``-probe_iters`` and
 ``-adapt_on_stagnation``, the solve loop's ``-chunk``, ``-checkpoint_dir``
 and ``-verbose``, the placement's ``-layout``
 (``auto|single|1d|2d|fleet|fleet2d``), ``-fleet``, ``-pad_fleet`` and
 ``-fleet_bucketing``, function-backed MDPs' ``-mdp_materialize``, the
 solve server's ``-serve_*`` keys, the outputs ``-file_stats`` /
 ``-file_stats_format`` / ``-file_policy`` / ``-file_cost``, and the
-port's own ``-device``.
+port's own ``-device``.  ``-kernel_impl`` takes the port's names (``auto``,
+``torch``, ``blocked``, ``cuda``) and the JAX package's ``xla`` /
+``pallas`` for ``torch`` / ``cuda``, so that an options file written for
+the JAX package runs here.  The JAX package's ``-xla_flag_bundle`` has no
+counterpart (PyTorch reads no ``XLA_FLAGS``): it raises
+:class:`UnknownOptionError` saying so.
 :func:`option_table` renders the registry as the README's table.
 """
 
@@ -34,6 +41,7 @@ from repro_torch.core import methods as _methods
 from repro_torch.core.ipi import IPIOptions, MODES
 from repro_torch.core.solvers import PC_TYPES
 from repro_torch.device import DEVICES
+from repro_torch.kernels import ops as _ops
 
 __all__ = ["OptionSpec", "OPTION_SPECS", "Options", "UnknownOptionError",
            "OptionTypeError", "option_table"]
@@ -247,6 +255,25 @@ _SPECS = [
                "watch any solve (fixed -method too) for stagnation or "
                "divergence between chunks and hot-swap to the next method "
                "in the escalation chain, resuming from the current state"),
+    OptionSpec("-kernel_impl", str, None,
+               "kernel implementation (auto = the hand-written CUDA "
+               "kernels on the card at tuned launch shapes, the plain "
+               "PyTorch versions on the CPU; torch = the plain versions; "
+               "blocked = the plain blocked versions, tuned rows a chunk; "
+               "cuda = the hand-written kernels, raises on the CPU; the "
+               "JAX package's xla / pallas name torch / cuda); '-impl' is "
+               "accepted as an alias",
+               choices_doc=" \\| ".join(
+                   f"`{c}`" for c in _ops.IMPLS + tuple(_ops.ALIASES)),
+               nullable=True, validate=_ops.check_impl),
+    OptionSpec("-kernel_tune", str, "on",
+               "launch-shape autotuner: time the hand-written kernels' "
+               "CTA sizes and grid orders (blocked: rows a chunk) per "
+               "(card, shape, dtype) and persist the winners",
+               choices=("on", "off")),
+    OptionSpec("-kernel_tune_cache", str, None,
+               "autotune cache path (default ~/.cache/madupite/"
+               "autotune.json)", nullable=True),
     OptionSpec("-dtype", str, "float32", "value-vector dtype",
                choices=("float32", "float64")),
     OptionSpec("-halo", int, 0,
@@ -360,11 +387,21 @@ _IPI_FIELDS = {
     "-omega": "omega", "-mpi_sweeps": "mpi_sweeps",
     "-anderson_window": "anderson_window", "-monitor": "monitor",
     "-safeguard": "safeguard", "-deterministic_dots": "deterministic_dots",
-    "-dtype": "dtype", "-monitor_mode": "monitor_mode",
+    "-kernel_impl": "impl", "-dtype": "dtype", "-monitor_mode": "monitor_mode",
     "-pc_type": "pc_type", "-pc_block": "pc_block", "-divtol": "divtol",
     "-halo": "halo", "-gather_dtype": "gather_dtype",
     "-comm_overlap": "comm_overlap", "-async_sweeps": "async_sweeps",
 }
+
+
+# retired spellings accepted for compatibility
+_ALIASES = {"-impl": "-kernel_impl"}
+
+# the JAX package's keys that have no counterpart here, and why
+_REFERENCE_ONLY = {
+    "-xla_flag_bundle": "is the JAX package's XLA option (a named "
+                        "XLA_FLAGS bundle) and has no counterpart in the "
+                        "port: PyTorch reads no XLA flags"}
 
 
 def _normalize(key: Any) -> str:
@@ -372,6 +409,9 @@ def _normalize(key: Any) -> str:
         raise UnknownOptionError(f"option keys are strings like '-atol', "
                                  f"got {key!r}")
     name = key if key.startswith("-") else "-" + key
+    name = _ALIASES.get(name, name)
+    if name in _REFERENCE_ONLY:
+        raise UnknownOptionError(f"option {key!r} {_REFERENCE_ONLY[name]}")
     if name not in OPTION_SPECS:
         raise UnknownOptionError(
             f"unknown option {key!r}{_methods.suggest(name, OPTION_SPECS)} "

@@ -38,6 +38,11 @@ choice (``_auto_cache``) — and ``-adapt_on_stagnation`` supervises any
 solve with the hot-swap; a fleet resolves ``auto`` once per bucket.
 Solves may come from several threads (the solve server's scheduler and
 its clients): statistics and output files are written under one lock.
+
+``-kernel_impl`` reaches every solve through its
+:class:`~repro_torch.core.ipi.IPIOptions`; opening a session pushes
+``-kernel_tune`` / ``-kernel_tune_cache`` into the process-wide launch
+tuner (:mod:`repro_torch.kernels.tuning`), as the reference's does.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from repro_torch.core.driver import SolveResult
 from repro_torch.core.mdp import MDP as CoreMDP, DenseMDP, EllMDP, \
     MatrixFreeMDP, stack_mdps
 from repro_torch.device import resolve_device
+from repro_torch.kernels import tuning
 from repro_torch.utils.lru import LRUCache
 
 __all__ = ["Session", "madupite_session"]
@@ -113,6 +119,14 @@ class Session:
         # mode): repeat solves of the family skip the probe
         self._auto_cache: dict = {}
         self._closed = False
+        self._apply_kernel_options()
+
+    def _apply_kernel_options(self) -> None:
+        """Push the kernel-facing options into the process-wide launch
+        tuner: on or off, and its cache file."""
+        tuning.configure(
+            enabled=self.options.get("-kernel_tune") != "off",
+            cache_path=self.options.get("-kernel_tune_cache"))
 
     # ---- lifecycle ---------------------------------------------------------
     def __enter__(self) -> "Session":

@@ -16,6 +16,10 @@ Conventions
 
 Batched fleets
 --------------
+Every operator takes ``impl``, the kernel implementation
+(:mod:`repro_torch.kernels.ops`: ``-kernel_impl``), and passes it to each
+kernel call.
+
 Every operator also takes a batched MDP (leading ``B``, see
 :func:`repro_torch.core.mdp.stack_mdps`) with ``(B, n)`` vectors and
 returns ``(B, ...)`` results, through the kernels' lane axis: one launch
@@ -98,7 +102,8 @@ def fleet_gamma(mdp: MDP, gamma_t: torch.Tensor | None,
 
 
 def backup(mdp: MDP, window: torch.Tensor, axes: Axes, *,
-           mode: str = "mincost", gamma_t: torch.Tensor | None = None) \
+           mode: str = "mincost", gamma_t: torch.Tensor | None = None,
+           impl: str | None = None) \
         -> tuple[torch.Tensor, torch.Tensor]:
     """One Bellman backup: ``(Tv ([B,] n_local), pi ([B,] n_local)
     int32)`` of the local rows against their value ``window``.
@@ -118,15 +123,16 @@ def backup(mdp: MDP, window: torch.Tensor, axes: Axes, *,
         vmin, amin = matrix_free.mf_backup(
             mdp.spec, axes.state_index() * mdp.n_local, mdp.n_local,
             mdp.acts, gamma, window, mode=mode,
-            idx_map=_mf_window_map(mdp, axes))
+            idx_map=_mf_window_map(mdp, axes), impl=impl)
         return _finish_argmin(vmin, amin, mdp, axes, neg)
     cost = -mdp.cost if neg else mdp.cost
     if neg:
         window = -window
     if isinstance(mdp, EllMDP):
-        vmin, amin = ops.ell_backup(mdp.idx, mdp.val, cost, gamma, window)
+        vmin, amin = ops.ell_backup(mdp.idx, mdp.val, cost, gamma, window,
+                                    impl=impl)
     else:
-        vmin, amin = ops.dense_backup(mdp.p, cost, gamma, window)
+        vmin, amin = ops.dense_backup(mdp.p, cost, gamma, window, impl=impl)
     return _finish_argmin(vmin, amin, mdp, axes, neg)
 
 
@@ -152,7 +158,8 @@ def _finish_argmin(vmin: torch.Tensor, amin: torch.Tensor, mdp: MDP,
 def gather_backup(mdp: MDP, v_local: torch.Tensor, axes: Axes, *,
                   plan: tuple[int, int] | None = None, halo: int = 0,
                   mode: str = "mincost",
-                  gamma_t: torch.Tensor | None = None) \
+                  gamma_t: torch.Tensor | None = None,
+                  impl: str | None = None) \
         -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gather the value window and run one Bellman backup; returns
     ``(tv, pi, window)``.
@@ -163,16 +170,17 @@ def gather_backup(mdp: MDP, v_local: torch.Tensor, axes: Axes, *,
     gather-then-backup reference.  Both give identical results."""
     if plan is not None:
         return backup_overlapped(mdp, v_local, axes, plan=plan, halo=halo,
-                                 mode=mode, gamma_t=gamma_t)
+                                 mode=mode, gamma_t=gamma_t, impl=impl)
     w = gather_v(v_local, axes, halo=halo)
-    tv, pi = backup(mdp, w, axes, mode=mode, gamma_t=gamma_t)
+    tv, pi = backup(mdp, w, axes, mode=mode, gamma_t=gamma_t, impl=impl)
     return tv, pi, w
 
 
 def backup_overlapped(mdp: MDP, v_local: torch.Tensor, axes: Axes, *,
                       plan: tuple[int, int], halo: int = 0,
                       mode: str = "mincost",
-                      gamma_t: torch.Tensor | None = None) \
+                      gamma_t: torch.Tensor | None = None,
+                      impl: str | None = None) \
         -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Communication-overlapped Bellman backup; returns ``(tv, pi,
     window)``.
@@ -189,7 +197,7 @@ def backup_overlapped(mdp: MDP, v_local: torch.Tensor, axes: Axes, *,
     exactly 0 on both paths)."""
     if isinstance(mdp, MatrixFreeMDP):
         return _mf_backup_overlapped(mdp, v_local, axes, plan=plan,
-                                     mode=mode, gamma_t=gamma_t)
+                                     mode=mode, gamma_t=gamma_t, impl=impl)
     if not isinstance(mdp, EllMDP):
         raise ValueError("comm overlap requires the ELL representation; "
                          "DenseMDP rows always reference global columns")
@@ -204,7 +212,8 @@ def backup_overlapped(mdp: MDP, v_local: torch.Tensor, axes: Axes, *,
     rows = lambda t, lo, hi, d: t.narrow(t.dim() - d, lo, hi - lo) \
         .contiguous()
     part = lambda idx, lo, hi, v: ops.ell_backup(
-        idx, rows(mdp.val, lo, hi, 3), rows(cost, lo, hi, 2), gamma, v)
+        idx, rows(mdp.val, lo, hi, 3), rows(cost, lo, hi, 2), gamma, v,
+        impl=impl)
 
     parts = []
     # interior rows: no data dependence on the in-flight window
@@ -226,7 +235,8 @@ def backup_overlapped(mdp: MDP, v_local: torch.Tensor, axes: Axes, *,
 
 def _mf_backup_overlapped(mdp: MatrixFreeMDP, v_local: torch.Tensor,
                           axes: Axes, *, plan: tuple[int, int], mode: str,
-                          gamma_t: torch.Tensor | None) \
+                          gamma_t: torch.Tensor | None,
+                          impl: str | None = None) \
         -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The interior/frontier split of :func:`backup_overlapped` for a
     matrix-free block: each part *rebuilds* its row range instead of
@@ -242,7 +252,7 @@ def _mf_backup_overlapped(mdp: MatrixFreeMDP, v_local: torch.Tensor,
     row_start = axes.state_index() * n_loc
     part = lambda lo, hi, idx_map, v: matrix_free.mf_backup(
         mdp.spec, row_start + lo, hi - lo, mdp.acts, gamma, v, mode=mode,
-        idx_map=idx_map)
+        idx_map=idx_map, impl=impl)
 
     parts = []
     # interior rows: no data dependence on the in-flight window
@@ -266,11 +276,12 @@ def _mf_backup_overlapped(mdp: MatrixFreeMDP, v_local: torch.Tensor,
 def residual_norm(mdp: MDP, v_local: torch.Tensor,
                   window: torch.Tensor, axes: Axes, *,
                   mode: str = "mincost",
-                  gamma_t: torch.Tensor | None = None) -> torch.Tensor:
+                  gamma_t: torch.Tensor | None = None,
+                  impl: str | None = None) -> torch.Tensor:
     """Sup-norm Bellman residual ``||T v - v||_inf`` (the optimality gap
     certificate: ``||v - v*||_inf <= residual / (1 - gamma)``); ``(B,)``
     per-lane residuals for a fleet."""
-    tv, _ = backup(mdp, window, axes, mode=mode, gamma_t=gamma_t)
+    tv, _ = backup(mdp, window, axes, mode=mode, gamma_t=gamma_t, impl=impl)
     return axes.norm_inf(tv - v_local)
 
 
@@ -357,8 +368,8 @@ def policy_rows(mdp: MDP, pi: torch.Tensor, axes: Axes, *,
                       g=g_pi, gamma=gamma)
 
 
-def _p_pi_matvec(rows: PolicyRows, x_eff: torch.Tensor,
-                 axes: Axes) -> torch.Tensor:
+def _p_pi_matvec(rows: PolicyRows, x_eff: torch.Tensor, axes: Axes,
+                 impl: str | None = None) -> torch.Tensor:
     """(P_pi @ x) on local rows, reduced over action shards.
 
     ``x_eff`` is the window the rows' ``idx`` (or columns) address.  Dense
@@ -366,7 +377,8 @@ def _p_pi_matvec(rows: PolicyRows, x_eff: torch.Tensor,
     ``Precision.HIGHEST``, outside any kernel; a batched product for a
     fleet), in the accumulation dtype and never in TF32."""
     if rows.p is None:
-        return axes.psum_action(ops.ell_matvec(rows.idx, rows.val, x_eff))
+        return axes.psum_action(ops.ell_matvec(rows.idx, rows.val, x_eff,
+                                               impl=impl))
     dt = torch.promote_types(rows.p.dtype, x_eff.dtype)
     p, x = rows.p.to(dt), x_eff.to(dt)
     if p.dim() == 2:
@@ -415,14 +427,17 @@ def _window(x_local: torch.Tensor, axes: Axes, halo: int,
 
 
 def t_pi(rows: PolicyRows, x_local: torch.Tensor, axes: Axes, *,
-         halo: int = 0, gather_dtype=None) -> torch.Tensor:
+         halo: int = 0, gather_dtype=None,
+         impl: str | None = None) -> torch.Tensor:
     """Policy-restricted Bellman operator ``T_pi x = g_pi + gamma P_pi x``."""
-    y = _p_pi_matvec(rows, _window(x_local, axes, halo, gather_dtype), axes)
+    y = _p_pi_matvec(rows, _window(x_local, axes, halo, gather_dtype), axes,
+                     impl)
     return _fma(axes.psum_action(rows.g), y, rows.gamma)
 
 
 def a_pi_matvec(rows: PolicyRows, x_local: torch.Tensor, axes: Axes, *,
-                halo: int = 0, gather_dtype=None) -> torch.Tensor:
+                halo: int = 0, gather_dtype=None,
+                impl: str | None = None) -> torch.Tensor:
     """Policy-evaluation system operator ``A_pi x = (I - gamma P_pi) x``.
 
     The matvec handed to the inner (Krylov) solvers; the value function of
@@ -432,7 +447,8 @@ def a_pi_matvec(rows: PolicyRows, x_local: torch.Tensor, axes: Axes, *,
     because the outer iPI loop's forcing term bounds the tolerable
     inner-system perturbation.
     """
-    y = _p_pi_matvec(rows, _window(x_local, axes, halo, gather_dtype), axes)
+    y = _p_pi_matvec(rows, _window(x_local, axes, halo, gather_dtype), axes,
+                     impl)
     return _fma(x_local, y.to(x_local.dtype), -rows.gamma)
 
 

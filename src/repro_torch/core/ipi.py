@@ -38,6 +38,7 @@ from repro_torch.core import bellman, methods
 from repro_torch.core.comm import Axes
 from repro_torch.core.solvers import PC_TYPES, build_precond, lanes
 from repro_torch.core.mdp import MDP, batch_parts, gammas_of
+from repro_torch.kernels import ops
 
 MODES = ("mincost", "maxreward")
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -57,8 +58,7 @@ def wire_dtype(name: str) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class IPIOptions:
-    """Solver options (the reference's, less its kernel and adaptive
-    fields)."""
+    """Solver options (the reference's, less its adaptive fields)."""
 
     method: str = "ipi_gmres"   # any name in the live method registry
     mode: str = "mincost"       # "mincost" (argmin backup) | "maxreward"
@@ -75,6 +75,9 @@ class IPIOptions:
     safeguard: bool = True      # monotone (VI-fallback) safeguard
     monitor: bool = False       # emit one record per outer iteration
     deterministic_dots: bool = False  # pin the Krylov accumulation orders
+    impl: str | None = None     # kernel implementation (kernels/ops.py):
+                                # auto | torch | blocked | cuda, or the
+                                # reference's xla | pallas; None = auto
     dtype: str = "float32"      # value-vector dtype; "float64" == PETSc
     monitor_mode: str = "stream"  # "stream": a record from the host loop
                                 # after each outer step; "chunk": the same
@@ -107,6 +110,9 @@ class IPIOptions:
         if err:
             raise ValueError(err)
         err = methods.check_stop(self.stop_criterion)
+        if err:
+            raise ValueError(err)
+        err = ops.check_impl(self.impl)
         if err:
             raise ValueError(err)
         if self.mode not in MODES:
@@ -274,7 +280,7 @@ def init_state(mdp: MDP, axes: Axes, opts: IPIOptions,
     tv, pi, win = bellman.gather_backup(mdp, v, axes,
                                         plan=opts.overlap_plan,
                                         halo=opts.halo, mode=opts.mode,
-                                        gamma_t=gamma_t)
+                                        gamma_t=gamma_t, impl=opts.impl)
     tv = tv.to(dt)
     res = axes.norm_inf(tv - v)
     nt = torch.tensor([mdp.n_global] * batch if n_true is None
@@ -342,7 +348,7 @@ def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
                                gamma_t=gamma_t, gather_dtype=wire)
     b = bellman.b_pi(rows, axes).to(dt)
     mv = lambda r: (lambda x: bellman.a_pi_matvec(
-        r, x, axes, halo=opts.halo, gather_dtype=wire))
+        r, x, axes, halo=opts.halo, gather_dtype=wire, impl=opts.impl))
     matvec = mv(rows)
     tol = torch.maximum(opts.forcing_eta * state.res,
                         torch.tensor(_TOL_FLOOR, dtype=state.res.dtype,
@@ -377,7 +383,7 @@ def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
         tv, pi, _ = bellman.gather_backup(mdp, v, axes,
                                           plan=opts.overlap_plan,
                                           halo=opts.halo, mode=opts.mode,
-                                          gamma_t=gamma_t)
+                                          gamma_t=gamma_t, impl=opts.impl)
         return v, tv, pi, axes.norm_inf(tv - v)
 
     cand = eval_at(v1)

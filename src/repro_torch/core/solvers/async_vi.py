@@ -35,11 +35,12 @@ def async_vi_outer(mdp, state, opts, axes, gamma_t):
     for _ in range(opts.async_sweeps - 1):
         w = state.win.clone()
         w[..., off:off + mdp.n_local] = v1
-        tv, _ = bellman.backup(mdp, w, axes, mode=opts.mode, gamma_t=gamma_t)
+        tv, _ = bellman.backup(mdp, w, axes, mode=opts.mode, gamma_t=gamma_t,
+                               impl=opts.impl)
         v1 = tv.to(dt)
     tv1, pi1, win1 = bellman.gather_backup(
         mdp, v1, axes, plan=opts.overlap_plan, halo=opts.halo,
-        mode=opts.mode, gamma_t=gamma_t)
+        mode=opts.mode, gamma_t=gamma_t, impl=opts.impl)
     tv1 = tv1.to(dt)
     res1 = axes.norm_inf(tv1 - v1)
     inner = torch.full((v1.shape[0],), opts.async_sweeps - 1,

@@ -24,9 +24,13 @@ unbatched body, so lane ``b`` equals the unbatched call on lane ``b``'s
 operands bit for bit.
 
 Both take CUDA tensors only, check them, allocate the outputs, launch on
-PyTorch's current stream and raise on any launch error.  ``launches``
-counts the backup's launches, ``qvalues_launches`` the Q table's (one a
-call, whatever B).
+PyTorch's current stream and raise on any launch error.  ``threads``
+(128, 256 or 512: :data:`repro_torch.kernels.lanes.THREADS`) is the CTA
+size and ``lane_order`` a fleet's grid order; no choice of either changes
+a bit of the result.  ``launches`` counts the backup's launches,
+``qvalues_launches`` the Q table's (one a call, whatever B); the launches
+that time a candidate for the tuner (``tuning=True``) count under
+``tune_launches`` instead.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ SOURCE = "ell_backup"
 
 launches = 0
 qvalues_launches = 0
+tune_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -49,7 +54,7 @@ def _lib() -> ctypes.CDLL:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for fn in (lib.ell_backup_f32, lib.ell_backup_f64):
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32,
-                           ptr, ptr, ptr, ptr]
+                           i32, ptr, ptr, ptr, ptr]
             fn.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -94,13 +99,15 @@ def _check(idx, val, cost, v, what: str = "ell_backup") \
 
 
 def ell_backup(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
-               gamma, v: torch.Tensor, *, lane_order: str | None = None) \
+               gamma, v: torch.Tensor, *, lane_order: str | None = None,
+               threads: int | None = None, tuning: bool = False) \
         -> tuple[torch.Tensor, torch.Tensor]:
     """``(min_a Q ([B,] n) acc-dtype, argmin_a Q ([B,] n) int32)`` on the
     card, one launch.  ``gamma``: a float, or a ``(B,)`` tensor (one value
     a lane, rounded to the accumulation dtype)."""
-    global launches
+    global launches, tune_launches
     dt, batch = _check(idx, val, cost, v)
+    cta = lanes.cta_threads(threads)
     n, m, k = val.shape[-3:]
     shape = (n,) if batch is None else (batch, n)
     out_v = torch.empty(shape, dtype=dt, device=v.device)
@@ -118,16 +125,19 @@ def ell_backup(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
     fn = lib.ell_backup_f64 if dt == torch.float64 else lib.ell_backup_f32
     stream = torch.cuda.current_stream(v.device).cuda_stream
     code = fn(idx.data_ptr(), val.data_ptr(), cost.data_ptr(), v.data_ptr(),
-              g.data_ptr(), n, m, k, b, lanes.order_flag(lane_order),
+              g.data_ptr(), n, m, k, b, lanes.order_flag(lane_order), cta,
               strides, out_v.data_ptr(), out_pi.data_ptr(), stream)
     build.check(code, "ell_backup launch")
-    launches += 1
+    if tuning:
+        tune_launches += 1
+    else:
+        launches += 1
     return out_v, out_pi
 
 
 def ell_qvalues(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
-                gamma, v: torch.Tensor, *,
-                lane_order: str | None = None) -> torch.Tensor:
+                gamma, v: torch.Tensor, *, lane_order: str | None = None,
+                threads: int | None = None) -> torch.Tensor:
     """``Q = cost + gamma * P v`` ([B,] n, m) in the accumulation dtype, on
     the card: one SpMV launch over the ``(n*m, K)`` rows of every lane,
     then the epilogue as two torch ops (``gamma * pv`` rounded before
@@ -136,7 +146,8 @@ def ell_qvalues(idx: torch.Tensor, val: torch.Tensor, cost: torch.Tensor,
     _, batch = _check(idx, val, cost, v, "ell_qvalues")
     n, m, k = val.shape[-3:]
     rows = lambda t: t.view(*t.shape[:-3], n * m, k)
-    pv = spmv_ell.launch(rows(idx), rows(val), v, lane_order=lane_order)
+    pv = spmv_ell.launch(rows(idx), rows(val), v, lane_order=lane_order,
+                         threads=threads)
     if pv.numel():
         qvalues_launches += 1
     pv = pv.view(cost.shape)

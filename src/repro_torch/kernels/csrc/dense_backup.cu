@@ -50,14 +50,19 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kUnroll = 8;
-constexpr int kWarpsPerBlock = 8;
+// Warps a CTA (kernels/dense_backup.py WARPS, the tuner's candidates): the
+// kernel is instantiated for each, and the C entry points' `warps`
+// argument picks one (anything else is cudaErrorInvalidValue).  A warp
+// takes its own rows whatever the CTA holds, so the CTA size moves the
+// grid and nothing of a row's result.  8 is the default.
+constexpr int kWarpsSmall = 4, kWarpsDefault = 8, kWarpsLarge = 16;
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-template <typename Acc>
+template <typename Acc, int kWarpsPerBlock>
 __global__ void dense_backup_kernel(const float* __restrict__ p,
                                     const float* __restrict__ cost,
                                     const Acc* __restrict__ v,
@@ -117,22 +122,41 @@ __global__ void dense_backup_kernel(const float* __restrict__ p,
   }
 }
 
-template <typename Acc>
-int launch(const void* p, const void* cost, const void* v, const void* gamma,
-           long long n, int m, long long n_cols, const Lanes& l, void* out_v,
-           void* out_pi, void* stream) {
-  if (n < 0 || m < 1 || n_cols < 1 || l.count < 1)
-    return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
+template <typename Acc, int kWarpsPerBlock>
+int launch_cta(const void* p, const void* cost, const void* v,
+               const void* gamma, long long n, int m, long long n_cols,
+               const Lanes& l, void* out_v, void* out_pi, void* stream) {
   const long long blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const unsigned int grid = lane_grid(l, blocks);
   if (grid == 0) return (int)cudaErrorInvalidConfiguration;
-  dense_backup_kernel<Acc><<<grid, kWarpsPerBlock * kWarp, 0,
-                             (cudaStream_t)stream>>>(
+  dense_backup_kernel<Acc, kWarpsPerBlock><<<grid, kWarpsPerBlock * kWarp, 0,
+                                             (cudaStream_t)stream>>>(
       (const float*)p, (const float*)cost, (const Acc*)v,
       (const Acc*)gamma, (int64_t)n, m, (int64_t)n_cols, l, (int64_t)blocks,
       (Acc*)out_v, (int32_t*)out_pi);
   return (int)cudaGetLastError();
+}
+
+template <typename Acc>
+int launch(const void* p, const void* cost, const void* v, const void* gamma,
+           long long n, int m, long long n_cols, const Lanes& l, int warps,
+           void* out_v, void* out_pi, void* stream) {
+  if (n < 0 || m < 1 || n_cols < 1 || l.count < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  switch (warps) {
+    case kWarpsSmall:
+      return launch_cta<Acc, kWarpsSmall>(p, cost, v, gamma, n, m, n_cols, l,
+                                          out_v, out_pi, stream);
+    case kWarpsDefault:
+      return launch_cta<Acc, kWarpsDefault>(p, cost, v, gamma, n, m, n_cols,
+                                            l, out_v, out_pi, stream);
+    case kWarpsLarge:
+      return launch_cta<Acc, kWarpsLarge>(p, cost, v, gamma, n, m, n_cols, l,
+                                          out_v, out_pi, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -140,24 +164,27 @@ int launch(const void* p, const void* cost, const void* v, const void* gamma,
 // B lanes in one launch: `strides` holds the per-lane element strides of
 // p, cost, v (0: shared), the outputs and gamma (0: one gamma for every
 // lane), in that order; gamma points to Acc values already rounded to Acc.
+// `warps` is the CTA size in warps (4, 8 or 16).
 extern "C" int dense_backup_f32(const void* p, const void* cost,
                                 const void* v, const void* gamma,
                                 long long n, int m, long long n_cols,
-                                int lanes, const long long* strides,
-                                void* out_v, void* out_pi, void* stream) {
+                                int lanes, int warps,
+                                const long long* strides, void* out_v,
+                                void* out_pi, void* stream) {
   const Lanes l{lanes, 0, 0, strides[0], strides[1], strides[2], strides[3],
                 strides[4]};
-  return launch<float>(p, cost, v, gamma, n, m, n_cols, l, out_v, out_pi,
-                       stream);
+  return launch<float>(p, cost, v, gamma, n, m, n_cols, l, warps, out_v,
+                       out_pi, stream);
 }
 
 extern "C" int dense_backup_f64(const void* p, const void* cost,
                                 const void* v, const void* gamma,
                                 long long n, int m, long long n_cols,
-                                int lanes, const long long* strides,
-                                void* out_v, void* out_pi, void* stream) {
+                                int lanes, int warps,
+                                const long long* strides, void* out_v,
+                                void* out_pi, void* stream) {
   const Lanes l{lanes, 0, 0, strides[0], strides[1], strides[2], strides[3],
                 strides[4]};
-  return launch<double>(p, cost, v, gamma, n, m, n_cols, l, out_v, out_pi,
-                        stream);
+  return launch<double>(p, cost, v, gamma, n, m, n_cols, l, warps, out_v,
+                        out_pi, stream);
 }

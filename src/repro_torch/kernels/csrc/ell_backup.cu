@@ -46,7 +46,8 @@
 //     evict_last policy (createpolicy), so the 1.1 GB stream does not
 //     push v out of L2.  No access-policy window is set;
 //   * every lane issues its VEC gathers before it needs any of them, and
-//     the block holds 8 warps, so many independent gathers are in flight;
+//     the block holds 4, 8 or 16 warps (the launch's `threads`, 8 by
+//     default), so many independent gathers are in flight;
 //   * the K-sum keeps its order: the row's leader lane adds its own
 //     products, then each other lane's, in slot order, by shuffles.  Q
 //     (s, a) is formed at the leader; the state's first leader then takes
@@ -84,7 +85,7 @@ struct Plan {
   int32_t g, chunks, states, apass, passes, rows;
 };
 
-template <typename Acc, int VEC>
+template <typename Acc, int VEC, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 ell_backup_kernel(const int32_t* __restrict__ idx,
                   const float* __restrict__ val,
@@ -148,8 +149,8 @@ ell_backup_kernel(const int32_t* __restrict__ idx,
   }
 }
 
-template <typename Acc, int VEC>
-int launch_vec(const int32_t* idx, const float* val, const float* cost,
+template <typename Acc, int VEC, int THREADS>
+int launch_cta(const int32_t* idx, const float* val, const float* cost,
                const Acc* v, const Acc* gamma, long long n, int m, int k,
                const Lanes& l, Acc* out_v, int32_t* out_pi,
                cudaStream_t stream) {
@@ -164,16 +165,37 @@ int launch_vec(const int32_t* idx, const float* val, const float* cost,
   const long long blocks = (warps + THREADS / WARP - 1) / (THREADS / WARP);
   const unsigned int grid = lane_grid(l, blocks);
   if (grid == 0) return (int)cudaErrorInvalidConfiguration;
-  ell_backup_kernel<Acc, VEC><<<grid, THREADS, 0, stream>>>(
+  ell_backup_kernel<Acc, VEC, THREADS><<<grid, THREADS, 0, stream>>>(
       idx, val, cost, v, gamma, (int64_t)n, m, k, p, l, (int64_t)blocks,
       out_v, out_pi);
   return (int)cudaGetLastError();
 }
 
+template <typename Acc, int VEC>
+int launch_vec(const int32_t* idx, const float* val, const float* cost,
+               const Acc* v, const Acc* gamma, long long n, int m, int k,
+               const Lanes& l, int threads, Acc* out_v, int32_t* out_pi,
+               cudaStream_t stream) {
+  switch (threads) {
+    case CTA_SMALL:
+      return launch_cta<Acc, VEC, CTA_SMALL>(idx, val, cost, v, gamma, n, m,
+                                             k, l, out_v, out_pi, stream);
+    case CTA_DEFAULT:
+      return launch_cta<Acc, VEC, CTA_DEFAULT>(idx, val, cost, v, gamma, n,
+                                               m, k, l, out_v, out_pi,
+                                               stream);
+    case CTA_LARGE:
+      return launch_cta<Acc, VEC, CTA_LARGE>(idx, val, cost, v, gamma, n, m,
+                                             k, l, out_v, out_pi, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename Acc>
 int launch(const void* idx, const void* val, const void* cost, const void* v,
            const void* gamma, long long n, int m, int k, const Lanes& l,
-           void* out_v, void* out_pi, void* stream) {
+           int threads, void* out_v, void* out_pi, void* stream) {
   if (n < 0 || m < 1 || k < 0 || l.count < 1)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
@@ -184,9 +206,9 @@ int launch(const void* idx, const void* val, const void* cost, const void* v,
   const auto s = (cudaStream_t)stream;
   return vector_width(idx, val, k) == 4
              ? launch_vec<Acc, 4>(i, w, c, (const Acc*)v, g, n, m, k, l,
-                                  (Acc*)out_v, (int32_t*)out_pi, s)
+                                  threads, (Acc*)out_v, (int32_t*)out_pi, s)
              : launch_vec<Acc, 1>(i, w, c, (const Acc*)v, g, n, m, k, l,
-                                  (Acc*)out_v, (int32_t*)out_pi, s);
+                                  threads, (Acc*)out_v, (int32_t*)out_pi, s);
 }
 
 }  // namespace
@@ -194,27 +216,27 @@ int launch(const void* idx, const void* val, const void* cost, const void* v,
 // B lanes in one launch: `strides` holds the per-lane element strides of
 // idx (0: shared), val, cost, v (0: shared), the outputs and gamma (0:
 // one gamma for every lane), in that order; gamma points to Acc values
-// already rounded to Acc.
+// already rounded to Acc.  `threads` is the CTA size (128, 256 or 512).
 extern "C" int ell_backup_f32(const void* idx, const void* val,
                               const void* cost, const void* v,
                               const void* gamma, long long n, int m, int k,
-                              int lanes, int lane_fastest,
+                              int lanes, int lane_fastest, int threads,
                               const long long* strides, void* out_v,
                               void* out_pi, void* stream) {
   const Lanes l{lanes, lane_fastest, strides[0], strides[1], strides[2],
                 strides[3], strides[4], strides[5]};
-  return launch<float>(idx, val, cost, v, gamma, n, m, k, l, out_v, out_pi,
-                       stream);
+  return launch<float>(idx, val, cost, v, gamma, n, m, k, l, threads, out_v,
+                       out_pi, stream);
 }
 
 extern "C" int ell_backup_f64(const void* idx, const void* val,
                               const void* cost, const void* v,
                               const void* gamma, long long n, int m, int k,
-                              int lanes, int lane_fastest,
+                              int lanes, int lane_fastest, int threads,
                               const long long* strides, void* out_v,
                               void* out_pi, void* stream) {
   const Lanes l{lanes, lane_fastest, strides[0], strides[1], strides[2],
                 strides[3], strides[4], strides[5]};
-  return launch<double>(idx, val, cost, v, gamma, n, m, k, l, out_v, out_pi,
-                        stream);
+  return launch<double>(idx, val, cost, v, gamma, n, m, k, l, threads, out_v,
+                        out_pi, stream);
 }

@@ -15,8 +15,15 @@
 namespace {
 
 constexpr int WARP = 32;
-constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
+
+// The CTA sizes a launch may take (kernels/bellman_ell.py THREADS, the
+// tuner's candidates): each kernel is instantiated for every one, and the
+// C entry points' `threads` argument picks one (anything else is
+// cudaErrorInvalidValue).  A warp takes its own rows whatever the CTA
+// holds, so the CTA size moves the grid and nothing of a row's result.
+// 256 is the default.
+constexpr int CTA_SMALL = 128, CTA_DEFAULT = 256, CTA_LARGE = 512;
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }

@@ -37,7 +37,8 @@
 //     (createpolicy), so the stream does not push x out of L2.  No
 //     access-policy window is set;
 //   * every lane issues its VEC gathers before it needs any of them, and
-//     the block holds 8 warps, so many independent gathers are in flight;
+//     the block holds 4, 8 or 16 warps (the launch's `threads`, 8 by
+//     default), so many independent gathers are in flight;
 //   * the sum keeps its order: the row's leader lane (the one holding slots
 //     0 .. VEC-1) adds its own products, then each other lane's, in slot
 //     order, by shuffles.  Rows longer than 32 * VEC slots take several
@@ -62,7 +63,7 @@ struct Plan {
   int32_t g, chunks, rows;
 };
 
-template <typename Acc, int VEC>
+template <typename Acc, int VEC, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 ell_spmv_kernel(const int32_t* __restrict__ idx,
                 const float* __restrict__ val, const Acc* __restrict__ x,
@@ -95,8 +96,8 @@ ell_spmv_kernel(const int32_t* __restrict__ idx,
   if (g == 0 && ok) y[row] = acc;
 }
 
-template <typename Acc, int VEC>
-int launch_vec(const int32_t* idx, const float* val, const Acc* x,
+template <typename Acc, int VEC, int THREADS>
+int launch_cta(const int32_t* idx, const float* val, const Acc* x,
                long long n, int k, const Lanes& l, Acc* y,
                cudaStream_t stream) {
   Plan p;
@@ -106,40 +107,62 @@ int launch_vec(const int32_t* idx, const float* val, const Acc* x,
   const long long blocks = (warps + THREADS / WARP - 1) / (THREADS / WARP);
   const unsigned int grid = lane_grid(l, blocks);
   if (grid == 0) return (int)cudaErrorInvalidConfiguration;
-  ell_spmv_kernel<Acc, VEC><<<grid, THREADS, 0, stream>>>(
+  ell_spmv_kernel<Acc, VEC, THREADS><<<grid, THREADS, 0, stream>>>(
       idx, val, x, (int64_t)n, k, p, l, (int64_t)blocks, y);
   return (int)cudaGetLastError();
 }
 
+template <typename Acc, int VEC>
+int launch_vec(const int32_t* idx, const float* val, const Acc* x,
+               long long n, int k, const Lanes& l, int threads, Acc* y,
+               cudaStream_t stream) {
+  switch (threads) {
+    case CTA_SMALL:
+      return launch_cta<Acc, VEC, CTA_SMALL>(idx, val, x, n, k, l, y, stream);
+    case CTA_DEFAULT:
+      return launch_cta<Acc, VEC, CTA_DEFAULT>(idx, val, x, n, k, l, y,
+                                               stream);
+    case CTA_LARGE:
+      return launch_cta<Acc, VEC, CTA_LARGE>(idx, val, x, n, k, l, y, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename Acc>
 int launch(const void* idx, const void* val, const void* x, long long n,
-           int k, const Lanes& l, void* y, void* stream) {
+           int k, const Lanes& l, int threads, void* y, void* stream) {
   if (n < 0 || k < 0 || l.count < 1) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const auto* i = (const int32_t*)idx;
   const auto* w = (const float*)val;
   const auto s = (cudaStream_t)stream;
   return vector_width(idx, val, k) == 4
-             ? launch_vec<Acc, 4>(i, w, (const Acc*)x, n, k, l, (Acc*)y, s)
-             : launch_vec<Acc, 1>(i, w, (const Acc*)x, n, k, l, (Acc*)y, s);
+             ? launch_vec<Acc, 4>(i, w, (const Acc*)x, n, k, l, threads,
+                                  (Acc*)y, s)
+             : launch_vec<Acc, 1>(i, w, (const Acc*)x, n, k, l, threads,
+                                  (Acc*)y, s);
 }
 
 }  // namespace
 
 // B lanes in one launch: `strides` holds the per-lane element strides of
-// idx (0: shared), val, x (0: shared) and y, in that order.
+// idx (0: shared), val, x (0: shared) and y, in that order.  `threads` is
+// the CTA size (128, 256 or 512).
 extern "C" int ell_spmv_f32(const void* idx, const void* val, const void* x,
                             long long n, int k, int lanes, int lane_fastest,
-                            const long long* strides, void* y, void* stream) {
+                            int threads, const long long* strides, void* y,
+                            void* stream) {
   const Lanes l{lanes, lane_fastest, strides[0], strides[1], 0, strides[2],
                 strides[3], 0};
-  return launch<float>(idx, val, x, n, k, l, y, stream);
+  return launch<float>(idx, val, x, n, k, l, threads, y, stream);
 }
 
 extern "C" int ell_spmv_f64(const void* idx, const void* val, const void* x,
                             long long n, int k, int lanes, int lane_fastest,
-                            const long long* strides, void* y, void* stream) {
+                            int threads, const long long* strides, void* y,
+                            void* stream) {
   const Lanes l{lanes, lane_fastest, strides[0], strides[1], 0, strides[2],
                 strides[3], 0};
-  return launch<double>(idx, val, x, n, k, l, y, stream);
+  return launch<double>(idx, val, x, n, k, l, threads, y, stream);
 }

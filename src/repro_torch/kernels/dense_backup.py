@@ -14,7 +14,10 @@ call on lane ``b``'s operands bit for bit.
 
 :func:`dense_backup` takes CUDA tensors only, checks them, allocates the
 outputs, launches on PyTorch's current stream and raises on any launch
-error.  ``launches`` counts its launches (one a call, whatever B).
+error.  ``warps`` (4, 8 or 16: :data:`WARPS`) is the CTA size in warps;
+no choice changes a bit of the result.  ``launches`` counts its launches
+(one a call, whatever B); the launches that time a candidate for the
+tuner (``tuning=True``) count under ``tune_launches`` instead.
 """
 
 from __future__ import annotations
@@ -28,6 +31,13 @@ from repro_torch.kernels import build, lanes
 SOURCE = "dense_backup"
 
 launches = 0
+tune_launches = 0
+
+# Warps a CTA (``csrc/dense_backup.cu``: the kernel is instantiated for
+# each) and the default.  A warp takes its own row whatever its CTA holds,
+# so the choice moves the grid and no bit of the result.
+WARPS = (4, 8, 16)
+DEFAULT_WARPS = 8
 
 
 def _lib() -> ctypes.CDLL:
@@ -35,8 +45,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for fn in (lib.dense_backup_f32, lib.dense_backup_f64):
-            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i64, i32, ptr, ptr,
-                           ptr, ptr]
+            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i64, i32, i32, ptr,
+                           ptr, ptr, ptr]
             fn.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -77,12 +87,16 @@ def _check(p, cost, v) -> tuple[torch.dtype, int | None]:
 
 
 def dense_backup(p: torch.Tensor, cost: torch.Tensor, gamma,
-                 v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                 v: torch.Tensor, *, warps: int | None = None,
+                 tuning: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """``(min_a Q ([B,] n) acc-dtype, argmin_a Q ([B,] n) int32)`` on the
     card, one launch.  ``gamma``: a float, or a ``(B,)`` tensor (one value
     a lane, rounded to the accumulation dtype)."""
-    global launches
+    global launches, tune_launches
     dt, batch = _check(p, cost, v)
+    warps = DEFAULT_WARPS if warps is None else warps
+    if warps not in WARPS:
+        raise ValueError(f"warps must be one of {WARPS}, got {warps!r}")
     n, m, n_cols = p.shape[-3:]
     out_v = torch.empty(p.shape[:-2], dtype=dt, device=v.device)
     out_pi = torch.empty(p.shape[:-2], dtype=torch.int32, device=v.device)
@@ -97,8 +111,11 @@ def dense_backup(p: torch.Tensor, cost: torch.Tensor, gamma,
     fn = lib.dense_backup_f64 if dt == torch.float64 else lib.dense_backup_f32
     stream = torch.cuda.current_stream(v.device).cuda_stream
     code = fn(p.data_ptr(), cost.data_ptr(), v.data_ptr(), g.data_ptr(), n, m,
-              n_cols, b, strides, out_v.data_ptr(), out_pi.data_ptr(),
-              stream)
+              n_cols, b, int(warps), strides, out_v.data_ptr(),
+              out_pi.data_ptr(), stream)
     build.check(code, "dense_backup launch")
-    launches += 1
+    if tuning:
+        tune_launches += 1
+    else:
+        launches += 1
     return out_v, out_pi

@@ -1,9 +1,10 @@
-"""The fleet lane axis's launch arguments (``csrc/lanes.cuh``).
+"""The fleet lane axis's launch arguments (``csrc/lanes.cuh``), and the
+ELL kernels' CTA size.
 
 The three MDP kernels take a lane count, per-lane element strides (0 for
 an operand every lane shares) and a per-lane gamma operand; the ELL
-kernels also take the grid order.  The wrappers build those arguments
-here.
+kernels also take the grid order and the CTA size.  The wrappers build
+those arguments here.
 """
 
 from __future__ import annotations
@@ -24,6 +25,13 @@ import torch
 LANE_ORDERS = ("fastest", "slowest")
 LANE_ORDER = "slowest"
 
+# The ELL kernels' CTA sizes (``csrc/ell_common.cuh``: each kernel is
+# instantiated for every one) and the default.  A warp takes its own rows
+# whatever its CTA holds, so the choice moves the grid and no bit of the
+# result; the tuner (:mod:`repro_torch.kernels.ops`) picks among them.
+THREADS = (128, 256, 512)
+DEFAULT_THREADS = 256
+
 
 def order_flag(order: str | None) -> int:
     """The ELL entry points' ``lane_fastest`` flag for ``order``."""
@@ -32,6 +40,16 @@ def order_flag(order: str | None) -> int:
         raise ValueError(f"lane order must be one of {LANE_ORDERS}, got "
                          f"{order!r}")
     return int(order == "fastest")
+
+
+def cta_threads(threads: int | None) -> int:
+    """The ELL entry points' ``threads`` argument for ``threads``
+    (``None``: the default), checked against :data:`THREADS`."""
+    threads = DEFAULT_THREADS if threads is None else threads
+    if threads not in THREADS:
+        raise ValueError(f"threads must be one of {THREADS}, got "
+                         f"{threads!r}")
+    return int(threads)
 
 
 def strides(*elements: int):

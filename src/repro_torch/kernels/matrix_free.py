@@ -26,14 +26,19 @@ A fleet of function-backed MDPs shares one spec (only gamma differs
 between its lanes), so each chunk is rebuilt once and one launch backs up
 every lane against its own value vector.
 
-Chunks are :func:`chunk_rows` rows, a fixed rule (the reference's
-autotuned chunk waits for ROADMAP item 14): as many rows as keep a chunk's
-transient — its ``(bn, m, nnz)`` table plus the constructors' temporaries
-(:data:`CONSTRUCTOR_SLOT_BYTES` a slot) — under :data:`CHUNK_BYTES`.  Few
+Chunks are :func:`chunk_rows` rows, a fixed rule: as many rows as keep a
+chunk's transient — its ``(bn, m, nnz)`` table plus the constructors'
+temporaries (:data:`CONSTRUCTOR_SLOT_BYTES` a slot) — under
+:data:`CHUNK_BYTES`.  Few
 large chunks, because eager constructors cost host time a launch
 (``chip_smoke.py`` phase 3n times one rebuild of garnet ``n = 10^6, m =
 16, K = 8`` on the H100 in chunks of half the rule's rows, the rule's and
-all rows: PERF.md).
+all rows: PERF.md).  The reference tunes its chunk by timing the blocked
+backup; here a rebuild is almost all constructor time (ROADMAP queue 3
+item 9), so that timing would choose for the wrong cost, and the chunk
+waits for the fused constructor of that item.  Each chunk's backup runs
+:func:`repro_torch.kernels.ops.ell_backup_chunk` with the solve's
+``impl``, so on the card it launches at the tuner's shape.
 """
 
 from __future__ import annotations
@@ -201,8 +206,7 @@ def build_rows_block(spec, rows: torch.Tensor, acts: tuple, mode: str, *,
 
 def chunk_rows(spec, n_acts: int, block_rows: int | None = None) -> int:
     """Rows a rebuilt chunk takes: ``block_rows`` if given, else the
-    fixed rule of the module docstring (the reference's autotuner choice
-    is not ported)."""
+    fixed rule of the module docstring (not tuned: module docstring)."""
     if block_rows:
         return int(block_rows)
     return max(1, CHUNK_BYTES // chunk_bytes(spec, n_acts, 1))
@@ -221,7 +225,7 @@ def _rows(row0: int, lo: int, hi: int, device) -> torch.Tensor:
 
 def mf_backup(spec, row0: int, n_rows: int, acts: tuple, gamma,
               v: torch.Tensor, *, mode: str = "mincost", idx_map=None,
-              block_rows: int | None = None) \
+              block_rows: int | None = None, impl: str | None = None) \
         -> tuple[torch.Tensor, torch.Tensor]:
     """The matrix-free fused Bellman backup over ``n_rows`` rows from
     global row ``row0``: rebuild each row chunk from the constructors, back
@@ -234,6 +238,7 @@ def mf_backup(spec, row0: int, n_rows: int, acts: tuple, gamma,
     negated min-space that :func:`repro_torch.core.bellman._finish_argmin`
     completes.  ``v`` ``(B, n_v)`` backs up a fleet's lanes (one spec,
     ``gamma`` a float or ``(B,)``) against one rebuild of each chunk.
+    ``impl`` is the kernel implementation (:mod:`repro_torch.kernels.ops`).
 
     The transient is one chunk; the persistent footprint is the outputs.
     """
@@ -248,7 +253,7 @@ def mf_backup(spec, row0: int, n_rows: int, acts: tuple, gamma,
             cost = -cost
         if idx_map is not None:
             idx = idx_map(idx)
-        return ops.ell_backup_chunk(idx, val, cost, gamma, v)
+        return ops.ell_backup_chunk(idx, val, cost, gamma, v, impl=impl)
 
     bn = chunk_rows(spec, len(acts), block_rows)
     return ref._blocked_rows(body, n_rows, bn, (-1, -1))

@@ -31,8 +31,12 @@ unbatched call on its operands bit for bit, as the kernels' lane axis does.
 :func:`ell_backup` also takes every table shared with a batched ``v`` (a
 matrix-free fleet's rebuilt chunk).
 
-:func:`_blocked_rows` is the row-chunk loop of the matrix-free operator
-and of the function-backed MDPs' device pipeline.
+:func:`_blocked_rows` is the row-chunk loop of the matrix-free operator,
+of the function-backed MDPs' device pipeline and of the blocked versions
+(:func:`ell_backup_blocked`, :func:`ell_qvalues_blocked`,
+:func:`ell_matvec_blocked`: ``-kernel_impl blocked``), which run the
+plain versions over row chunks of ``block_rows`` rows.  The math is
+row-independent, so they equal the unblocked versions bit for bit.
 
 :func:`flash_attention` is the online-softmax scan over key chunks of the
 reference's ``models.attention.chunked_attention``, in f32 whatever the
@@ -161,6 +165,42 @@ def _blocked_rows(fn, n: int, block_rows: int, row_dims: tuple):
         for out, t, d in zip(outs, part, row_dims):
             out.narrow(d, lo, hi - lo).copy_(t)
     return tuple(outs)
+
+
+# Rows a chunk of the blocked versions (the reference's default): at the
+# paper's widths (m*K between 16 and 128 slots a row) a chunk's table
+# slice and its Q block stay within a last-level cache.
+DEFAULT_BLOCK_ROWS = 125_000
+
+
+def ell_backup_blocked(idx: torch.Tensor, val: torch.Tensor,
+                       cost: torch.Tensor, gamma, v: torch.Tensor,
+                       block_rows: int = DEFAULT_BLOCK_ROWS) \
+        -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ell_backup` over row chunks; bit for bit the same."""
+    return _blocked_rows(lambda lo, hi: ell_backup(
+        idx.narrow(-3, lo, hi - lo), val.narrow(-3, lo, hi - lo),
+        cost.narrow(-2, lo, hi - lo), gamma, v), val.shape[-3], block_rows,
+        (-1, -1))
+
+
+def ell_qvalues_blocked(idx: torch.Tensor, val: torch.Tensor,
+                        cost: torch.Tensor, gamma, v: torch.Tensor,
+                        block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+    """:func:`ell_qvalues` over row chunks; bit for bit the same."""
+    return _blocked_rows(lambda lo, hi: (ell_qvalues(
+        idx.narrow(-3, lo, hi - lo), val.narrow(-3, lo, hi - lo),
+        cost.narrow(-2, lo, hi - lo), gamma, v),), val.shape[-3],
+        block_rows, (-2,))[0]
+
+
+def ell_matvec_blocked(idx: torch.Tensor, val: torch.Tensor,
+                       x: torch.Tensor,
+                       block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+    """:func:`ell_matvec` over row chunks; bit for bit the same."""
+    return _blocked_rows(lambda lo, hi: (ell_matvec(
+        idx.narrow(-2, lo, hi - lo), val.narrow(-2, lo, hi - lo), x),),
+        val.shape[-2], block_rows, (-1,))[0]
 
 
 def dense_dot(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

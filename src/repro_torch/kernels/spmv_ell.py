@@ -18,7 +18,11 @@ the unbatched body, so lane ``b`` equals the unbatched call on lane
 
 :func:`ell_matvec` takes CUDA tensors only, checks them, allocates the
 output, launches on PyTorch's current stream and raises on any launch
-error.  ``launches`` counts its launches (one a call, whatever B).
+error.  ``threads`` (128, 256 or 512: :data:`repro_torch.kernels.lanes.
+THREADS`) is the CTA size and ``lane_order`` a fleet's grid order; no
+choice of either changes a bit of the result.  ``launches`` counts its
+launches (one a call, whatever B); the launches that time a candidate
+for the tuner (``tuning=True``) count under ``tune_launches`` instead.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from repro_torch.kernels import build, lanes
 SOURCE = "ell_spmv"
 
 launches = 0
+tune_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -41,7 +46,7 @@ def _lib() -> ctypes.CDLL:
         i32 = ctypes.c_int
         for fn in (lib.ell_spmv_f32, lib.ell_spmv_f64):
             fn.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, i32, i32, i32,
-                           ptr, ptr, ptr]
+                           i32, ptr, ptr, ptr]
             fn.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -81,11 +86,13 @@ def _check(idx, val, x) -> tuple[torch.dtype, int | None]:
 
 
 def launch(idx: torch.Tensor, val: torch.Tensor, x: torch.Tensor, *,
-           lane_order: str | None = None) -> torch.Tensor:
+           lane_order: str | None = None,
+           threads: int | None = None) -> torch.Tensor:
     """Check, allocate and launch the kernel without counting the launch:
     :func:`ell_matvec` and :func:`repro_torch.kernels.bellman_ell.ell_qvalues`
     each count theirs under their own name."""
     dt, batch = _check(idx, val, x)
+    cta = lanes.cta_threads(threads)
     n, k = val.shape[-2:]
     y = torch.empty(val.shape[:-1], dtype=dt, device=x.device)
     if y.numel() == 0:
@@ -98,18 +105,22 @@ def launch(idx: torch.Tensor, val: torch.Tensor, x: torch.Tensor, *,
     fn = lib.ell_spmv_f64 if dt == torch.float64 else lib.ell_spmv_f32
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = fn(idx.data_ptr(), val.data_ptr(), x.data_ptr(), n, k, b,
-              lanes.order_flag(lane_order), strides, y.data_ptr(),
+              lanes.order_flag(lane_order), cta, strides, y.data_ptr(),
               stream)
     build.check(code, "ell_matvec launch")
     return y
 
 
 def ell_matvec(idx: torch.Tensor, val: torch.Tensor, x: torch.Tensor, *,
-               lane_order: str | None = None) -> torch.Tensor:
+               lane_order: str | None = None, threads: int | None = None,
+               tuning: bool = False) -> torch.Tensor:
     """``y[..., i] = sum_k val[..., i, k] * x[..., idx[..., i, k]]``
     ((n,) or (B, n)) in x's dtype, on the card, one launch."""
-    global launches
-    y = launch(idx, val, x, lane_order=lane_order)
+    global launches, tune_launches
+    y = launch(idx, val, x, lane_order=lane_order, threads=threads)
     if y.numel():
-        launches += 1
+        if tuning:
+            tune_launches += 1
+        else:
+            launches += 1
     return y

@@ -9,13 +9,17 @@ smaller world (or, ``0``, this process without a mesh) that resumes from
 the checkpoint and solves to ``1e-9``, and holds the result to the
 single-device solve (``|v - v_ref|_inf < 1e-9``):
 
-    PYTHONPATH=src python -m repro_torch.launch.elastic           # gloo, 4 -> 2
-    PYTHONPATH=src python -m repro_torch.launch.elastic --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.elastic    # on the card(s)
+    PYTHONPATH=src python -m repro_torch.launch.elastic --device cpu  # gloo, 4 -> 2
 
 ``--batch B`` runs a seed ensemble of ``B`` garnets under the ``fleet``
 layout instead (the fleet axis as large as the world: a 4-way fleet axis
-checkpointed, resumed on a 2-way one).  On the card the worlds default to
-every card and half of them, or on one card to one rank and no mesh.
+checkpointed, resumed on a 2-way one).  It runs on the card unless given
+``--device cpu``, and without a GPU it raises rather than run on the
+host.  On the card the worlds default to every card and half of them, or
+on one card to one rank and no mesh; on the host to 4 and 2 gloo ranks.
+Every process takes the kernel tuner's ``-kernel_tune`` and
+``-kernel_tune_cache`` from ``MADUPITE_OPTIONS``, as the solve CLI does.
 Each world runs under a time limit; every process started is stopped.
 """
 
@@ -32,6 +36,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from repro_torch.device import DEVICES, resolve_device
 
 SRC = Path(__file__).resolve().parents[2]
 
@@ -52,8 +58,13 @@ def _opts(max_outer: int = 500):
 def _solve(args, max_outer: int, chunk: int, *, mesh_world: int):
     """One phase's solve: on a mesh over the world (``mesh_world`` > 0)
     or on this process's device; a list of results (one a lane)."""
+    from repro_torch.api import Options
     from repro_torch.core import driver
+    from repro_torch.kernels import tuning
     from repro_torch.launch import mesh as lm
+    env = Options.from_sources()
+    tuning.configure(enabled=env.get("-kernel_tune") != "off",
+                     cache_path=env.get("-kernel_tune_cache"))
     mdps = _instances(args)
     kw = dict(checkpoint_dir=args.ckpt, chunk=chunk, device=args.device)
     if mesh_world:
@@ -132,7 +143,8 @@ def main(argv=None) -> int:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--n", type=int, default=2000)
     ap.add_argument("--gamma", type=float, default=0.995)
-    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
+    ap.add_argument("--device", default="cuda", choices=list(DEVICES),
+                    help="cuda (default) or cpu (gloo ranks on the host)")
     ap.add_argument("--batch", type=int, default=1,
                     help="a seed ensemble of B garnets under the fleet "
                          "layout (default: one garnet under 1d)")
@@ -153,6 +165,7 @@ def main(argv=None) -> int:
     if args.worker:
         return worker(args)
 
+    resolve_device(args.device)   # no GPU for cuda: raise, never the host
     if args.worlds is None:
         cards = torch.cuda.device_count() if args.device == "cuda" else 4
         args.worlds = (cards, cards // 2) if cards >= 2 else (1, 0)

@@ -40,6 +40,11 @@ Server knobs are options-database keys (``-serve_batch_window``,
 ``-serve_program_cache``, ``-serve_slot_policy``,
 ``-serve_deadline_ms``) reachable through ``--option key=value`` or
 ``MADUPITE_OPTIONS``; ``--window`` is sugar for the batching window.
+So are the kernel options: ``--option kernel_impl=auto|torch|blocked|cuda``
+picks the kernels of every solve, ``--option kernel_tune=off`` keeps the
+kernels' fixed launch shapes, ``--option kernel_tune_cache=PATH`` names
+the launch tuner's JSON file (the server's scheduler thread tunes under
+the tuner's lock).
 Prints one line a request (its dispatch, padded state count, slot and
 latency), one a dispatch (its requests and, on the card, its kernel
 launches), then throughput, latency quantiles and the program-cache

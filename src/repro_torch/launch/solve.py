@@ -24,6 +24,18 @@ method and hot-swaps it on stagnation or divergence (each swap printed):
     PYTHONPATH=src python -m repro_torch.launch.solve --instance garnet \
         --n 1000000 --m 16 --k 8 --method auto --atol 1e-8
 
+Kernel options reach the CLI through ``--option`` or
+``MADUPITE_OPTIONS`` like every other key: ``kernel_impl=auto|torch|
+blocked|cuda`` (``xla`` / ``pallas`` accepted), ``kernel_tune=off`` (the
+kernels' fixed launch shapes, nothing timed or written) and
+``kernel_tune_cache=PATH`` (the tuner's JSON file, by default
+``~/.cache/madupite/autotune.json``).  On the card the CLI prints the
+kernel launches, the tuner's timing launches and the launch shapes it
+resolved:
+
+    PYTHONPATH=src python -m repro_torch.launch.solve --instance garnet \
+        --n 1000000 --m 16 --k 8 --option kernel_tune_cache=tune.json
+
 ``--load`` reads the block-manifest format of :mod:`repro_torch.core.io`
 (either package's files); ``--ckpt-dir`` checkpoints between chunks and
 resumes from the newest step there; ``--monitor`` prints one line per
@@ -64,6 +76,7 @@ auto``).  Exit code 0 iff every instance converged, on every rank.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -75,7 +88,7 @@ import torch.distributed as dist
 from repro_torch.api import MDP, Options, Session
 from repro_torch.core import generators
 from repro_torch.device import DEVICES
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, tuning
 from repro_torch.launch import mesh as launch_mesh
 
 
@@ -162,6 +175,12 @@ def _launch_line(opts: Options, say=print) -> None:
     if opts.get("-device") == "cuda":
         counts = " ".join(f"{k}={v}" for k, v in ops.launch_counts().items())
         say(f"[solve] kernel launches: {counts}")
+        tuned = " ".join(f"{k}={v}"
+                         for k, v in ops.tune_launch_counts().items())
+        say(f"[solve] tune launches: {tuned} (tuning "
+            f"{'on' if tuning.enabled() else 'off'})")
+        say(f"[solve] launch shapes: "
+            f"{json.dumps(ops.launch_shapes(), sort_keys=True)}")
 
 
 def _run(args, session: Session, opts: Options, say) -> int:

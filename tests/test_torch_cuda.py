@@ -9,6 +9,8 @@ PyTorch:
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -16,8 +18,8 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import driver, generators
 from repro_torch.core.ipi import IPIOptions
-from repro_torch.kernels import bellman_ell, dense_backup, ops, ref
-from repro_torch.kernels import flash_attention, spmv_ell
+from repro_torch.kernels import bellman_ell, dense_backup, lanes, ops, ref
+from repro_torch.kernels import flash_attention, spmv_ell, tuning
 from repro_torch.models import DecoderLM, build_model
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -39,6 +41,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _isolated_tuner(tmp_path):
+    """Every case tunes into a file of its own, never the user's cache."""
+    prev = (tuning.enabled(), tuning.cache_path())
+    tuning.reset(cache_path=str(tmp_path / "autotune.json"))
+    yield
+    tuning.reset(cache_path=prev[1])
+    tuning.configure(enabled=prev[0])
 
 
 def _tables(n, m, k, v_dtype, device, seed=11):
@@ -903,3 +915,143 @@ def test_fleet_layout_on_the_card_is_the_mesh_less_fleet(cuda, layout):
         assert np.array_equal(g.policy, w.policy)
         assert (g.outer_iterations, g.inner_iterations) == \
             (w.outer_iterations, w.inner_iterations)
+
+
+# --------------------------------------------------------------------------- #
+# Launch shapes and the tuner                                                 #
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", SHAPES + [(301, 16, 8), (301, 40, 12)],
+                         ids=str)
+def test_every_cta_size_bitmatches_plain_versions(cuda, shape, v_dtype):
+    """Each CTA size of the ELL kernels and of the dense one: bit for bit
+    the plain version."""
+    idx, val, cost, v = _tables(*shape, v_dtype, cuda)
+    want = ref.ell_backup(idx, val, cost, GAMMA, v)
+    rows_i, rows_v = idx[:, 0].contiguous(), val[:, 0].contiguous()
+    want_y = ref.ell_matvec(rows_i, rows_v, v)
+    want_q = ref.ell_qvalues(idx, val, cost, GAMMA, v)
+    for t in lanes.THREADS:
+        got = bellman_ell.ell_backup(idx, val, cost, GAMMA, v, threads=t)
+        assert _bitequal(got[0], want[0]) and torch.equal(got[1], want[1])
+        y = spmv_ell.ell_matvec(rows_i, rows_v, v, threads=t)
+        assert _bitequal(y, want_y)
+        q = bellman_ell.ell_qvalues(idx, val, cost, GAMMA, v, threads=t)
+        assert _bitequal(q, want_q)
+    n, m, _ = shape
+    p, dcost, dv = _dense_tables(n, m, 3 * n + 7, v_dtype, cuda)
+    want = ref.dense_backup(p, dcost, GAMMA, dv)
+    for w in dense_backup.WARPS:
+        got = dense_backup.dense_backup(p, dcost, GAMMA, dv, warps=w)
+        assert _bitequal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("v_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shared_idx", [True, False])
+def test_every_fleet_launch_shape_bitmatches_plain_versions(
+        cuda, shared_idx, v_dtype):
+    """Each (CTA size, grid order) of a fleet, batched and shared tables:
+    bit for bit the batched plain version."""
+    idx, val, cost, v = _fleet_tables(130, 17, 4, v_dtype, cuda, shared_idx,
+                                      False)
+    g = _fleet_gamma("lanes", v.dtype, cuda)
+    want = ref.ell_backup(idx, val, cost, g, v)
+    shared = ref.ell_backup(idx[0] if not shared_idx else idx, val[0],
+                            cost[0], g, v)
+    for t in lanes.THREADS:
+        for order in lanes.LANE_ORDERS:
+            got = bellman_ell.ell_backup(idx, val, cost, g, v, threads=t,
+                                         lane_order=order)
+            assert _bitequal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            one = bellman_ell.ell_backup(
+                idx[0] if not shared_idx else idx, val[0], cost[0], g, v,
+                threads=t, lane_order=order)
+            assert _bitequal(one[0], shared[0])
+            assert torch.equal(one[1], shared[1])
+
+
+def test_wrappers_reject_cta_sizes_outside_the_set(cuda):
+    idx, val, cost, v = _tables(64, 3, 4, np.float32, cuda)
+    with pytest.raises(ValueError, match="threads must be one of"):
+        bellman_ell.ell_backup(idx, val, cost, GAMMA, v, threads=384)
+    with pytest.raises(ValueError, match="threads must be one of"):
+        spmv_ell.ell_matvec(idx[:, 0].contiguous(), val[:, 0].contiguous(),
+                            v, threads=64)
+    p, dcost, dv = _dense_tables(20, 3, 40, np.float32, cuda)
+    with pytest.raises(ValueError, match="warps must be one of"):
+        dense_backup.dense_backup(p, dcost, GAMMA, dv, warps=32)
+
+
+def test_tune_launches_are_not_path_launches(cuda, monkeypatch):
+    """A tuned call times its candidates on its own operands: those
+    launches count under ``tune_launches``, the call itself once under
+    ``launches``; a second call is served from the cache.  The threshold
+    is lowered so that a small table tunes."""
+    monkeypatch.setattr(tuning, "MIN_TUNE_ELEMS", 1)
+    idx, val, cost, v = _tables(301, 5, 8, np.float64, cuda)
+    rows_i, rows_v = idx[:, 0].contiguous(), val[:, 0].contiguous()
+    p, dcost, dv = _dense_tables(64, 3, 200, np.float64, cuda)
+    fi, fval, fcost, fv = _fleet_tables(130, 5, 4, np.float64, cuda, True,
+                                        False)
+    per_cand = 2 * tuning._TIMING_REPS      # measure: a warm-up, one timed
+    calls = [
+        ("ell_backup", len(lanes.THREADS),
+         lambda: ops.ell_backup(idx, val, cost, GAMMA, v),
+         ref.ell_backup(idx, val, cost, GAMMA, v)),
+        ("ell_matvec", len(lanes.THREADS),
+         lambda: ops.ell_matvec(rows_i, rows_v, v),
+         ref.ell_matvec(rows_i, rows_v, v)),
+        ("dense_backup", len(dense_backup.WARPS),
+         lambda: ops.dense_backup(p, dcost, GAMMA, dv),
+         ref.dense_backup(p, dcost, GAMMA, dv)),
+        ("ell_backup", len(lanes.THREADS) * len(lanes.LANE_ORDERS),
+         lambda: ops.ell_backup(fi, fval, fcost, GAMMA, fv),
+         ref.ell_backup(fi, fval, fcost, GAMMA, fv)),
+    ]
+    for name, n_cands, call, want in calls:
+        for first in (True, False):
+            before = ops.launch_counts()[name]
+            tuned = ops.tune_launch_counts()[name]
+            got = call()
+            assert ops.launch_counts()[name] == before + 1
+            assert ops.tune_launch_counts()[name] - tuned == \
+                (n_cands * per_cand if first else 0)
+            pairs = zip(got, want) if isinstance(got, tuple) \
+                else [(got, want)]
+            for a, b in pairs:
+                assert torch.equal(a, b) if a.dtype == torch.int32 \
+                    else _bitequal(a, b)
+    entries = json.load(open(tuning.cache_path()))["entries"]
+    card = torch.cuda.get_device_name(0)
+    assert set(entries) == {
+        f"ell_backup|torch-cuda:{card}|n512|m5|k8|float64",
+        f"ell_matvec|torch-cuda:{card}|n512|m1|k8|float64",
+        f"dense_backup|torch-cuda:{card}|n64|m3|k200|float64",
+        f"ell_backup[fleet]|torch-cuda:{card}|n256|m5|k4|float64"}
+
+
+def test_tuning_off_launches_the_fixed_shapes(cuda, monkeypatch):
+    monkeypatch.setattr(tuning, "MIN_TUNE_ELEMS", 1)
+    tuning.configure(enabled=False)
+    idx, val, cost, v = _tables(301, 5, 8, np.float32, cuda)
+    ops.reset_launch_counts()
+    ops.ell_backup(idx, val, cost, GAMMA, v)
+    assert ops.tune_launch_counts()["ell_backup"] == 0
+    [shape] = [c for k, c in ops.launch_shapes().items()
+               if k.startswith("ell_backup|") and "|n512|m5|k8|float32" in k]
+    assert shape == lanes.DEFAULT_THREADS
+
+
+def test_torch_impl_on_the_card_launches_no_kernel(cuda):
+    mdp = generators.garnet(n=300, m=6, k=4, gamma=0.97, seed=3)
+    opts = dict(method="ipi_gmres", dtype="float64", atol=1e-9)
+    ops.reset_launch_counts()
+    plain = driver.solve(mdp, IPIOptions(impl="torch", **opts),
+                         device="cuda")
+    assert not any(ops.launch_counts().values())
+    kern = driver.solve(mdp, IPIOptions(impl="cuda", **opts), device="cuda")
+    assert ops.launch_counts()["ell_backup"] > 0
+    assert np.array_equal(plain.v.view(np.uint64), kern.v.view(np.uint64))
+    assert np.array_equal(plain.policy, kern.policy)

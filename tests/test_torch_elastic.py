@@ -10,7 +10,9 @@ check).  The single garnet has ``n = 501``, which pads to 504 states on
 4 shards and to 502 on 2, so the checkpoint must hold the unpadded ``n``.
 The fleet cases checkpoint a seed ensemble of 5 garnets on a 4-way fleet
 axis (3 dummy lanes) and resume it on a 2-way one (1 dummy lane) and on
-no mesh, as ``tests/test_fleet.py`` resumes the reference's.
+no mesh, as ``tests/test_fleet.py`` resumes the reference's.  The
+launcher runs on the card unless given ``--device cpu``, which every
+launch here passes.
 """
 
 import os
@@ -20,6 +22,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 TIMEOUT = 240           # seconds, each launch
@@ -31,7 +34,7 @@ def _elastic(*args) -> str:
         env.pop(key, None)
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.elastic", *args,
-         "--timeout", str(TIMEOUT)], env=env, stdout=subprocess.PIPE,
+         "--device", "cpu", "--timeout", str(TIMEOUT)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, start_new_session=True)
     try:
         out, err = proc.communicate(timeout=TIMEOUT + 30)
@@ -65,3 +68,21 @@ def test_fleet_checkpoint_resumes_on_a_smaller_fleet_axis(second):
                if ln.startswith(f"[elastic] phase 2 {where}")]
     assert len(resumed) == 1 and resumed[0].count("converged=True") == 5
     assert "elastic restart preserved the solve exactly" in out
+
+
+def test_default_device_is_the_card_and_never_falls_back(monkeypatch):
+    """Without ``--device`` the launcher asks for ``cuda``: with no GPU
+    visible it raises ``resolve_device``'s error before it starts any
+    world, rather than run on the host."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import elastic
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = []
+    monkeypatch.setattr(elastic, "_world",
+                        lambda *a, **k: started.append(a) or "")
+    monkeypatch.setattr(elastic, "_solve",
+                        lambda *a, **k: started.append(a) or [])
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        elastic.main(["--n", "101"])
+    assert not started
