@@ -245,11 +245,40 @@ raises on failure:
    (4f) GPU vs CPU parity: minitron-8b at full width but 2 layers, float32,
    the same weights on both, prompt 256, batch 2, 8 greedy tokens: logits
    within 1e-4 of their largest magnitude at every step, tokens equal;
+   2f also holds the kernel at the other families' prefill layouts, B=4
+   in bf16 within one bf16 ulp and beside SDPA: olmoe-1b-7b (16 / 16
+   heads, d 128, causal, 2048), zamba2-1.2b's shared block (32 / 32, d 64,
+   causal, 2048), llava-next-34b (56 / 8, d 128, causal, 2,880 patches +
+   512 text = 3,392) and whisper-base's encoder (8 / 8, d 64, non-causal
+   over 1,500 frames); its resources also at d 64 (DC=4);
+   (3l) the other families at their published widths, batch 4, 16 greedy
+   tokens: olmoe-1b-7b, mamba2-130m, zamba2-1.2b (prompt 2048) and
+   whisper-base (prompt 448, its decoder context; frames (4, 1500, 512))
+   through the ``serve_lm`` CLI, which must exit 0 with ``flash_attention``
+   launched once a prefill's attention layer (16, 0, 6, 6 + 6) and no
+   other kernel; llava-next-34b cut to 16 layers (512 tokens after 2,880
+   patch embeddings) and arctic-480b cut to 1 layer (prompt 2048) built in
+   the script (the CLI has no depth flag, as the reference's has none);
+   then for each, built in the script from a seed, prefill (timed, its
+   launches counted: as the CLI's) and 15 greedy decode steps (none
+   launched), every logit finite; a warm prefill and the last decode step
+   profiled as in phase 3b; then one decode step fed token t + 1 of a
+   prompt of t + 1, whose prefill must give its logits within 5% of
+   their largest magnitude (bf16); for the MoE families that check as
+   served is logged only (slot-major capacity makes a prefill over t + 1
+   another function, in the reference too: ``serve_family``), and the
+   one that decides runs the same weights with dropless groups of 256 /
+   top_k tokens, on one row;
+   (4l) GPU vs CPU parity as 4f at full width and least depth, float32,
+   batch 1, prompt 64, 8 greedy tokens: olmoe-1b-7b and mamba2-130m at 2
+   layers, zamba2-1.2b at 6 (one shared site), whisper-base at 2 + 2 with
+   1,500 frames;
 10. one JSON ``kernels`` line, then the ``ok`` line last.  An ELL kernel's
    ``launches`` is its count in the CLI's ipi_gmres solve (a), the
    default method; ``dense_backup``'s is its count in the dense ipi_gmres
    solve (3d); ``ell_qvalues``'s its phase-2q count; ``flash_attention``'s
-   its count in the serve_lm CLI run (3f).  ``launches_by_path`` gives
+   its count in the serve_lm CLI run (3f), and its ``launches_by_path``
+   3l's runs too.  ``launches_by_path`` gives
    each path's counts (the ELL kernels' include phase 3g's and 3h's
    paths).  Rows 1-4 carry ``batched``: phase 3h (d)'s rows, keyed by
    ``idx`` kind and dtype; the ELL kernels' also carry phase 3m (a)'s
@@ -301,13 +330,30 @@ MAZE_OUTER = 10                     # (b)'s ipi_gmres trajectory (the
                                     # maze's PI takes ~2 x size outer steps)
 LM_ARCH = "minitron-8b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 16
-# (name, H, KV, d) at B=4, T=S=2048: minitron-8b, stablelm-3b, granite-34b
-FLASH_CASES = (("minitron-8b", 32, 8, 128), ("stablelm-3b", 32, 32, 80),
-               ("granite-34b", 48, 1, 128))
+# (name, H, KV, d, T = S, causal) at B=4: minitron-8b (the row's main
+# case), stablelm-3b, granite-34b; then the other families' prefills
+FLASH_CASES = (("minitron-8b", 32, 8, 128, 2048, True),
+               ("stablelm-3b", 32, 32, 80, 2048, True),
+               ("granite-34b", 48, 1, 128, 2048, True),
+               ("olmoe-1b-7b", 16, 16, 128, 2048, True),
+               ("zamba2-1.2b", 32, 32, 64, 2048, True),
+               ("llava-next-34b", 56, 8, 128, 512 + 2880, True),
+               ("whisper-base-encoder", 8, 8, 64, 1500, False))
 PLAIN_FLASH_REPS = 5                # the plain scan is slow
 DECODE_TOL = 0.05    # decode vs prefill logits, of max |logit| (bf16)
 PARITY_TOL = 1e-4    # GPU vs CPU logits, of max |logit| (float32)
 PARITY_BATCH, PARITY_PROMPT, PARITY_GEN = 2, 256, 8
+# phase 3l: (arch, prompt, depth cut or None for the full depth through
+# the serve_lm CLI); batch LM_BATCH, LM_GEN greedy tokens
+FAMILY_RUNS = (("olmoe-1b-7b", 2048, None), ("mamba2-130m", 2048, None),
+               ("zamba2-1.2b", 2048, None), ("whisper-base", 448, None),
+               ("llava-next-34b", 512, 16), ("arctic-480b", 2048, 1))
+# phase 4l: (arch, depth overrides); batch 1, prompt 64, PARITY_GEN tokens
+FAMILY_PARITY = (("olmoe-1b-7b", dict(n_layers=2)),
+                 ("mamba2-130m", dict(n_layers=2)),
+                 ("zamba2-1.2b", dict(n_layers=6)),
+                 ("whisper-base", dict(n_layers=2, encoder_layers=2)))
+FAMILY_PARITY_BATCH, FAMILY_PARITY_PROMPT = 1, 64
 # phase 3g profiles these long solves over their first outer steps only
 # (tens of thousands of small ops make torch.profiler's tables slow)
 PROFILE_PREFIX = {"session_ipi_chebyshev": 20,
@@ -2362,20 +2408,20 @@ def flash_within_tolerance(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def flash_checks() -> dict:
     """Phase 2f: ``flash_attention`` against its plain version at the
-    serving path's prefill shape (B=4, T=S=2048, causal, bf16) for three
-    head layouts, timed beside SDPA."""
+    serving paths' prefill shapes (B=4, T=S, bf16) for each head layout of
+    ``FLASH_CASES``, timed beside SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, ref
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    b, t = LM_BATCH, LM_PROMPT
+    b = LM_BATCH
     out = {}
-    for name, h, kv, d in FLASH_CASES:
+    for name, h, kv, d, t, causal in FLASH_CASES:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                    .to(torch.bfloat16)
                    for shape in ((b, t, h, d), (b, t, kv, d), (b, t, kv, d)))
-        got = flash_attention.flash_attention(q, k, v, causal=True)
-        want = ref.flash_attention(q, k, v, causal=True)
+        got = flash_attention.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ratio = flash_within_tolerance(got, want)
         if not ratio <= 1.0:
@@ -2385,20 +2431,21 @@ def flash_checks() -> dict:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
         def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
 
         nbytes = q.nbytes + k.nbytes + v.nbytes + got.nbytes
-        flops = 4 * b * h * d * (t * (t + 1) // 2)   # QK^T and PV, causal
+        # QK^T and PV over the (query, key) pairs the mask keeps
+        flops = 4 * b * h * d * (t * (t + 1) // 2 if causal else t * t)
         b_ms, b_by = bound_ms(nbytes, flops, torch.bfloat16)
         out[name] = dict(
             shape=dict(B=b, T=t, S=t, H=h, KV=kv, d=d), dtype="bfloat16",
-            causal=True, max_abs_err=max_abs_diff(got, want),
+            causal=causal, max_abs_err=max_abs_diff(got, want),
             tolerance_ratio=ratio,
             ms=time_ms(lambda: flash_attention.flash_attention(
-                q, k, v, causal=True)),
+                q, k, v, causal=causal)),
             plain_ms=time_ms(lambda: ref.flash_attention(q, k, v,
-                                                         causal=True),
+                                                         causal=causal),
                              reps=PLAIN_FLASH_REPS),
             bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
             library_max_abs_diff=max_abs_diff(library().transpose(1, 2),
@@ -2407,7 +2454,8 @@ def flash_checks() -> dict:
         r = out[name]
         r["tflops"] = flops / r["ms"] / 1e9
         r["bound_share"] = b_ms / r["ms"]
-        log(f"[phase2f] flash_attention {name} (H={h}, KV={kv}, d={d}): "
+        log(f"[phase2f] flash_attention {name} (H={h}, KV={kv}, d={d}, "
+            f"T=S={t}, causal={causal}): "
             f"{r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s, "
             f"{r['bound_share']:.1%} of the bound (plain "
             f"{r['plain_ms']:.3f}, sdpa {r['library_ms']:.4f}, bound "
@@ -2419,9 +2467,10 @@ def flash_checks() -> dict:
 
 def flash_report(library: Path) -> dict:
     """The bf16 kernel at each head dim the serving configs use (d = 128:
-    DC=8, d = 80: DC=5), read from the library that ran phase 2f: its
-    registers, dynamic shared memory and local memory as the runtime holds
-    them (``flash_attention_bf16_attributes``, after the launches), its
+    DC=8, d = 80: DC=5, d = 64: DC=4), read from the library that ran
+    phase 2f: its registers, dynamic shared memory and local memory as the
+    runtime holds them (``flash_attention_bf16_attributes``, after the
+    launches), its
     spills and ptxas's advisories from the library's build log (``-Xptxas
     -v``), and its tensor-core and copy instructions from ``cuobjdump
     -sass``.  Raises if a kernel has no tensor-core instruction or ptxas
@@ -2439,7 +2488,7 @@ def flash_report(library: Path) -> dict:
     funcs = re.split(r"\n\s*Function : ", sass)
     lib = build.load("flash_attention")
     report = {}
-    for dc, d in ((8, 128), (5, 80)):
+    for dc, d in ((8, 128), (5, 80), (4, 64)):
         tag = f"flash_fwd_bf16ILi{dc}E"
         attrs = (ctypes.c_int * 4)()
         build.check(lib.flash_attention_bf16_attributes(d, attrs),
@@ -2554,25 +2603,31 @@ def lm_main_path() -> dict:
                 decode_profile=decode_prof)
 
 
-def lm_parity() -> dict:
-    """Phase 4f: minitron-8b at full width but 2 layers, float32, the same
-    weights on the card and on the host: prefill and greedy decode."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import DecoderLM, build_model
+def parity_run(cfg, batch: int, prompt: int, seed: int) -> dict:
+    """``cfg`` in float32 with the same weights on the card and on the
+    host (drawn on the card from ``seed``), the same prompt and stub
+    inputs: prefill and ``PARITY_GEN`` greedy decode steps.  Logits within
+    ``PARITY_TOL`` of their largest magnitude at every step and the tokens
+    equal, or it raises."""
+    from repro_torch.launch.serve_lm import stub_inputs
+    from repro_torch.models import DecoderLM, WhisperModel, build_model
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2,
-                              dtype="float32")
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     card = build_model(cfg, generator=gen, device="cuda")
-    host = DecoderLM(cfg, device="cpu")
+    host = (WhisperModel if cfg.family == "encdec" else DecoderLM)(
+        cfg, device="cpu")
     host.load_state_dict(card.state_dict())
-    toks = torch.randint(0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT),
-                         generator=gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device="cuda")
+    extra = stub_inputs(cfg, batch, gen)
     runs = {}
     for name, model in (("card", card), ("host", host)):
+        dev = model.embed.device
         prefill, decode = make_prefill_step(model), make_decode_step(model)
-        logits, cache = prefill(toks.to(model.embed.device))
+        logits, cache = prefill(toks.to(dev),
+                                None if extra is None else extra.to(dev))
         cache = model.extend_cache(cache, PARITY_GEN)
         tok, out, steps = torch.argmax(logits, -1), [], [logits]
         for _ in range(PARITY_GEN):
@@ -2583,18 +2638,230 @@ def lm_parity() -> dict:
     rel = max(max_abs_diff(g, w) / float(w.abs().max())
               for g, w in zip(runs["card"][1], runs["host"][1]))
     same = bool(torch.equal(runs["card"][0], runs["host"][0]))
-    row = dict(layers=cfg.n_layers, d_model=cfg.d_model,
-               vocab=cfg.vocab_size, prompt=PARITY_PROMPT,
-               batch=PARITY_BATCH, steps=PARITY_GEN + 1,
-               max_rel_logit_diff=rel, tol=PARITY_TOL, tokens_equal=same,
-               tokens=runs["card"][0][0].tolist())
-    log(f"[phase4f] {json.dumps(row)}")
-    if not (same and rel <= PARITY_TOL):
-        raise AssertionError(f"LM GPU vs CPU parity failed: {row}")
+    row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, prompt=prompt, batch=batch,
+               steps=PARITY_GEN + 1, max_rel_logit_diff=rel, tol=PARITY_TOL,
+               tokens_equal=same, tokens=runs["card"][0][0].tolist())
+    if cfg.family == "encdec":
+        row["encoder_layers"] = cfg.encoder_layers
     del card, host
     gc.collect()
     torch.cuda.empty_cache()
+    if not (same and rel <= PARITY_TOL):
+        raise AssertionError(f"LM GPU vs CPU parity failed: {row}")
     return row
+
+
+def lm_parity() -> dict:
+    """Phase 4f: minitron-8b at full width but 2 layers, float32, the same
+    weights on the card and on the host: prefill and greedy decode."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2)
+    row = parity_run(cfg, PARITY_BATCH, PARITY_PROMPT, seed=2)
+    log(f"[phase4f] {json.dumps(row)}")
+    return row
+
+
+# --------------------------------------------------------------------------- #
+# phases 3l / 4l: the other LM families                                       #
+# --------------------------------------------------------------------------- #
+
+def attention_layers(cfg) -> int:
+    """Flash launches of one prefill: one per attention layer (the
+    hybrid's shared block once a call site; whisper's encoder and decoder
+    layers; none for the ssm family)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + cfg.n_layers
+    return cfg.n_layers
+
+
+def require_flash_only(what: str, launches: dict, want: int) -> None:
+    """``flash_attention`` launched ``want`` times and no other kernel."""
+    other = {k: n for k, n in launches.items()
+             if k != "flash_attention" and n}
+    if launches["flash_attention"] != want or other:
+        raise AssertionError(f"{what}: launches {launches}, want "
+                             f"flash_attention {want} and no other kernel")
+
+
+def sync_wall(fn):
+    """``fn()`` between two syncs: its result and wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def decode_check(model, toks: torch.Tensor, extra, prompt: int) -> dict:
+    """Prefill over ``prompt`` tokens, then one decode step fed token
+    ``prompt + 1``, against a prefill over ``prompt + 1`` tokens: the
+    logits within ``DECODE_TOL`` of their largest magnitude (``ok``) and
+    finite."""
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    _, cache = prefill(toks[:, :prompt], extra)
+    cache = model.extend_cache(cache, 1)
+    _, logits_dec, _ = decode(toks[:, prompt:], cache)
+    del cache
+    logits_full, _ = prefill(toks, extra)
+    diff = max_abs_diff(logits_dec, logits_full)
+    scale = float(logits_full.float().abs().max())
+    finite = bool(torch.isfinite(logits_dec.float()).all()
+                  and torch.isfinite(logits_full.float()).all())
+    return dict(batch=toks.shape[0], max_abs_diff=diff, max_abs_logit=scale,
+                rel=diff / scale, tol=DECODE_TOL,
+                argmax_equal=float((logits_dec.argmax(-1)
+                                    == logits_full.argmax(-1))
+                                   .float().mean()),
+                ok=finite and diff <= DECODE_TOL * scale)
+
+
+def serve_family(cfg, prompt: int) -> dict:
+    """3l for one configuration, built in the script from a seed: prefill
+    over ``prompt`` tokens (and the stub inputs) and ``LM_GEN - 1`` greedy
+    decode steps, timed with their launches counted, every logit finite;
+    a warm prefill and the last decode step profiled; then
+    :func:`decode_check` (bf16).
+
+    For the moe family that check, as served, is logged only: a prefill
+    over t + 1 is another function than a prefill over t plus a decode
+    step, in the reference as in the port.  Capacity is taken slot by
+    slot, so a group's later tokens (the zero rows that pad the last
+    group among them) take an expert's capacity before an earlier
+    token's later slot, and the decoded token, dropless in its group of
+    B, loses slots in the prefill's.  The check that decides runs the same
+    weights (drawn again from the seed) with groups of ``256 // top_k``
+    tokens, the reference's dropless regime (``_capacity``), on row 0
+    (the experts' buffers are E x tokens x d)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_lm import stub_inputs
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model, build_s = sync_wall(lambda: build_model(cfg, generator=gen,
+                                                   device="cuda"))
+    toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, prompt + 1),
+                         generator=gen, device="cuda")
+    extra = stub_inputs(cfg, LM_BATCH, gen)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    ops.reset_launch_counts()
+    (logits, cache), prefill_s = sync_wall(
+        lambda: prefill(toks[:, :prompt], extra))
+    prefill_launches = ops.launch_counts()
+    require_flash_only(f"{cfg.name} prefill", prefill_launches,
+                       attention_layers(cfg))
+    finite = bool(torch.isfinite(logits.float()).all())
+    cache = model.extend_cache(cache, LM_GEN)
+    ops.reset_launch_counts()
+    tok, step_s = torch.argmax(logits, -1), []
+    for _ in range(LM_GEN - 2):
+        (tok, logits, cache), wall = sync_wall(lambda: decode(tok, cache))
+        step_s.append(wall)
+        finite &= bool(torch.isfinite(logits.float()).all())
+    (tok, logits, cache), decode_prof = device_profile(
+        lambda: decode(tok, cache))
+    finite &= bool(torch.isfinite(logits.float()).all())
+    decode_launches = ops.launch_counts()
+    require_flash_only(f"{cfg.name} decode", decode_launches, 0)
+    del cache, logits
+    _, prefill_prof = device_profile(
+        lambda: prefill(toks[:, :prompt], extra))
+    checks = {"as_served": decode_check(model, toks, extra, prompt)}
+    row = dict(arch=cfg.name, layers=cfg.n_layers, prompt=prompt,
+               batch=LM_BATCH, gen=LM_GEN, weights_gb=sum(
+                   p.nbytes for p in model.state_dict().values()) / 1e9,
+               build_s=build_s, prefill_s=prefill_s,
+               decode_step_ms=statistics.median(step_s) * 1e3,
+               finite=finite, launches={"prefill": prefill_launches,
+                                        "decode": decode_launches},
+               decode_check=checks, prefill_profile=prefill_prof,
+               decode_profile=decode_prof)
+    if cfg.family == "vlm":
+        row["patches"] = cfg.n_patches
+    if cfg.family == "encdec":
+        row["frames"] = cfg.encoder_len
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gate = checks["as_served"]
+    if cfg.family == "moe":
+        dropless = dataclasses.replace(cfg,
+                                       moe_group_size=256 // cfg.top_k)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        model = build_model(dropless, generator=gen, device="cuda")
+        gate = checks["dropless_groups"] = decode_check(
+            model, toks[:1], None, prompt)
+        gate["moe_group_size"] = dropless.moe_group_size
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not (finite and gate["ok"]):
+        raise AssertionError(f"{cfg.name}: decode vs prefill check failed "
+                             f"(finite {finite}): {checks}")
+    return row
+
+
+def lm_family_paths() -> dict:
+    """Phase 3l: each of ``FAMILY_RUNS`` through the serve_lm CLI (full
+    depth) and built in the script (:func:`serve_family`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_lm
+
+    out = {}
+    for arch, prompt, depth in FAMILY_RUNS:
+        cfg = get_config(arch)
+        row = {}
+        if depth is None:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc, text = run_cli(serve_lm.main, [
+                "--arch", arch, "--batch", str(LM_BATCH), "--prompt-len",
+                str(prompt), "--gen", str(LM_GEN)])
+            cli_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            if rc != 0:
+                raise AssertionError(f"serve_lm --arch {arch} exited {rc}")
+            require_flash_only(f"serve_lm --arch {arch}", launches,
+                               attention_layers(cfg))
+            m = re.search(r"prefill=([\d.]+)s decode=([\d.]+)ms/tok", text)
+            row = dict(cli_wall_s=cli_s, cli_prefill_s=float(m[1]),
+                       cli_decode_ms=float(m[2]), cli_launches=launches)
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        row.update(serve_family(cfg, prompt))
+        out[arch] = row
+        brief = {k: v for k, v in row.items()
+                 if not k.endswith("_profile")}
+        log(f"[phase3l] {arch}: {json.dumps(brief)}")
+        for what in ("prefill", "decode"):
+            log(f"[phase3l] {arch} {what} profile: "
+                f"{json.dumps(row[what + '_profile'])}")
+    return out
+
+
+def lm_family_parity() -> list:
+    """Phase 4l: :func:`parity_run` for each of ``FAMILY_PARITY``."""
+    from repro_torch.configs import get_config
+
+    rows = []
+    for arch, depth in FAMILY_PARITY:
+        cfg = dataclasses.replace(get_config(arch), **depth)
+        row = parity_run(cfg, FAMILY_PARITY_BATCH, FAMILY_PARITY_PROMPT,
+                         seed=3)
+        log(f"[phase4l] {json.dumps(row)}")
+        rows.append(row)
+    return rows
 
 
 # phase 3s: -method auto, the hot-swap and solve serving
@@ -3432,6 +3699,10 @@ def main() -> int:
     lm = lm_main_path()
     stamp("4f")
     lm_parity()
+    stamp("3l")
+    families = lm_family_paths()
+    stamp("4l")
+    lm_family_parity()
 
     sources = {"ell_backup": ("src/repro_torch/kernels/csrc/ell_backup.cu",
                               "src/repro/kernels/bellman_ell.py:109"),
@@ -3494,8 +3765,12 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:82",
         launches=lm["launches"]["serve_lm_cli"]["flash_attention"],
-        launches_by_path={p: c["flash_attention"]
-                          for p, c in lm["launches"].items()},
+        launches_by_path={
+            **{p: c["flash_attention"] for p, c in lm["launches"].items()},
+            **{f"3l_{arch}_{p}": c["flash_attention"]
+               for arch, row in families.items()
+               for p, c in (("serve_lm_cli", row.get("cli_launches")),
+                            *row["launches"].items()) if c}},
         max_abs_err=max(r["max_abs_err"] for r in fchecks.values()),
         ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],

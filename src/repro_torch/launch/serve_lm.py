@@ -10,10 +10,13 @@ PyTorch attention on the host):
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch minitron-8b \\
         --smoke --device cpu
 
-Weights are random, drawn from a generator seeded with ``--seed`` at the
+Every architecture of ``repro_torch.configs`` serves.  Weights are
+random, drawn from a generator seeded with ``--seed`` at the
 architecture's published widths (``--smoke``: its reduced config); the
-prompts come from the same generator.  Only the dense family is ported.
-Exit code 0 iff every logit of the last step is finite.
+prompts come from the same generator, and so do the stub frontends'
+inputs (:func:`stub_inputs`): a vlm's patch embeddings, prepended to the
+prompt, or an encdec's frames.  Exit code 0 iff every logit of the
+last step is finite.
 """
 
 from __future__ import annotations
@@ -34,6 +37,18 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def stub_inputs(cfg, batch: int, generator: torch.Generator):
+    """The stub frontends' inputs, f32 standard normals on the generator's
+    device: a vlm's patch embeddings ``(batch, n_patches, d_model)``, an
+    encdec's frames ``(batch, encoder_len, d_model)``; None for the other
+    families."""
+    n = {"vlm": cfg.n_patches, "encdec": cfg.encoder_len}.get(cfg.family)
+    if n is None:
+        return None
+    return torch.randn((batch, n, cfg.d_model), generator=generator,
+                       device=generator.device)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
@@ -52,14 +67,15 @@ def main(argv=None) -> int:
     b, t, g = args.batch, args.prompt_len, args.gen
     prompts = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
                             device=dev)
+    extra = stub_inputs(cfg, b, gen)
 
     prefill = make_prefill_step(model)
     decode = make_decode_step(model)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(prompts)
-    cache = model.extend_cache(cache, g)     # prompt + gen slots
+    logits, cache = prefill(prompts, extra)
+    cache = model.extend_cache(cache, g)     # prompt + gen attention slots
     tok = torch.argmax(logits, dim=-1)
     _sync(dev)
     t1 = time.perf_counter()

@@ -1,4 +1,4 @@
-"""LM substrate of the port: the dense decoder-only family.
+"""LM substrate of the port: every family's prefill and decode.
 
 Counterpart of :mod:`repro.models`.  Modules are :class:`torch.nn.Module`
 subclasses whose weights keep the reference's layouts, so weights carry
@@ -11,21 +11,18 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import DecoderLM
+from repro_torch.models.whisper import WhisperModel
 
 
 def build_model(cfg, *, generator: torch.Generator,
-                device: str | torch.device = "cuda") -> DecoderLM:
-    """The model of ``cfg`` on ``device`` with random weights drawn from
-    ``generator`` (which must live on that device).  Only the dense family
-    is ported; any other raises."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch yet; see ROADMAP.md queue 1 item 15 (the rest "
-            f"of the LM substrate)")
-    model = DecoderLM(cfg, device=resolve_device(device))
+                device: str | torch.device = "cuda"):
+    """The model of ``cfg`` (:class:`WhisperModel` for ``encdec``, else
+    :class:`DecoderLM`) on ``device`` with random weights drawn from
+    ``generator`` (which must live on that device)."""
+    cls = WhisperModel if cfg.family == "encdec" else DecoderLM
+    model = cls(cfg, device=resolve_device(device))
     model.reset_parameters(generator)
     return model.eval()
 
 
-__all__ = ["DecoderLM", "build_model"]
+__all__ = ["DecoderLM", "WhisperModel", "build_model"]

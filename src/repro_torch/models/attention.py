@@ -1,14 +1,18 @@
-"""GQA/MQA self-attention with RoPE: prefill and decode.
+"""GQA/MQA attention with RoPE: prefill (causal, non-causal or cross)
+and decode.
 
-Counterpart of :mod:`repro.models.attention`.  Prefill self-attention goes
+Counterpart of :mod:`repro.models.attention`.  Prefill attention goes
 through :func:`repro_torch.kernels.ops.flash_attention`: on CUDA tensors
 the hand-written flash kernel (which takes the place of the reference's
 chunk scan, as its docstring says the Pallas kernel would on hardware), on
-CPU tensors its plain version.  Decode is plain torch, as the reference's
-is plain ``jnp``: one new token against the cache, softmax in f32.
+CPU tensors its plain version.  The reference pads keys to a chunk
+multiple and masks them with ``kv_len``; the kernel and its plain version
+exclude every key ``>= S``, the same function.  Decode is plain torch, as
+the reference's is plain ``jnp``: one new token against the cache, softmax
+in f32 (:func:`_gqa_scores` / :func:`_gqa_out`, which whisper's full
+cross-attention also uses).
 
-Cross-attention (``kv_x``, whisper) and the training forward are not
-ported yet.
+The training forward is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +40,22 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                q_offset=q_offset, kv_len=kv_len)
 
 
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B, T, H, hd), k: (B, S, KV, hd) -> scaled scores (B, KV, H/KV,
+    T, S)."""
+    b, t, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, t, kvh, h // kvh, hd)
+    return torch.einsum("btkgh,bskh->bkgts", qg, k) * (hd ** -0.5)
+
+
+def _gqa_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p: (B, KV, G, T, S), v: (B, S, KV, hd) -> (B, T, H, hd)."""
+    b, kvh, g, t, _ = p.shape
+    o = torch.einsum("bkgts,bskh->btkgh", p, v)
+    return o.reshape(b, t, kvh * g, v.shape[-1])
+
+
 class Attention(nn.Module):
     """The projections ``wq (d, H*hd)``, ``wk``/``wv (d, KV*hd)``, ``wo
     (H*hd, d)`` in the reference's ``x @ W`` layout."""
@@ -54,17 +74,20 @@ class Attention(nn.Module):
             init_(w, generator)
         init_(self.wo, generator, scale=self.wo.shape[0] ** -0.5)
 
-    def forward(self, x, *, positions, cache=None):
+    def forward(self, x, *, positions, cache=None, kv_x=None, causal=True):
         return apply_attention(self, x, self.cfg, positions=positions,
-                               cache=cache)
+                               cache=cache, kv_x=kv_x, causal=causal)
 
 
 def apply_attention(p: Attention, x: torch.Tensor, cfg, *,
-                    positions: torch.Tensor, cache=None):
-    """Self-attention of ``x`` (B, T, d).
+                    positions: torch.Tensor, cache=None,
+                    kv_x: torch.Tensor | None = None, causal: bool = True):
+    """Attention of ``x`` (B, T, d).
 
-    * prefill, ``cache=None``: returns ``(y, (k, v))``, the unpadded
-      rotated keys and values (B, T, KV, hd) for the cache;
+    * prefill, ``cache=None``: self-attention over ``x`` (``causal`` or
+      not), or cross-attention over ``kv_x`` (B, S, d), non-causal with q
+      and k unrotated (whisper-style); returns ``(y, (k, v))``, the
+      unpadded keys and values (B, S, KV, hd) for the cache;
     * decode, ``cache=(k_cache, v_cache, length)`` with caches (B, S, KV,
       hd) and ``T = 1``: writes the new key and value at slot ``length``
       **in place** (the reference returns updated copies) and returns
@@ -72,12 +95,20 @@ def apply_attention(p: Attention, x: torch.Tensor, cfg, *,
     """
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, t, _ = x.shape
-    q = rope((x @ p.wq).view(b, t, h, hd), positions, cfg.rope_theta)
+    q = (x @ p.wq).view(b, t, h, hd)
+    if kv_x is not None:
+        if cache is not None:
+            raise ValueError("cross-attention (kv_x) has no decode cache")
+        k = (kv_x @ p.wk).view(b, kv_x.shape[1], kv, hd)
+        v = (kv_x @ p.wv).view(b, kv_x.shape[1], kv, hd)
+        y = ops.flash_attention(q, k, v, causal=False)
+        return y.reshape(b, t, h * hd) @ p.wo, (k, v)
+    q = rope(q, positions, cfg.rope_theta)
     k = rope((x @ p.wk).view(b, t, kv, hd), positions, cfg.rope_theta)
     v = (x @ p.wv).view(b, t, kv, hd)
 
     if cache is None:
-        y = ops.flash_attention(q, k, v, causal=True)
+        y = ops.flash_attention(q, k, v, causal=causal)
         return y.reshape(b, t, h * hd) @ p.wo, (k, v)
 
     # ---- decode: one new token against the cache ------------------------ #
@@ -89,10 +120,7 @@ def apply_attention(p: Attention, x: torch.Tensor, cfg, *,
     k_cache[:, length] = k[:, 0].to(k_cache.dtype)
     v_cache[:, length] = v[:, 0].to(v_cache.dtype)
     # slots > length are masked in the reference; leaving them out is exact
-    keys = k_cache[:, :length + 1].float()
-    vals = v_cache[:, :length + 1].float()
-    qg = q.float().view(b, 1, kv, h // kv, hd)
-    sc = torch.einsum("btkgh,bskh->bkgts", qg, keys) * (hd ** -0.5)
+    sc = _gqa_scores(q.float(), k_cache[:, :length + 1].float())
     pr = torch.softmax(sc, dim=-1)
-    y = torch.einsum("bkgts,bskh->btkgh", pr, vals).reshape(b, 1, h * hd)
+    y = _gqa_out(pr, v_cache[:, :length + 1].float()).reshape(b, 1, h * hd)
     return y.to(x.dtype) @ p.wo, (k_cache, v_cache, length + 1)

@@ -1,10 +1,14 @@
 """Carry weights from the JAX package into the port.
 
 :func:`lm_params_from_numpy` turns the reference's ``DecoderLM.init``
-pytree, as numpy arrays (block weights stacked on a leading ``L`` axis),
-into a state dict of :class:`repro_torch.models.lm.DecoderLM`, so that
-both packages compute the same function in the tests.  Nothing here
-imports JAX: the caller converts the arrays with ``numpy.asarray``.
+pytree, and :func:`whisper_params_from_numpy` its ``WhisperModel.init``
+pytree, as numpy arrays (layer stacks on a leading ``L`` axis), into a
+state dict of :class:`repro_torch.models.lm.DecoderLM` or
+:class:`repro_torch.models.whisper.WhisperModel`, so that both packages
+compute the same function in the tests.  A nested key ``a/b/c`` becomes
+``a.b.c``; a stacked group's layer ``i`` becomes ``group.i.b.c``.
+Nothing here imports JAX: the caller converts the arrays with
+``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -20,21 +24,45 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def lm_params_from_numpy(params: dict, cfg) -> dict[str, torch.Tensor]:
-    """``{"embed", "final_norm", ["unembed"], "blocks": {"ln1", "ln2",
-    "attn": {"wq", "wk", "wv", "wo"}, "mlp": {...}}}`` -> state dict."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"lm_params_from_numpy takes the dense "
-                                  f"family only, got {cfg.family!r}")
-    sd = {"embed": _tensor(params["embed"]),
-          "final_norm": _tensor(params["final_norm"])}
-    if not cfg.tie_embeddings:
-        sd["unembed"] = _tensor(params["unembed"])
-    blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        for name in ("ln1", "ln2"):
-            sd[f"blocks.{i}.{name}"] = _tensor(blocks[name][i])
-        for group in ("attn", "mlp"):
-            for name, w in blocks[group].items():
-                sd[f"blocks.{i}.{group}.{name}"] = _tensor(w[i])
+def _flatten(tree: dict, prefix: str = ""):
+    for name, x in tree.items():
+        if isinstance(x, dict):
+            yield from _flatten(x, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", x
+
+
+def _state_dict(params: dict, stacks: dict[str, int]) -> dict:
+    sd = {}
+    for group, x in params.items():
+        if group not in stacks:
+            if isinstance(x, dict):
+                sd.update((k, _tensor(w)) for k, w in _flatten(x, group + "."))
+            else:
+                sd[group] = _tensor(x)
+            continue
+        for path, w in _flatten(x):
+            for i in range(stacks[group]):
+                sd[f"{group}.{i}.{path}"] = _tensor(w[i])
     return sd
+
+
+def lm_params_from_numpy(params: dict, cfg) -> dict[str, torch.Tensor]:
+    """``{"embed", "final_norm", ["unembed"], ["patch_proj"], "blocks": {...
+    stacked on L}, ["shared": {...}]}`` -> :class:`DecoderLM` state dict,
+    for every family but ``encdec``."""
+    if cfg.family == "encdec":
+        raise ValueError("the encdec family's weights carry over with "
+                         "whisper_params_from_numpy")
+    return _state_dict(params, {"blocks": cfg.n_layers})
+
+
+def whisper_params_from_numpy(params: dict, cfg) -> dict[str, torch.Tensor]:
+    """``{"embed", "unembed", "enc_norm", "final_norm", "encoder": {...},
+    "decoder": {...}}`` (LayerNorms ``{"scale", "bias"}``, the stacks on a
+    leading L axis) -> :class:`WhisperModel` state dict."""
+    if cfg.family != "encdec":
+        raise ValueError(f"whisper_params_from_numpy takes the encdec "
+                         f"family, got {cfg.family!r}")
+    return _state_dict(params, {"encoder": cfg.encoder_layers,
+                                "decoder": cfg.n_layers})

@@ -1,4 +1,4 @@
-"""Shared primitives: init, norms, rotary embeddings, MLPs.
+"""Shared primitives: init, norms (RMS, layer), rotary embeddings, MLPs.
 
 Counterpart of :mod:`repro.models.layers`.  Weights keep the reference's
 ``x @ W`` layout, ``(d_in, d_out)``, so a weight carries over from the JAX
@@ -16,9 +16,16 @@ def init_(w: torch.Tensor, generator: torch.Generator,
     """Truncated-normal fan-in init in place: a standard normal cut at
     +-2, drawn in f32 on ``generator``, times ``scale`` (default
     ``fan_in ** -0.5``, fan-in the leading dim), then cast to ``w``'s
-    dtype.  The reference's distribution; not its numbers."""
+    dtype.  The reference's distribution; not its numbers.  A tensor of
+    more than two dims (the MoE experts' ``(E, d, f)``) is drawn slice by
+    slice along its leading dim, so the f32 temporary is one slice (an
+    arctic expert's 139 MB, not the stack's 17.8 GB)."""
     fan_in = w.shape[0] if w.dim() > 1 else 1
     scale = scale if scale is not None else fan_in ** -0.5
+    if w.dim() > 2:
+        for part in w:
+            init_(part, generator, scale)
+        return w
     tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
     torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=generator)
     with torch.no_grad():
@@ -39,6 +46,35 @@ def rms_norm(w: torch.Tensor, x: torch.Tensor,
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * w.float()).to(dt)
+
+
+def layer_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in f32 (biased variance), result in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+class LayerNorm(nn.Module):
+    """The reference's ``{"scale", "bias"}`` pair (whisper's norms)."""
+
+    def __init__(self, d: int, dtype: torch.dtype, device, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.scale = weight((d,), dtype, device)
+        self.bias = weight((d,), dtype, device)
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(self.scale, self.bias, x, self.eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

@@ -1,19 +1,30 @@
-"""Decoder-only LM, dense family (the ``attn`` block kind).
+"""Decoder-only LM: the dense, vlm, moe, ssm and hybrid families.
 
-Counterpart of :mod:`repro.models.lm` for ``family="dense"`` (stablelm,
-minitron, granite, nemotron): token embedding, a stack of pre-norm
-GQA-attention + MLP blocks, a final RMS norm and an untied (or tied)
-unembedding.  The reference scans one stacked set of block weights; here
-each block is its own module in a :class:`torch.nn.ModuleList`, run by a
-Python loop.
+Counterpart of :mod:`repro.models.lm`: one model class, three block kinds.
 
-Caches keep the reference's layout, ``{"blocks": {"k": (L, B, S, KV, hd),
-"v": ...}, "len": int}``.  Prefill returns one the length of the prompt;
-decode writes the new token's keys and values into the given cache in
-place and returns it with ``len + 1``.
+* ``attn``  — pre-norm GQA attention + dense MLP (stablelm, minitron,
+              granite, nemotron; llava's backbone, with the image's patch
+              embeddings projected by ``patch_proj`` and prepended)
+* ``moe``   — GQA attention + MoE FFN (+ the parallel dense MLP of
+              ``dense_residual``, arctic)
+* ``mamba`` — Mamba2 SSD block (mamba2-130m; zamba2's backbone)
 
-The MoE, SSM, hybrid, VLM and encoder-decoder families and the training
-forward are later slices of the port.
+and the hybrid (zamba2): segments of ``shared_attn_every`` mamba blocks,
+with ONE ``shared`` attention + MLP block, its weights reused, after each
+full segment (``n_shared_sites`` of them).
+
+The reference scans one stacked set of block weights; here each block is
+its own module in a :class:`torch.nn.ModuleList`, run by a Python loop.
+Caches keep the reference's layout: ``{"blocks": {"k", "v"}: (L, B, S, KV,
+hd)}`` for attention blocks, ``{"blocks": {"conv": (L, B, K-1, C), "ssm":
+(L, B, H, P, N)}}`` for mamba blocks, the hybrid's ``{"shared": {"k",
+"v"}: (sites, B, S, KV, hd)}`` beside them, and ``"len"``.  Prefill
+returns one over the prompt (patches included); decode writes the new
+token's state into the given cache in place and returns it with ``len +
+1``.
+
+The training forward (and with it the MoE aux losses' sum over layers) is
+a later slice of the port.
 """
 
 from __future__ import annotations
@@ -23,50 +34,118 @@ from torch import nn
 
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, init_, rms_norm, weight
+from repro_torch.models.mamba2 import Mamba2
+from repro_torch.models.moe import MoE
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+KINDS = {"dense": "attn", "vlm": "attn", "moe": "moe", "ssm": "mamba",
+         "hybrid": "mamba"}
+# cache leaves that grow with the sequence (the reference's ``pad_kv``
+# pads only leaves named k / v): never ``conv``, ``ssm``, ``enc_k``/``enc_v``
+KV_LEAVES = ("k", "v")
+
+
+def extend_cache(cache: dict, extra: int) -> dict:
+    """A copy of ``cache`` with ``extra`` more empty slots in each
+    attention k / v leaf (``blocks`` and ``shared``); the other leaves are
+    the same tensors."""
+    def grow(x):
+        pad = x.new_zeros((*x.shape[:2], extra, *x.shape[3:]))
+        return torch.cat([x, pad], dim=2)
+
+    out = {}
+    for key, val in cache.items():
+        if isinstance(val, dict):
+            val = {name: grow(x) if name in KV_LEAVES else x
+                   for name, x in val.items()}
+        out[key] = val
+    return out
 
 
 class Block(nn.Module):
-    """Pre-norm GQA attention + dense MLP, each with a residual add."""
+    """Pre-norm GQA attention + a dense MLP or an MoE FFN (``moe``, with a
+    parallel dense MLP when ``cfg.dense_residual``), each with a residual
+    add."""
 
-    def __init__(self, cfg, dtype: torch.dtype, device):
+    def __init__(self, cfg, dtype: torch.dtype, device, *, moe: bool = False):
         super().__init__()
         self.eps = cfg.norm_eps
         self.ln1 = weight((cfg.d_model,), dtype, device)
         self.ln2 = weight((cfg.d_model,), dtype, device)
         self.attn = Attention(cfg, dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, device)
+        self.moe = MoE(cfg, dtype, device) if moe else None
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, device) \
+            if not moe or cfg.dense_residual else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.ln1.fill_(1.0)
             self.ln2.fill_(1.0)
         self.attn.reset_parameters(generator)
-        self.mlp.reset_parameters(generator)
+        for sub in (self.moe, self.mlp):
+            if sub is not None:
+                sub.reset_parameters(generator)
 
     def forward(self, x, *, positions, cache=None):
         h, cache_out = self.attn(rms_norm(self.ln1, x, self.eps),
                                  positions=positions, cache=cache)
         x = x + h
-        return x + self.mlp(rms_norm(self.ln2, x, self.eps)), cache_out
+        y = rms_norm(self.ln2, x, self.eps)
+        if self.moe is None:
+            return x + self.mlp(y), cache_out
+        ym, _ = self.moe(y)          # the aux losses matter to training only
+        if self.mlp is not None:
+            ym = ym + self.mlp(y)
+        return x + ym, cache_out
+
+
+class MambaBlock(nn.Module):
+    """Pre-norm Mamba2 with a residual add."""
+
+    def __init__(self, cfg, dtype: torch.dtype, device):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.ln1 = weight((cfg.d_model,), dtype, device)
+        self.mamba = Mamba2(cfg, dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.ln1.fill_(1.0)
+        self.mamba.reset_parameters(generator)
+
+    def forward(self, x, *, positions=None, cache=None):
+        h, cache_out = self.mamba(rms_norm(self.ln1, x, self.eps),
+                                  cache=cache)
+        return x + h, cache_out
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder-only LM.  Weights are allocated uninitialised on
-    ``device`` in ``cfg.dtype``: fill them with :meth:`reset_parameters`
-    or a state dict (:func:`repro_torch.models.convert.lm_params_from_numpy`)."""
+    """Decoder-only LM of any family but ``encdec``.  Weights are
+    allocated uninitialised on ``device`` in ``cfg.dtype`` (the MoE router
+    and mamba's ``a_log`` / ``dt_bias`` / ``d_skip`` in f32, as the
+    reference's): fill them with :meth:`reset_parameters` or a state dict
+    (:func:`repro_torch.models.convert.lm_params_from_numpy`)."""
 
     def __init__(self, cfg, *, device):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"DecoderLM takes the dense family only, got {cfg.family!r}")
+        if cfg.family not in KINDS:
+            raise ValueError(f"DecoderLM takes the {sorted(KINDS)} families, "
+                             f"got {cfg.family!r}")
         self.cfg = cfg
+        self.kind = KINDS[cfg.family]
         dtype = DTYPES[cfg.dtype]
         self.embed = weight((cfg.vocab_size, cfg.d_model), dtype, device)
-        self.blocks = nn.ModuleList(Block(cfg, dtype, device)
-                                    for _ in range(cfg.n_layers))
+        if self.kind == "mamba":
+            blocks = (MambaBlock(cfg, dtype, device)
+                      for _ in range(cfg.n_layers))
+        else:
+            blocks = (Block(cfg, dtype, device, moe=self.kind == "moe")
+                      for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(blocks)
+        self.shared = Block(cfg, dtype, device) \
+            if cfg.family == "hybrid" else None
+        self.patch_proj = weight((cfg.d_model, cfg.d_model), dtype, device) \
+            if cfg.family == "vlm" else None
         self.final_norm = weight((cfg.d_model,), dtype, device)
         if not cfg.tie_embeddings:
             self.unembed = weight((cfg.d_model, cfg.vocab_size), dtype,
@@ -75,61 +154,108 @@ class DecoderLM(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random weights from ``generator`` (on the weights' device), with
         the reference's distributions: embedding N(0, 1) cut at +-2, the
-        other matrices fan-in scaled, norms 1."""
+        other matrices fan-in scaled (MoE and mamba: the reference's
+        explicit scales and vectors), norms 1."""
         init_(self.embed, generator, scale=1.0)
         for blk in self.blocks:
             blk.reset_parameters(generator)
+        if self.shared is not None:
+            self.shared.reset_parameters(generator)
+        if self.patch_proj is not None:
+            init_(self.patch_proj, generator)
         with torch.no_grad():
             self.final_norm.fill_(1.0)
         if not self.cfg.tie_embeddings:
             init_(self.unembed, generator)
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        """Empty decode caches of ``max_len`` slots in the weights' dtype."""
+    # -------------------------------------------------------------- caches
+    def n_shared_sites(self) -> int:
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"blocks": {name: self.embed.new_zeros(shape)
-                           for name in ("k", "v")}, "len": 0}
+        if cfg.family != "hybrid" or not cfg.shared_attn_every:
+            return 0
+        return cfg.n_layers // cfg.shared_attn_every
 
-    @staticmethod
-    def extend_cache(cache: dict, extra: int) -> dict:
-        """A copy of ``cache`` with ``extra`` more empty slots."""
-        def grow(x):
-            pad = x.new_zeros((*x.shape[:2], extra, *x.shape[3:]))
-            return torch.cat([x, pad], dim=2)
-        return {"blocks": {name: grow(x) for name, x in
-                           cache["blocks"].items()},
-                "len": cache["len"]}
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """Empty decode caches of ``max_len`` slots in the weights' dtype
+        (the SSD state in f32)."""
+        cfg = self.cfg
+        kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        if self.kind != "mamba":
+            return {"blocks": {name: self.embed.new_zeros((cfg.n_layers,
+                                                           *kv_shape))
+                               for name in KV_LEAVES}, "len": 0}
+        cache = {"blocks": {
+            "conv": self.embed.new_zeros((cfg.n_layers, batch, cfg.d_conv - 1,
+                                          cfg.d_inner + 2 * cfg.ssm_state)),
+            "ssm": self.embed.new_zeros((cfg.n_layers, batch, cfg.ssm_heads,
+                                         cfg.head_p, cfg.ssm_state),
+                                        dtype=torch.float32)}, "len": 0}
+        sites = self.n_shared_sites()
+        if sites:
+            cache["shared"] = {name: self.embed.new_zeros((sites, *kv_shape))
+                               for name in KV_LEAVES}
+        return cache
 
-    def forward(self, tokens: torch.Tensor, *, mode: str = "prefill",
-                cache: dict | None = None):
+    extend_cache = staticmethod(extend_cache)
+
+    # -------------------------------------------------------------- forward
+    def _embed(self, tokens, patches):
+        x = nn.functional.embedding(tokens, self.embed)
+        if self.patch_proj is not None and patches is not None:
+            pe = patches.to(x.dtype) @ self.patch_proj
+            x = torch.cat([pe, x], dim=1)
+        return x
+
+    def _layers(self) -> list:
+        """``(block, cache group, index in the group)`` in the order they
+        run: the blocks, and the hybrid's shared block after each full
+        segment of ``shared_attn_every`` (``index`` its call site)."""
+        every, sites = self.cfg.shared_attn_every, self.n_shared_sites()
+        out = []
+        for i, blk in enumerate(self.blocks):
+            out.append((blk, "blocks", i))
+            if sites and (i + 1) % every == 0:
+                out.append((self.shared, "shared", (i + 1) // every - 1))
+        return out
+
+    def forward(self, tokens: torch.Tensor, *, patches=None,
+                mode: str = "prefill", cache: dict | None = None):
         """Returns ``(hidden, cache_out)``.
 
-        prefill: ``tokens (B, T)``, returns the cache of the T positions;
-        decode: ``tokens (B, 1)`` and a cache with a free slot.
+        prefill: ``tokens (B, T)`` (vlm: after ``patches (B, P, d)``),
+        returns the cache of the T (+ P) positions; decode: ``tokens (B,
+        1)`` and a cache with a free slot.
         """
-        x = torch.nn.functional.embedding(tokens, self.embed)
-        b, t, _ = x.shape
-        if mode == "prefill":
-            positions = torch.arange(t, device=x.device).expand(b, t)
-            ks, vs = [], []
-            for blk in self.blocks:
-                x, (k, v) = blk(x, positions=positions)
-                ks.append(k)
-                vs.append(v)
-            cache_out = {"blocks": {"k": torch.stack(ks),
-                                    "v": torch.stack(vs)}, "len": t}
-        elif mode == "decode":
-            length = cache["len"]
-            positions = torch.full((b, 1), length, device=x.device)
-            kc, vc = cache["blocks"]["k"], cache["blocks"]["v"]
-            for i, blk in enumerate(self.blocks):
-                x, _ = blk(x, positions=positions,
-                           cache=(kc[i], vc[i], length))
-            cache_out = {"blocks": {"k": kc, "v": vc}, "len": length + 1}
-        else:
+        if mode not in ("prefill", "decode"):
             raise ValueError(f"mode must be 'prefill' or 'decode', got "
                              f"{mode!r}")
+        decode = mode == "decode"
+        x = self._embed(tokens, None if decode else patches)
+        b, t, _ = x.shape
+        if decode:
+            length = cache["len"]
+            positions = torch.full((b, 1), length, device=x.device)
+        else:
+            positions = torch.arange(t, device=x.device).expand(b, t)
+        leaves = {"blocks": ("conv", "ssm") if self.kind == "mamba"
+                  else KV_LEAVES, "shared": KV_LEAVES}
+        new = {"blocks": [], "shared": []}
+        for blk, group, i in self._layers():
+            if decode:
+                c = tuple(cache[group][name][i] for name in leaves[group])
+                if leaves[group] is KV_LEAVES:
+                    c += (length,)        # attention writes at slot len
+                x, _ = blk(x, positions=positions, cache=c)
+            else:
+                x, c = blk(x, positions=positions)
+                new[group].append(c)
+        if decode:
+            cache_out = {**cache, "len": length + 1}
+        else:
+            cache_out = {group: {name: torch.stack([c[j] for c in cs])
+                                 for j, name in enumerate(leaves[group])}
+                         for group, cs in new.items() if cs}
+            cache_out["len"] = t
         return rms_norm(self.final_norm, x, self.cfg.norm_eps), cache_out
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:

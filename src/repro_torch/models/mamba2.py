@@ -1,0 +1,201 @@
+"""Mamba2 (SSD, state-space duality) block: chunked prefill scan and the
+one-token decode recurrence.
+
+Counterpart of :mod:`repro.models.mamba2`, plain torch as the reference is
+plain ``jnp``, everything in f32.  The sequence is cut into chunks of
+``L``; within a chunk the recurrence is a masked, decay-weighted
+attention-like product, and across chunks a ``(H, P, N)`` state is
+carried by a loop over the chunks.  Decode is the recurrence itself:
+``S <- a * S + dt * B (x) x``, ``y = C . S + D x``.
+
+Shapes: ``d_inner = expand * d_model``; ``H = d_inner / head_p`` heads of
+``P = head_p``; B and C are shared by the heads (one group) with state
+size ``N``.  The decode caches are the conv window ``(B, K-1, C)``, the
+last ``K - 1`` *pre-conv* rows of ``[x, B, C]`` in the model dtype, and
+the SSD state ``(B, H, P, N)`` in f32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.models.layers import init_, rms_norm, weight
+
+
+class Mamba2(nn.Module):
+    """``in_proj (d, 2 d_inner + 2N + H)`` -> ``[z, x, B, C, dt]``, the
+    depthwise ``conv_w (K, C)`` / ``conv_b (C,)`` with ``C = d_inner +
+    2N``, f32 ``a_log`` / ``dt_bias`` / ``d_skip (H,)``, ``norm_w
+    (d_inner,)`` and ``out_proj (d_inner, d)``."""
+
+    def __init__(self, cfg, dtype: torch.dtype, device):
+        super().__init__()
+        d, n, h = cfg.d_model, cfg.ssm_state, cfg.ssm_heads
+        d_inner = cfg.expand * d
+        conv_dim = d_inner + 2 * n
+        self.cfg = cfg
+        self.in_proj = weight((d, 2 * d_inner + 2 * n + h), dtype, device)
+        self.conv_w = weight((cfg.d_conv, conv_dim), dtype, device)
+        self.conv_b = weight((conv_dim,), dtype, device)
+        self.a_log = weight((h,), torch.float32, device)
+        self.dt_bias = weight((h,), torch.float32, device)
+        self.d_skip = weight((h,), torch.float32, device)
+        self.norm_w = weight((d_inner,), dtype, device)
+        self.out_proj = weight((d_inner, d), dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's init: fan-in matrices, ``conv_w`` at
+        ``d_conv ** -0.5``, ``a_log = log(linspace(1, 16, H))``, ``dt_bias
+        = log(expm1(dt))`` (the inverse softplus) of ``dt`` log-uniform in
+        ``[1e-3, 1e-1]``, ``d_skip = 1``, ``conv_b = 0``, ``norm_w = 1``."""
+        h = self.cfg.ssm_heads
+        init_(self.in_proj, generator)
+        init_(self.conv_w, generator, scale=self.cfg.d_conv ** -0.5)
+        init_(self.out_proj, generator)
+        with torch.no_grad():
+            self.conv_b.zero_()
+            self.a_log.copy_(torch.log(torch.linspace(1.0, 16.0, h)))
+            u = torch.empty(h, device=self.dt_bias.device).uniform_(
+                math.log(1e-3), math.log(1e-1), generator=generator)
+            self.dt_bias.copy_(torch.log(torch.expm1(torch.exp(u))))
+            self.d_skip.fill_(1.0)
+            self.norm_w.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, *, cache=None):
+        return apply_mamba2(self, x, self.cfg, cache=cache)
+
+
+def _split_proj(cfg, proj: torch.Tensor):
+    """``in_proj``'s output -> ``z (d_inner)``, ``xbc (d_inner + 2N)``,
+    ``dt (H)``."""
+    d_inner = cfg.expand * cfg.d_model
+    n, h = cfg.ssm_state, cfg.ssm_heads
+    return proj.split([d_inner, d_inner + 2 * n, h], dim=-1)
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time, then SiLU.  xbc: (B, T, C); w:
+    (K, C).  The reference's sum of K shifted products, in xbc's dtype."""
+    k, t = w.shape[0], xbc.shape[1]
+    pad = nn.functional.pad(xbc, (0, 0, k - 1, 0))
+    out = pad[:, 0:t] * w[0]
+    for i in range(1, k):
+        out = out + pad[:, i:i + t] * w[i]
+    return nn.functional.silu(out + b)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (no linear cut-off)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b_mat: torch.Tensor, c_mat: torch.Tensor, chunk: int):
+    """Chunked SSD.  x: (B, T, H, P); dt: (B, T, H); b_mat / c_mat: (B, T,
+    N).  Returns y (B, T, H, P) and the final state (B, H, P, N), f32.
+
+    A ragged tail is padded with ``dt = 0`` and zero inputs: decay
+    ``exp(0) = 1`` and no input, so pad steps leave the state as it is."""
+    bsz, t, h, p = x.shape
+    n = b_mat.shape[-1]
+    l = min(chunk, t)
+    pad = (-t) % l
+    f32 = torch.float32
+    x, dt, b_mat, c_mat = (v.to(f32) for v in (x, dt, b_mat, c_mat))
+    if pad:
+        x = nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = nn.functional.pad(dt, (0, 0, 0, pad))
+        b_mat = nn.functional.pad(b_mat, (0, 0, 0, pad))
+        c_mat = nn.functional.pad(c_mat, (0, 0, 0, pad))
+    nc = (t + pad) // l
+    xc = x.reshape(bsz, nc, l, h, p)
+    dtc = dt.reshape(bsz, nc, l, h)
+    bc = b_mat.reshape(bsz, nc, l, n)
+    cc = c_mat.reshape(bsz, nc, l, n)
+
+    log_a = -torch.exp(a_log.to(f32)) * dtc          # (B,nc,L,H), <= 0
+    cum = torch.cumsum(log_a, dim=2)                 # within a chunk
+    dtx = xc * dtc[..., None]                        # dt folded into x
+
+    # intra-chunk: y_i += C_i.B_j * exp(cum_i - cum_j) * dtx_j  (j <= i)
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)           # (B,nc,L,L)
+    ii = torch.arange(l, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[..., None]           # (L,L,1)
+    decay = torch.exp(cum[:, :, :, None] - cum[:, :, None, :])  # (B,nc,L,L,H)
+    m = torch.where(causal, decay, torch.zeros((), dtype=f32,
+                                               device=x.device)) \
+        * scores[..., None]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", m, dtx)
+
+    # chunk-local end states: S_c = sum_j exp(cum_end - cum_j) B_j (x) dtx_j
+    decay_end = torch.exp(cum[:, :, -1:, :] - cum)             # (B,nc,L,H)
+    states = torch.einsum("bcln,bclhp->bchpn", bc,
+                          decay_end[..., None] * dtx)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                  # (B,nc,H)
+
+    # carried state: S before chunk c, for every c, and after the last
+    s_cur = x.new_zeros((bsz, h, p, n))
+    s_prevs = []
+    for ci in range(nc):
+        s_prevs.append(s_cur)
+        s_cur = s_cur * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    s_prev = torch.stack(s_prevs, dim=1)                       # (B,nc,H,P,N)
+
+    # inter-chunk: y_i += (C_i * exp(cum_i)) . S_prev
+    y_inter = torch.einsum("bcin,bchpn->bcihp", cc, s_prev) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bsz, nc * l, h, p)[:, :t]
+    return y, s_cur
+
+
+def apply_mamba2(p: Mamba2, x: torch.Tensor, cfg, *, cache=None):
+    """``cache=None``: the whole sequence through the chunked scan
+    (prefill), returning ``(y, (conv_state, ssm_state))``.  ``cache =
+    (conv_state (B, K-1, C), ssm_state (B, H, P, N))`` with ``T = 1``:
+    one step of the recurrence, which writes both states **in place**
+    (the reference returns updated copies) and returns them."""
+    bsz, t, d = x.shape
+    d_inner = cfg.expand * d
+    n, h = cfg.ssm_state, cfg.ssm_heads
+    hp = d_inner // h
+    z, xbc, dt = _split_proj(cfg, x @ p.in_proj)
+    dt = softplus(dt.float() + p.dt_bias)
+
+    if cache is None:
+        xbc_conv = _causal_conv(xbc, p.conv_w, p.conv_b)
+        xs, b_mat, c_mat = xbc_conv.split([d_inner, n, n], dim=-1)
+        y, s_final = ssd_scan(xs.reshape(bsz, t, h, hp), dt, p.a_log,
+                              b_mat, c_mat, cfg.ssm_chunk)
+        # the window the next token's conv needs: the last K-1 pre-conv rows
+        conv_state = nn.functional.pad(xbc, (0, 0, cfg.d_conv - 1, 0)) \
+            [:, -(cfg.d_conv - 1):]
+        cache_out = (conv_state.to(x.dtype), s_final)
+    else:
+        conv_state, s_prev = cache
+        if t != 1:
+            raise ValueError(f"mamba2 decode takes one token, got T={t}")
+        window = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
+        conv = window[:, 0:1] * p.conv_w[0]
+        for i in range(1, cfg.d_conv):
+            conv = conv + window[:, i:i + 1] * p.conv_w[i]
+        xbc_conv = nn.functional.silu(conv + p.conv_b)
+        xs, b_mat, c_mat = xbc_conv.split([d_inner, n, n], dim=-1)
+        xh = xs.reshape(bsz, h, hp).float()
+        a = torch.exp(-torch.exp(p.a_log) * dt[:, 0])          # (B,H)
+        dbx = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0],
+                           b_mat[:, 0].float(), xh)
+        s_prev.mul_(a[..., None, None]).add_(dbx)
+        y = torch.einsum("bn,bhpn->bhp", c_mat[:, 0].float(),
+                         s_prev)[:, None]
+        conv_state.copy_(window[:, 1:])
+        cache_out = (conv_state, s_prev)
+
+    y = y + p.d_skip[:, None] * xs.reshape(bsz, t, h, hp).float()
+    y = y.reshape(bsz, t, d_inner).to(x.dtype)
+    y = rms_norm(p.norm_w, y * nn.functional.silu(z), cfg.norm_eps)
+    return y @ p.out_proj, cache_out

@@ -1,0 +1,179 @@
+"""Whisper-style encoder-decoder (the audio family).
+
+Counterpart of :mod:`repro.models.whisper`.  The conv frontend is a stub,
+as in the reference: the encoder takes precomputed frame embeddings ``(B,
+encoder_len, d)``.  Encoder: non-causal self-attention (rotary, as the
+reference does) + GELU MLP, through the flash kernel's non-causal form on
+the card.  Decoder: causal self-attention (cached at decode), full
+cross-attention over the encoder's output with its K / V computed once
+(:meth:`WhisperModel.enc_kv`) and carried in the cache, and a GELU MLP.
+Norms are LayerNorm (scale + bias).
+
+Caches: ``{"blocks": {"k", "v"}: (L, B, S, KV, hd), "enc_k", "enc_v": (L,
+B, encoder_len, KV, hd), "len"}``.  Decode writes the self-attention k / v
+in place; ``enc_k`` / ``enc_v`` never change and never grow.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models.attention import Attention, _gqa_out, _gqa_scores
+from repro_torch.models.layers import MLP, LayerNorm, init_, weight
+from repro_torch.models.lm import DTYPES, extend_cache
+
+
+class EncBlock(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.ln1 = LayerNorm(cfg.d_model, dtype, device, cfg.norm_eps)
+        self.attn = Attention(cfg, dtype, device)
+        self.ln2 = LayerNorm(cfg.d_model, dtype, device, cfg.norm_eps)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, "gelu", dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for sub in (self.ln1, self.ln2):
+            sub.reset_parameters()
+        self.attn.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+
+    def forward(self, x, *, positions):
+        h, _ = self.attn(self.ln1(x), positions=positions, causal=False)
+        x = x + h
+        return x + self.mlp(self.ln2(x))
+
+
+def cross_attend(p: Attention, x: torch.Tensor, enc_k: torch.Tensor,
+                 enc_v: torch.Tensor, cfg) -> torch.Tensor:
+    """Full (not chunked) cross-attention of ``x`` (B, T, d) over the
+    encoder's K / V (B, S, KV, hd), unrotated, softmax in f32."""
+    h, hd = cfg.n_heads, cfg.head_dim
+    b, t, _ = x.shape
+    q = (x @ p.wq).view(b, t, h, hd)
+    pr = torch.softmax(_gqa_scores(q.float(), enc_k.float()), dim=-1)
+    y = _gqa_out(pr, enc_v.float()).to(x.dtype)
+    return y.reshape(b, t, h * hd) @ p.wo
+
+
+class DecBlock(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = LayerNorm(cfg.d_model, dtype, device, cfg.norm_eps)
+        self.self_attn = Attention(cfg, dtype, device)
+        self.ln_x = LayerNorm(cfg.d_model, dtype, device, cfg.norm_eps)
+        self.cross_attn = Attention(cfg, dtype, device)
+        self.ln2 = LayerNorm(cfg.d_model, dtype, device, cfg.norm_eps)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, "gelu", dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for sub in (self.ln1, self.ln_x, self.ln2):
+            sub.reset_parameters()
+        for sub in (self.self_attn, self.cross_attn, self.mlp):
+            sub.reset_parameters(generator)
+
+    def forward(self, x, enc_k, enc_v, *, positions, cache=None):
+        h, cache_out = self.self_attn(self.ln1(x), positions=positions,
+                                      cache=cache)
+        x = x + h
+        x = x + cross_attend(self.cross_attn, self.ln_x(x), enc_k, enc_v,
+                             self.cfg)
+        return x + self.mlp(self.ln2(x)), cache_out
+
+
+class WhisperModel(nn.Module):
+    """Encoder-decoder of ``family="encdec"``.  Weights are allocated
+    uninitialised on ``device`` in ``cfg.dtype``: fill them with
+    :meth:`reset_parameters` or a state dict
+    (:func:`repro_torch.models.convert.whisper_params_from_numpy`)."""
+
+    def __init__(self, cfg, *, device):
+        super().__init__()
+        if cfg.family != "encdec":
+            raise ValueError(f"WhisperModel takes the encdec family, got "
+                             f"{cfg.family!r}")
+        self.cfg = cfg
+        dtype = DTYPES[cfg.dtype]
+        d = cfg.d_model
+        self.embed = weight((cfg.vocab_size, d), dtype, device)
+        self.unembed = weight((d, cfg.vocab_size), dtype, device)
+        self.enc_norm = LayerNorm(d, dtype, device, cfg.norm_eps)
+        self.final_norm = LayerNorm(d, dtype, device, cfg.norm_eps)
+        self.encoder = nn.ModuleList(EncBlock(cfg, dtype, device)
+                                     for _ in range(cfg.encoder_layers))
+        self.decoder = nn.ModuleList(DecBlock(cfg, dtype, device)
+                                     for _ in range(cfg.n_layers))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's distributions: embedding N(0, 1) cut at +-2, the
+        other matrices fan-in scaled, LayerNorm scale 1 and bias 0."""
+        init_(self.embed, generator, scale=1.0)
+        init_(self.unembed, generator)
+        self.enc_norm.reset_parameters()
+        self.final_norm.reset_parameters()
+        for blk in (*self.encoder, *self.decoder):
+            blk.reset_parameters(generator)
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (B, encoder_len, d), the stub frontend's output, cast to
+        the model dtype."""
+        b, s, _ = frames.shape
+        positions = torch.arange(s, device=frames.device).expand(b, s)
+        x = frames.to(self.embed.dtype)
+        for blk in self.encoder:
+            x = blk(x, positions=positions)
+        return self.enc_norm(x)
+
+    def enc_kv(self, enc_out: torch.Tensor):
+        """Per-decoder-layer cross K / V, (L, B, S, KV, hd) each, computed
+        once."""
+        b, s, _ = enc_out.shape
+        kv, hd = self.cfg.n_kv_heads, self.cfg.head_dim
+        ks = [(enc_out @ blk.cross_attn.wk).view(b, s, kv, hd)
+              for blk in self.decoder]
+        vs = [(enc_out @ blk.cross_attn.wv).view(b, s, kv, hd)
+              for blk in self.decoder]
+        return torch.stack(ks), torch.stack(vs)
+
+    extend_cache = staticmethod(extend_cache)
+
+    def forward(self, tokens: torch.Tensor, *, frames=None,
+                mode: str = "prefill", cache: dict | None = None):
+        """Returns ``(hidden, cache_out)``.
+
+        prefill: ``tokens (B, T)`` and ``frames (B, encoder_len, d)``,
+        returns the cache of the T positions with the encoder's K / V;
+        decode: ``tokens (B, 1)`` and a cache with a free slot.
+        """
+        if mode not in ("prefill", "decode"):
+            raise ValueError(f"mode must be 'prefill' or 'decode', got "
+                             f"{mode!r}")
+        x = nn.functional.embedding(tokens, self.embed)
+        b, t, _ = x.shape
+        if mode == "decode":
+            length = cache["len"]
+            positions = torch.full((b, 1), length, device=x.device)
+            ek, ev = cache["enc_k"], cache["enc_v"]
+            kc, vc = cache["blocks"]["k"], cache["blocks"]["v"]
+            for i, blk in enumerate(self.decoder):
+                x, _ = blk(x, ek[i], ev[i], positions=positions,
+                           cache=(kc[i], vc[i], length))
+            cache_out = {**cache, "len": length + 1}
+        else:
+            if frames is None:
+                raise ValueError("whisper prefill needs frames")
+            positions = torch.arange(t, device=x.device).expand(b, t)
+            ek, ev = self.enc_kv(self.encode(frames))
+            ks, vs = [], []
+            for i, blk in enumerate(self.decoder):
+                x, (k, v) = blk(x, ek[i], ev[i], positions=positions)
+                ks.append(k)
+                vs.append(v)
+            cache_out = {"blocks": {"k": torch.stack(ks),
+                                    "v": torch.stack(vs)},
+                         "enc_k": ek, "enc_v": ev, "len": t}
+        return self.final_norm(x), cache_out
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        return hidden @ self.unembed

@@ -12,12 +12,18 @@ import torch
 
 
 def make_prefill_step(model):
-    """``prefill(tokens (B, T)) -> (last-position logits (B, 1, V),
-    cache)``."""
+    """``prefill(tokens (B, T), extra=None) -> (last-position logits (B, 1,
+    V), cache)``; ``extra`` is the vlm family's patch embeddings (B,
+    n_patches, d) or the encdec family's frames (B, encoder_len, d)."""
+    family = model.cfg.family
 
     @torch.no_grad()
-    def prefill_step(tokens: torch.Tensor):
-        hidden, cache = model(tokens, mode="prefill")
+    def prefill_step(tokens: torch.Tensor, extra=None):
+        if family == "encdec":
+            hidden, cache = model(tokens, frames=extra, mode="prefill")
+        else:
+            hidden, cache = model(tokens, mode="prefill",
+                                  patches=extra if family == "vlm" else None)
         return model.logits(hidden[:, -1:]), cache
 
     return prefill_step

@@ -20,7 +20,7 @@ from repro_torch.core import driver, generators
 from repro_torch.core.ipi import IPIOptions
 from repro_torch.kernels import bellman_ell, dense_backup, lanes, ops, ref
 from repro_torch.kernels import flash_attention, spmv_ell, tuning
-from repro_torch.models import DecoderLM, build_model
+from repro_torch.models import DecoderLM, WhisperModel, build_model
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 GAMMA = 0.997
@@ -506,6 +506,85 @@ def test_smoke_lm_on_the_card_matches_the_host(cuda, arch):
                       n_prefill, n_decode)
     assert runs["host"][2:] == (0, 0)
     assert runs["card"][2:] == (cfg.n_layers, 0)
+    assert torch.equal(runs["card"][0], runs["host"][0])
+    for got, want in zip(runs["card"][1], runs["host"][1]):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# the other families' prefill layouts (B, T, S, H, KV, d, causal), T and S
+# cut: olmoe (MHA, d 128), zamba2's shared block (d 64), llava and arctic
+# (GQA group 7), whisper's encoder (non-causal over its 1500 frames, no
+# multiple of any tile) and decoder
+FAMILY_FLASH = [(1, 257, 257, 16, 16, 128, True),
+                (1, 200, 200, 32, 32, 64, True),
+                (1, 333, 333, 56, 8, 128, True),
+                (1, 1500, 1500, 8, 8, 64, False),
+                (2, 77, 77, 8, 8, 64, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FAMILY_FLASH, ids=str)
+def test_flash_kernel_at_the_families_layouts(cuda, shape, dtype):
+    b, t, s, h, kv, d, causal = shape
+    gen = torch.Generator(device=cuda).manual_seed(h * d + t)
+    q, k, v = (torch.randn(shp, generator=gen, device=cuda).to(dtype)
+               for shp in ((b, t, h, d), (b, s, kv, d), (b, s, kv, d)))
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == (b, t, h, d) and got.dtype == dtype
+    assert flash_within_tolerance(got, want)
+
+
+def _attention_layers(cfg) -> int:
+    """Flash launches of one prefill: one per attention layer (the hybrid's
+    shared block once a call site; whisper's encoder and decoder)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + cfg.n_layers
+    return cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "arctic-480b", "mamba2-130m",
+                                  "zamba2-1.2b", "llava-next-34b",
+                                  "whisper-base"])
+def test_smoke_family_on_the_card_matches_the_host(cuda, arch):
+    """As the dense case above, for the other families: the same weights
+    and inputs (patches / frames) on both devices, float32, prefill and
+    four greedy decode steps."""
+    cfg = get_smoke_config(arch)
+    host = build_model(cfg, generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+    card = (WhisperModel if cfg.family == "encdec" else DecoderLM)(
+        cfg, device=cuda)
+    card.load_state_dict(host.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (3, 45), generator=gen)
+    n = {"vlm": cfg.n_patches, "encdec": cfg.encoder_len}.get(cfg.family)
+    extra = None if n is None else torch.randn((3, n, cfg.d_model),
+                                               generator=gen)
+    runs = {}
+    for name, model in (("host", host), ("card", card)):
+        dev = model.embed.device
+        prefill, decode = make_prefill_step(model), make_decode_step(model)
+        ops.reset_launch_counts()
+        logits, cache = prefill(toks.to(dev),
+                                None if extra is None else extra.to(dev))
+        n_prefill = ops.launch_counts()["flash_attention"]
+        cache = model.extend_cache(cache, 4)
+        tok, out, steps = torch.argmax(logits, -1), [], [logits]
+        for _ in range(4):
+            out.append(tok)
+            tok, logits, cache = decode(tok, cache)
+            steps.append(logits)
+        n_decode = ops.launch_counts()["flash_attention"] - n_prefill
+        runs[name] = (torch.cat(out, 1).cpu(), [x.cpu() for x in steps],
+                      n_prefill, n_decode)
+    assert runs["host"][2:] == (0, 0)
+    assert runs["card"][2:] == (_attention_layers(cfg), 0)
     assert torch.equal(runs["card"][0], runs["host"][0])
     for got, want in zip(runs["card"][1], runs["host"][1]):
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()

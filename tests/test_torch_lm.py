@@ -31,8 +31,9 @@ from repro.train.steps import make_prefill_step as jmake_prefill
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import ops
 from repro_torch.launch import serve_lm
-from repro_torch.models import DecoderLM, build_model
-from repro_torch.models.convert import lm_params_from_numpy
+from repro_torch.models import DecoderLM, WhisperModel, build_model
+from repro_torch.models.convert import (lm_params_from_numpy,
+                                        whisper_params_from_numpy)
 from repro_torch.train.steps import make_prefill_step
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -98,36 +99,78 @@ def test_unknown_arch_raises():
         tconfigs.get_config("gpt-5")
 
 
-@pytest.mark.parametrize("arch", [a for a in J_ARCHS
-                                  if jget_config(a).family != "dense"])
-def test_build_model_raises_for_families_not_ported(arch):
-    cfg = tconfigs.get_smoke_config(arch)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        build_model(cfg, generator=gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense family only"):
-        lm_params_from_numpy({}, cfg)
+def uncounted(cfg) -> int:
+    """Weights that ``ModelConfig.param_count`` leaves out: every norm
+    (RMS: ln1, ln2 a layer and the final one; whisper's LayerNorms: scale
+    and bias, two an encoder layer, three a decoder layer, enc_norm and
+    final_norm), mamba's conv bias, and llava's patch projection."""
+    d, l = cfg.d_model, cfg.n_layers
+    if cfg.family == "encdec":
+        return 2 * d * (2 * cfg.encoder_layers + 3 * l + 2)
+    if cfg.family in ("ssm", "hybrid"):
+        conv_b = cfg.d_inner + 2 * cfg.ssm_state
+        shared = 2 * d if cfg.family == "hybrid" else 0
+        return l * (d + conv_b) + d + shared
+    return (2 * l + 1) * d + (d * d if cfg.family == "vlm" else 0)
 
 
-def test_build_model_shapes_match_the_reference_params():
-    cfg = tconfigs.get_smoke_config("granite-34b")
-    tm = build_model(cfg, generator=torch.Generator().manual_seed(3),
-                     device="cpu")
-    shapes = jax.eval_shape(jbuild_model(jget_smoke("granite-34b")).init,
+@pytest.mark.parametrize("arch", list(J_ARCHS))
+def test_build_model_shapes_match_the_reference_params(arch):
+    """At the published widths (weights on the meta device, the
+    reference's shapes abstract): every state-dict shape is the reference
+    init's, and the count is ``param_count()`` plus what it leaves out.
+    At the smoke widths, a built model's weights carry the reference's
+    distributions."""
+    cfg = tconfigs.get_config(arch)
+    cls = WhisperModel if cfg.family == "encdec" else DecoderLM
+    convert = whisper_params_from_numpy if cfg.family == "encdec" \
+        else lm_params_from_numpy
+    meta = cls(cfg, device="meta")
+    shapes = jax.eval_shape(jbuild_model(jget_config(arch)).init,
                             jax.random.PRNGKey(0))
-    sd = lm_params_from_numpy(
-        jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes), cfg)
-    got = {k: tuple(v.shape) for k, v in tm.state_dict().items()}
-    assert got == {k: tuple(v.shape) for k, v in sd.items()}
-    # the analytic count leaves out the norms' 2L + 1 vectors
-    assert sum(v.numel() for v in tm.state_dict().values()) == \
-        cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model
-    # the reference's distributions: norms 1, embedding cut at +-2, the
-    # fan-in scaled matrices cut at +-2 / sqrt(fan_in)
-    assert torch.equal(tm.final_norm, torch.ones(cfg.d_model))
+    want = {}
+    for group, x in shapes.items():
+        stack = {"blocks": cfg.n_layers, "encoder": cfg.encoder_layers,
+                 "decoder": cfg.n_layers}.get(group)
+        for path, leaf in (jax.tree_util.tree_flatten_with_path(x)[0]
+                           if isinstance(x, dict) else [((), x)]):
+            name = ".".join([group, *(str(p.key) for p in path)])
+            if stack is None:
+                want[name] = tuple(leaf.shape)
+            else:
+                for i in range(stack):
+                    want[name.replace(group, f"{group}.{i}", 1)] = \
+                        tuple(leaf.shape[1:])
+    got = {k: tuple(v.shape) for k, v in meta.state_dict().items()}
+    assert got == want
+    assert sum(v.numel() for v in meta.state_dict().values()) == \
+        cfg.param_count() + uncounted(cfg)
+
+    smoke = tconfigs.get_smoke_config(arch)
+    tm = build_model(smoke, generator=torch.Generator().manual_seed(3),
+                     device="cpu")
+    jshapes = jax.eval_shape(jbuild_model(jget_smoke(arch)).init,
+                             jax.random.PRNGKey(0))
+    sd = convert(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), jshapes),
+                 smoke)
+    assert {k: (tuple(v.shape), v.dtype) for k, v in tm.state_dict().items()} \
+        == {k: (tuple(v.shape), v.dtype) for k, v in sd.items()}
+    # the reference's distributions: norms 1 (LayerNorm bias 0), embedding
+    # cut at +-2, the matrices cut at +-2 / sqrt(fan_in), with the MoE
+    # experts' fan-in d (f for w_down), not their leading E
+    for name, w in tm.state_dict().items():
+        if name.endswith(("ln1", "ln2", "final_norm", ".scale", "norm_w")):
+            assert torch.equal(w, torch.ones_like(w)), name
+        elif name.endswith(".bias"):
+            assert not w.any(), name
     assert float(tm.embed.abs().max()) <= 2.0
-    w = tm.blocks[0].mlp.w_up
-    assert float(w.abs().max()) <= 2.0 * cfg.d_model ** -0.5
+    first = tm.decoder[0] if smoke.family == "encdec" else tm.blocks[0]
+    mlp = getattr(first, "mamba", None) or getattr(first, "moe", None) \
+        or first.mlp
+    w_up = getattr(mlp, "w_up", getattr(mlp, "in_proj", None))
+    assert float(w_up.abs().max()) <= 2.0 * smoke.d_model ** -0.5
+    if smoke.family == "moe":    # tens of thousands of draws reach the cut
+        assert 1.9 <= float(mlp.w_down.abs().max()) * smoke.d_ff ** 0.5 <= 2
 
 
 def test_build_model_is_reproducible_from_its_generator():
@@ -164,18 +207,14 @@ def test_serve_lm_smoke_on_cpu(capsys):
     assert all(len(s[1].split(",")) == 5 for s in samples)
 
 
-def test_serve_lm_refuses_families_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve_lm.main(["--arch", "mamba2-130m", "--smoke", "--device",
-                       "cpu"])
-
-
 # --------------------------------------------------------------------------- #
 # The LM modules import neither JAX nor the JAX package                       #
 # --------------------------------------------------------------------------- #
 
 LM_MODULES = ["repro_torch.configs", "repro_torch.models",
-              "repro_torch.models.convert", "repro_torch.train.steps",
+              "repro_torch.models.convert", "repro_torch.models.moe",
+              "repro_torch.models.mamba2", "repro_torch.models.whisper",
+              "repro_torch.train.steps",
               "repro_torch.launch.serve_lm",
               "repro_torch.kernels.flash_attention"]
 
