@@ -273,12 +273,37 @@ raises on failure:
    batch 1, prompt 64, 8 greedy tokens: olmoe-1b-7b and mamba2-130m at 2
    layers, zamba2-1.2b at 6 (one shared site), whisper-base at 2 + 2 with
    1,500 frames;
+   (3r) LM training, through no hand-written kernel (the reference trains
+   through no TPU kernel; the flash kernel has no backward): (a) the CLI
+   ``repro_torch.launch.train --arch stablelm-3b --steps 4 --batch 4
+   --seq 2048 --microbatches 2`` must exit 0 with every loss and grad norm
+   finite and no kernel launched; (b) a warm train step of stablelm-3b
+   built in the script, its two halves (``accumulate_grads``,
+   ``apply_updates``) counted: no kernel launched, every attention
+   projection's gradient non-zero and finite, ``max_memory_allocated``
+   beside the bytes ``launch/specs.py`` reckons from the meta device; then
+   a step timed and profiled as in phase 3b (tokens/s, busy, idle, top);
+   (c) two steps (the second timed) of mamba2-130m and whisper-base
+   uncut, olmoe-1b-7b at 2
+   of 16 layers (aux losses finite and non-zero), zamba2-1.2b at 6 (one
+   shared site), llava-next-34b at 2 (2 x (2,880 patches + 512 tokens)),
+   and one Adafactor step of stablelm-3b at 2 layers (its factored second
+   moment reached); arctic-480b's training is held on the CPU only (one
+   layer's weights, f32 masters and gradients pass 80 GB); (d) the CLI's
+   resume at the smoke config: 4 steps straight against 2 then 2 resumed,
+   the checkpoints bit for bit;
+   (4r) GPU vs CPU: stablelm-3b and olmoe-1b-7b at full width and 2
+   layers, float32 with an f32 accumulator, batch 2, seq 256, 2
+   microbatches, one Adam step from the same weights and batch: loss, aux
+   losses and grad norm within 1e-4 relative, every gradient and every
+   updated weight within 1e-4 of its largest magnitude;
 10. one JSON ``kernels`` line, then the ``ok`` line last.  An ELL kernel's
    ``launches`` is its count in the CLI's ipi_gmres solve (a), the
    default method; ``dense_backup``'s is its count in the dense ipi_gmres
    solve (3d); ``ell_qvalues``'s its phase-2q count; ``flash_attention``'s
    its count in the serve_lm CLI run (3f), and its ``launches_by_path``
-   3l's runs too.  ``launches_by_path`` gives
+   3l's runs too, and 3r's: ``train`` (b), ``train_cli`` (a) and each
+   (c) step, all 0.  ``launches_by_path`` gives
    each path's counts (the ELL kernels' include phase 3g's and 3h's
    paths).  Rows 1-4 carry ``batched``: phase 3h (d)'s rows, keyed by
    ``idx`` kind and dtype; the ELL kernels' also carry phase 3m (a)'s
@@ -2864,6 +2889,312 @@ def lm_family_parity() -> list:
     return rows
 
 
+# --------------------------------------------------------------------------- #
+# phases 3r / 4r: LM training                                                 #
+# --------------------------------------------------------------------------- #
+
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2048, 2, 4
+# 3r (c): (arch, depth cut, batch, sequence incl. patches, optimizer)
+TRAIN_FAMILIES = (("mamba2-130m", {}, 4, 2048, None),
+                  ("whisper-base", {}, 4, 448, None),
+                  ("olmoe-1b-7b", dict(n_layers=2), 4, 2048, None),
+                  ("zamba2-1.2b", dict(n_layers=6), 4, 2048, None),
+                  ("llava-next-34b", dict(n_layers=2), 2, 512 + 2880, None),
+                  ("stablelm-3b", dict(n_layers=2), 4, 2048, "adafactor"))
+# 3r (d): the CLI's resume at the smoke config
+TRAIN_RESUME = ["--arch", TRAIN_ARCH, "--smoke", "--batch", "8", "--seq",
+                "128", "--log-every", "1"]
+# phase 4r: (arch, depth cut); f32, batch 2, seq 256, 2 microbatches
+TRAIN_PARITY = (("stablelm-3b", dict(n_layers=2)),
+                ("olmoe-1b-7b", dict(n_layers=2)))
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 256
+TRAIN_TOL = 1e-4     # GPU vs CPU: metrics relative, tensors of max |x|
+ATTN_PROJ = ("wq", "wk", "wv", "wo")
+
+
+def train_source(cfg, batch: int, seq: int, device: str = "cuda"):
+    from repro_torch.data.pipeline import SyntheticSource
+
+    return SyntheticSource(
+        cfg.vocab_size, seq, batch, n_patches=cfg.n_patches,
+        d_model=cfg.d_model,
+        encoder_len=cfg.encoder_len if cfg.family == "encdec" else 0,
+        device=device)
+
+
+def require_no_kernel(what: str, launches: dict) -> None:
+    """The train step launches no hand-written kernel: the reference
+    trains through no TPU kernel, and the flash kernel has no backward."""
+    if any(launches.values()):
+        raise AssertionError(f"{what}: launches {launches}, want none (the "
+                             f"train step runs the chunked attention scan)")
+
+
+def finite_metrics(what: str, metrics: dict) -> dict:
+    out = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"{what}: non-finite metrics {out}")
+    return out
+
+
+def train_cli() -> dict:
+    """3r (a): the training CLI at stablelm-3b's full width, one line a
+    step, every loss and grad norm finite, no kernel launched."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, text = run_cli(train.main, [
+        "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatches",
+        str(TRAIN_MICRO), "--log-every", "1"])
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    steps = re.findall(r"\[train\] step=(\d+) loss=(\S+) gnorm=(\S+) "
+                       r"(\d+)ms/step", text)
+    if rc != 0 or len(steps) != TRAIN_STEPS or not all(
+            np.isfinite(float(x)) for _, loss, gn, _ in steps
+            for x in (loss, gn)):
+        raise AssertionError(f"train CLI: exit {rc}, steps {steps}")
+    require_no_kernel("train CLI", launches)
+    out = dict(wall_s=wall, launches=launches,
+               steps=[dict(step=int(a), loss=float(b), grad_norm=float(c),
+                           ms_per_step=int(d)) for a, b, c, d in steps])
+    log(f"[phase3r] (a) train CLI {TRAIN_ARCH} --steps {TRAIN_STEPS} "
+        f"--batch {TRAIN_BATCH} --seq {TRAIN_SEQ} --microbatches "
+        f"{TRAIN_MICRO}: {json.dumps(out)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_step_main() -> dict:
+    """3r (b): a warm train step of stablelm-3b built in the script: no
+    kernel launched, every attention projection's gradient non-zero and
+    finite, the peak bytes beside the bytes ``launch/specs.py`` reckons;
+    then a step timed and profiled."""
+    from repro_torch.configs import get_config, get_train_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import apply_updates, init_opt_state
+    from repro_torch.train.steps import accumulate_grads, make_train_step
+
+    cfg, tcfg = get_config(TRAIN_ARCH), get_train_config(TRAIN_ARCH)
+    meta, _, _ = specs.param_specs(TRAIN_ARCH, {"data": 1})
+    reckoned = specs.state_bytes(
+        meta, specs.opt_specs(TRAIN_ARCH, {"data": 1}, meta)[0], tcfg)
+    model = build_model(cfg, generator=torch.Generator(device="cuda")
+                        .manual_seed(0), device="cuda")
+    opt = init_opt_state(model, tcfg)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    batch = train_source(cfg, TRAIN_BATCH, TRAIN_SEQ).next_batch(0)
+    step_fn = make_train_step(model, tcfg, n_microbatches=TRAIN_MICRO)
+    step_fn(opt, 0, batch)                      # warm
+
+    # the train step's two halves, counted
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    grads, metrics = accumulate_grads(model, tcfg, batch,
+                                      n_microbatches=TRAIN_MICRO)
+    opt, gnorm = apply_updates(model, grads, opt, 1, tcfg)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    require_no_kernel("train step", launches)
+    metrics = finite_metrics("train step", {**metrics, "grad_norm": gnorm})
+    proj = {n: float(g.float().norm()) for n, g in grads.items()
+            if n.rsplit(".", 1)[-1] in ATTN_PROJ}
+    if len(proj) != 4 * cfg.n_layers or not all(
+            np.isfinite(v) and v > 0 for v in proj.values()):
+        raise AssertionError(f"attention projections' gradients: {proj}")
+    del grads
+    (opt, _), prof = device_profile(lambda: step_fn(opt, 2, batch))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = dict(arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               microbatches=TRAIN_MICRO, launches=launches, metrics=metrics,
+               attn_proj_grad_norm_min=min(proj.values()),
+               step_s=prof["wall_ms"] / 1e3,
+               tokens_per_s=tokens / (prof["wall_ms"] / 1e3),
+               reckoned_bytes=reckoned, resident_bytes=resident,
+               peak_bytes=peak, peak_over_reckoned=peak / reckoned["total"],
+               idle_share=prof["idle_share"])
+    log(f"[phase3r] (b) {json.dumps(out)}")
+    log(f"[phase3r] (b) train step profile: {json.dumps(prof)}")
+    out["profile"] = prof
+    del model, opt, batch, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_families() -> list:
+    """3r (c): two train steps of each of ``TRAIN_FAMILIES`` at its
+    published width (depth as cut), built in the script, the second
+    timed and counted: finite metrics, MoE's aux losses non-zero, no
+    kernel launched; Adafactor's factored second moment reached."""
+    from repro_torch.configs import get_config, get_train_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    rows = []
+    for arch, cut, batch, seq, optim in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        tcfg = get_train_config(arch)
+        if optim:
+            tcfg = dataclasses.replace(tcfg, optimizer=optim)
+        model = build_model(cfg, generator=torch.Generator(device="cuda")
+                            .manual_seed(0), device="cuda")
+        opt = init_opt_state(model, tcfg)
+        data = train_source(cfg, batch, seq).next_batch(0)
+        step_fn = make_train_step(model, tcfg, n_microbatches=TRAIN_MICRO)
+        (opt, cold), cold_s = sync_wall(lambda: step_fn(opt, 0, data))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        (opt, metrics), wall = sync_wall(lambda: step_fn(opt, 1, data))
+        launches = ops.launch_counts()
+        require_no_kernel(f"{arch} train step", launches)
+        metrics = finite_metrics(arch, metrics)
+        finite_metrics(arch, cold)
+        row = dict(arch=arch, layers=cfg.n_layers, batch=batch, seq=seq,
+                   optimizer=tcfg.optimizer, launches=launches,
+                   first_step_s=cold_s, step_s=wall, metrics=metrics,
+                   weights_gb=sum(p.nbytes for p in model.parameters())
+                   / 1e9, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if cfg.family == "moe" and not (metrics["load_balance_loss"] > 0
+                                        and metrics["router_z_loss"] > 0):
+            raise AssertionError(f"{arch}: aux losses {metrics}")
+        if tcfg.optimizer == "adafactor":
+            row["factored"] = sum(opt["vr"][n].dim() < p.dim()
+                                  for n, p in model.named_parameters())
+            if not row["factored"]:
+                raise AssertionError(f"{arch}: Adafactor never factored")
+        log(f"[phase3r] (c) {json.dumps(row)}")
+        rows.append(row)
+        del model, opt, data, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("[phase3r] (c) arctic-480b: training held on the CPU only "
+        "(tests/test_torch_train_families.py): one layer is 28.1 GB of bf16 "
+        "weights, and Adafactor's f32 masters (56 GB) with the bf16 "
+        "gradients (28 GB) pass the card's 80 GB")
+    return rows
+
+
+def train_resume() -> dict:
+    """3r (d): the CLI on the card at the smoke config, 4 steps straight
+    against 2 steps then 2 resumed: the checkpoints bit for bit."""
+    from repro_torch.launch import train
+
+    root = OUT / "train_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    for name, steps in (("a", 4), ("b", 2), ("b", 4)):
+        rc, _ = run_cli(train.main, TRAIN_RESUME + [
+            "--steps", str(steps), "--ckpt-dir", str(root / name)])
+        if rc != 0:
+            raise AssertionError(f"train CLI --smoke --steps {steps}: {rc}")
+    leaves = {}
+    for name in ("a", "b"):
+        with np.load(root / name / f"step_{4:010d}.npz") as z:
+            leaves[name] = [z[k] for k in sorted(z.files)
+                            if k.startswith("leaf_")]
+    same = len(leaves["a"]) == len(leaves["b"]) > 0 and all(
+        x.dtype == y.dtype and np.array_equal(x, y)
+        for x, y in zip(leaves["a"], leaves["b"]))
+    out = dict(leaves=len(leaves["a"]), bit_for_bit=same)
+    log(f"[phase3r] (d) resume on the card, 4 straight vs 2 + 2: "
+        f"{json.dumps(out)}")
+    shutil.rmtree(root, ignore_errors=True)
+    if not same:
+        raise AssertionError("the resumed run's weights and state differ")
+    return out
+
+
+def train_paths() -> dict:
+    """Phase 3r (module docstring)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase3r] {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+        f"allocated by the earlier phases")
+    return dict(cli=train_cli(), step=train_step_main(),
+                families=train_families(), resume=train_resume())
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return max_abs_diff(got, want) / max(float(want.abs().max()), 1e-30)
+
+
+def train_parity() -> list:
+    """Phase 4r: one Adam step of each of ``TRAIN_PARITY`` in f32 (an f32
+    accumulator) with the same weights and batch on the card and on the
+    host: metrics within ``TRAIN_TOL`` relative, every gradient and every
+    updated weight within ``TRAIN_TOL`` of its largest magnitude."""
+    from repro_torch.configs import get_config, get_train_config
+    from repro_torch.models import DecoderLM, build_model
+    from repro_torch.train.optimizer import apply_updates, init_opt_state
+    from repro_torch.train.steps import accumulate_grads
+
+    rows = []
+    for arch, cut in TRAIN_PARITY:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+        tcfg = dataclasses.replace(get_train_config(arch),
+                                   grad_dtype="float32")
+        models = {"card": build_model(
+            cfg, generator=torch.Generator(device="cuda").manual_seed(4),
+            device="cuda")}
+        models["host"] = DecoderLM(cfg, device="cpu")
+        models["host"].load_state_dict(models["card"].state_dict())
+        batch = train_source(cfg, TRAIN_PARITY_BATCH,
+                             TRAIN_PARITY_SEQ).next_batch(0)
+        runs, walls = {}, {}
+        for name in ("card", "host"):
+            model = models.pop(name)
+            dev = model.embed.device
+            t0 = time.perf_counter()
+            grads, metrics = accumulate_grads(
+                model, tcfg, {k: v.to(dev) for k, v in batch.items()},
+                n_microbatches=TRAIN_MICRO)
+            opt, gnorm = apply_updates(model, grads,
+                                       init_opt_state(model, tcfg), 0, tcfg)
+            runs[name] = dict(
+                metrics={**{k: float(v) for k, v in metrics.items()},
+                         "grad_norm": float(gnorm)},
+                grads={n: g.cpu() for n, g in grads.items()},
+                weights={n: p.detach().cpu()
+                         for n, p in model.named_parameters()})
+            walls[name] = time.perf_counter() - t0
+            del model, grads, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+        mc, mh = runs["card"]["metrics"], runs["host"]["metrics"]
+        rel = {k: abs(mc[k] - mh[k]) / abs(mh[k]) if mh[k] else abs(mc[k])
+               for k in mh}
+        metric_rel = max(rel.values())
+        grad_rel = max(_rel_err(runs["card"]["grads"][n], g)
+                       for n, g in runs["host"]["grads"].items())
+        weight_rel = max(_rel_err(runs["card"]["weights"][n], w)
+                         for n, w in runs["host"]["weights"].items())
+        row = dict(arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+                   batch=TRAIN_PARITY_BATCH, seq=TRAIN_PARITY_SEQ,
+                   microbatches=TRAIN_MICRO, metrics_card=mc,
+                   rel_metric_diff=rel, max_rel_metric_diff=metric_rel,
+                   max_rel_grad_diff=grad_rel,
+                   max_rel_weight_diff=weight_rel, tol=TRAIN_TOL,
+                   card_s=walls["card"], host_s=walls["host"])
+        log(f"[phase4r] {json.dumps(row)}")
+        rows.append(row)
+        del runs
+        gc.collect()
+        if max(metric_rel, grad_rel, weight_rel) > TRAIN_TOL:
+            raise AssertionError(f"training GPU vs CPU parity failed: {row}")
+    return rows
+
+
 # phase 3s: -method auto, the hot-swap and solve serving
 AUTO_GARNET_CHOICE = "mpi"          # tests/test_torch_adaptive.py CHOICE
 SWAP_N = 1_000_000                  # (b)'s chain_walk
@@ -3703,6 +4034,10 @@ def main() -> int:
     families = lm_family_paths()
     stamp("4l")
     lm_family_parity()
+    stamp("3r")
+    train = train_paths()
+    stamp("4r")
+    train_parity()
 
     sources = {"ell_backup": ("src/repro_torch/kernels/csrc/ell_backup.cu",
                               "src/repro/kernels/bellman_ell.py:109"),
@@ -3770,7 +4105,12 @@ def main() -> int:
             **{f"3l_{arch}_{p}": c["flash_attention"]
                for arch, row in families.items()
                for p, c in (("serve_lm_cli", row.get("cli_launches")),
-                            *row["launches"].items()) if c}},
+                            *row["launches"].items()) if c},
+            "train": train["step"]["launches"]["flash_attention"],
+            "train_cli": train["cli"]["launches"]["flash_attention"],
+            **{f"3r_{r['arch']}_{r['layers']}_{r['optimizer']}":
+               r["launches"]["flash_attention"]
+               for r in train["families"]}},
         max_abs_err=max(r["max_abs_err"] for r in fchecks.values()),
         ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],

@@ -4,8 +4,8 @@ The port's own copy of :mod:`repro.configs` (pure Python, so the port
 imports nothing of the JAX package); ``tests/test_torch_lm.py`` holds the
 two registries equal.  Each module defines CONFIG (the published
 dimensions), TRAIN (the reference's trainer knobs, tuned for its TPU mesh;
-the port does not train yet) and SMOKE (a reduced same-family config for
-CPU tests).
+``repro_torch.launch.train`` takes them as they are) and SMOKE (a reduced
+same-family config for CPU tests).
 """
 
 from __future__ import annotations

@@ -256,6 +256,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     excluded, and with ``causal`` so is every key after the query's
     position.  Scores are ``(q . k) * hd ** -0.5``; masked scores are
     ``NEG_INF`` and ``l`` is clamped at ``1e-30``, as in the reference.
+    The scan runs in f32 (f64 for f64 inputs, so that the train route's
+    gradient can be checked in f64).
     Chunks wholly past the causal frontier are skipped: they would leave
     ``(m, l, o)`` exactly as they are.  Returns (B, T, H, hd) in q's dtype.
     """
@@ -266,14 +268,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         n_keys = min(n_keys, q_offset + t)
     dev = q.device
-    q32 = q.float().reshape(b, t, kvh, g, hd)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    q32 = q.to(acc).reshape(b, t, kvh, g, hd)
     qpos = q_offset + torch.arange(t, device=dev)
-    m = torch.full((b, kvh, g, t), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, kvh, g, t), dtype=torch.float32, device=dev)
-    o = torch.zeros((b, kvh, g, t, hd), dtype=torch.float32, device=dev)
+    m = torch.full((b, kvh, g, t), NEG_INF, dtype=acc, device=dev)
+    l = torch.zeros((b, kvh, g, t), dtype=acc, device=dev)
+    o = torch.zeros((b, kvh, g, t, hd), dtype=acc, device=dev)
     for c0 in range(0, max(n_keys, 0), chunk):
-        kc = k[:, c0:c0 + chunk].float()
-        vc = v[:, c0:c0 + chunk].float()
+        kc = k[:, c0:c0 + chunk].to(acc)
+        vc = v[:, c0:c0 + chunk].to(acc)
         sc = torch.einsum("btkgh,bskh->bkgts", q32, kc) * (hd ** -0.5)
         kpos = c0 + torch.arange(kc.shape[1], device=dev)
         mask = (kpos < n_keys)[None, :]

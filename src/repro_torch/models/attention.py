@@ -1,18 +1,25 @@
-"""GQA/MQA attention with RoPE: prefill (causal, non-causal or cross)
-and decode.
+"""GQA/MQA attention with RoPE: train (chunked), prefill (causal,
+non-causal or cross) and decode.
 
-Counterpart of :mod:`repro.models.attention`.  Prefill attention goes
-through :func:`repro_torch.kernels.ops.flash_attention`: on CUDA tensors
-the hand-written flash kernel (which takes the place of the reference's
-chunk scan, as its docstring says the Pallas kernel would on hardware), on
-CPU tensors its plain version.  The reference pads keys to a chunk
-multiple and masks them with ``kv_len``; the kernel and its plain version
-exclude every key ``>= S``, the same function.  Decode is plain torch, as
-the reference's is plain ``jnp``: one new token against the cache, softmax
-in f32 (:func:`_gqa_scores` / :func:`_gqa_out`, which whisper's full
-cross-attention also uses).
+Counterpart of :mod:`repro.models.attention`.  Two routes serve a whole
+sequence (``cache=None``):
 
-The training forward is not ported yet.
+* **prefill** goes through :func:`repro_torch.kernels.ops.flash_attention`:
+  on CUDA tensors the hand-written flash kernel (which takes the place of
+  the reference's chunk scan, as its docstring says the Pallas kernel
+  would on hardware), on CPU tensors its plain version.  The reference
+  pads keys to a chunk multiple and masks them with ``kv_len``; the kernel
+  and its plain version exclude every key ``>= S``, the same function.
+* **train** (``train=True``) goes through :func:`chunked_attention`, plain
+  torch under autograd on every device, with the reference's key padding
+  to the chunk and its ``kv_len`` mask.  The reference trains through its
+  ``lax.scan`` and no TPU kernel: the Pallas flash kernel has no backward,
+  and neither has the port's flash kernel, so a train forward through it
+  would leave the attention projections without gradients on the card.
+
+Decode is plain torch, as the reference's is plain ``jnp``: one new token
+against the cache, softmax in f32 (:func:`_gqa_scores` /
+:func:`_gqa_out`, which whisper's full cross-attention also uses).
 """
 
 from __future__ import annotations
@@ -32,12 +39,28 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, T, H, hd) at absolute positions ``[q_offset, q_offset + T)``;
     k, v: (B, S, KV, hd).  S must be a multiple of ``chunk`` (the caller
     pads; ``kv_len`` masks padded key positions ``>= kv_len``).  The scan
-    itself is :func:`repro_torch.kernels.ref.flash_attention`.
+    itself is :func:`repro_torch.kernels.ref.flash_attention`, which writes
+    no tensor on the autograd graph in place, so it differentiates.
     """
     if k.shape[1] % chunk:
         raise ValueError(f"S={k.shape[1]} is not a multiple of chunk={chunk}")
     return ref.flash_attention(q, k, v, causal=causal, chunk=chunk,
                                q_offset=q_offset, kv_len=kv_len)
+
+
+def _train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cfg, *, causal: bool) -> torch.Tensor:
+    """The reference's train route: keys and values padded with zeros to a
+    multiple of ``chunk = min(cfg.attn_chunk, S)``, the pad masked by
+    ``kv_len``, then :func:`chunked_attention` from position 0."""
+    t_kv = k.shape[1]
+    chunk = min(cfg.attn_chunk, t_kv)
+    pad = (-t_kv) % chunk
+    if pad:
+        k = nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    return chunked_attention(q, k, v, q_offset=0, chunk=chunk, causal=causal,
+                             kv_len=t_kv if pad else None)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -74,20 +97,25 @@ class Attention(nn.Module):
             init_(w, generator)
         init_(self.wo, generator, scale=self.wo.shape[0] ** -0.5)
 
-    def forward(self, x, *, positions, cache=None, kv_x=None, causal=True):
+    def forward(self, x, *, positions, cache=None, kv_x=None, causal=True,
+                train=False):
         return apply_attention(self, x, self.cfg, positions=positions,
-                               cache=cache, kv_x=kv_x, causal=causal)
+                               cache=cache, kv_x=kv_x, causal=causal,
+                               train=train)
 
 
 def apply_attention(p: Attention, x: torch.Tensor, cfg, *,
                     positions: torch.Tensor, cache=None,
-                    kv_x: torch.Tensor | None = None, causal: bool = True):
+                    kv_x: torch.Tensor | None = None, causal: bool = True,
+                    train: bool = False):
     """Attention of ``x`` (B, T, d).
 
     * prefill, ``cache=None``: self-attention over ``x`` (``causal`` or
       not), or cross-attention over ``kv_x`` (B, S, d), non-causal with q
       and k unrotated (whisper-style); returns ``(y, (k, v))``, the
-      unpadded keys and values (B, S, KV, hd) for the cache;
+      unpadded keys and values (B, S, KV, hd) for the cache; with
+      ``train`` the same through :func:`_train_attention` instead of the
+      flash kernel;
     * decode, ``cache=(k_cache, v_cache, length)`` with caches (B, S, KV,
       hd) and ``T = 1``: writes the new key and value at slot ``length``
       **in place** (the reference returns updated copies) and returns
@@ -101,14 +129,16 @@ def apply_attention(p: Attention, x: torch.Tensor, cfg, *,
             raise ValueError("cross-attention (kv_x) has no decode cache")
         k = (kv_x @ p.wk).view(b, kv_x.shape[1], kv, hd)
         v = (kv_x @ p.wv).view(b, kv_x.shape[1], kv, hd)
-        y = ops.flash_attention(q, k, v, causal=False)
+        y = _train_attention(q, k, v, cfg, causal=False) if train else \
+            ops.flash_attention(q, k, v, causal=False)
         return y.reshape(b, t, h * hd) @ p.wo, (k, v)
     q = rope(q, positions, cfg.rope_theta)
     k = rope((x @ p.wk).view(b, t, kv, hd), positions, cfg.rope_theta)
     v = (x @ p.wv).view(b, t, kv, hd)
 
     if cache is None:
-        y = ops.flash_attention(q, k, v, causal=causal)
+        y = _train_attention(q, k, v, cfg, causal=causal) if train else \
+            ops.flash_attention(q, k, v, causal=causal)
         return y.reshape(b, t, h * hd) @ p.wo, (k, v)
 
     # ---- decode: one new token against the cache ------------------------ #

@@ -1,14 +1,15 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights and optimizer state from the JAX package into the port.
 
 :func:`lm_params_from_numpy` turns the reference's ``DecoderLM.init``
 pytree, and :func:`whisper_params_from_numpy` its ``WhisperModel.init``
 pytree, as numpy arrays (layer stacks on a leading ``L`` axis), into a
 state dict of :class:`repro_torch.models.lm.DecoderLM` or
 :class:`repro_torch.models.whisper.WhisperModel`, so that both packages
-compute the same function in the tests.  A nested key ``a/b/c`` becomes
-``a.b.c``; a stacked group's layer ``i`` becomes ``group.i.b.c``.
-Nothing here imports JAX: the caller converts the arrays with
-``numpy.asarray``.
+compute the same function in the tests; :func:`opt_state_from_numpy`
+does the same for the reference's optimizer state.  A nested key
+``a/b/c`` becomes ``a.b.c``; a stacked group's layer ``i`` becomes
+``group.i.b.c``.  Nothing here imports JAX: the caller converts the
+arrays with ``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -43,8 +44,17 @@ def _state_dict(params: dict, stacks: dict[str, int]) -> dict:
             continue
         for path, w in _flatten(x):
             for i in range(stacks[group]):
-                sd[f"{group}.{i}.{path}"] = _tensor(w[i])
+                # a 0-d leaf of a stack (Adafactor's unfactored ``vc``) is
+                # one scalar for every layer
+                sd[f"{group}.{i}.{path}"] = _tensor(w if np.ndim(w) == 0
+                                                    else w[i])
     return sd
+
+
+def _stacks(cfg) -> dict[str, int]:
+    if cfg.family == "encdec":
+        return {"encoder": cfg.encoder_layers, "decoder": cfg.n_layers}
+    return {"blocks": cfg.n_layers}
 
 
 def lm_params_from_numpy(params: dict, cfg) -> dict[str, torch.Tensor]:
@@ -66,3 +76,15 @@ def whisper_params_from_numpy(params: dict, cfg) -> dict[str, torch.Tensor]:
                          f"family, got {cfg.family!r}")
     return _state_dict(params, {"encoder": cfg.encoder_layers,
                                 "decoder": cfg.n_layers})
+
+
+def opt_state_from_numpy(opt_state: dict, cfg) -> dict:
+    """The reference's ``init_opt_state`` / ``apply_updates`` state
+    (``{"master", "m", "v"}`` or ``{"master", "vr", "vc"}``, each a pytree
+    like the params, stacked on ``L``) -> the port's state of
+    :mod:`repro_torch.train.optimizer`: the same keys, each a ``{name:
+    tensor}`` of the model's parameter names, every leaf f32 (the
+    reference's masters are f64 under ``jax_enable_x64``)."""
+    return {key: {n: t.float() for n, t in
+                  _state_dict(tree, _stacks(cfg)).items()}
+            for key, tree in opt_state.items()}

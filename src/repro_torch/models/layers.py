@@ -1,4 +1,5 @@
-"""Shared primitives: init, norms (RMS, layer), rotary embeddings, MLPs.
+"""Shared primitives: init, norms (RMS, layer), rotary embeddings, MLPs,
+and per-layer remat for the train mode.
 
 Counterpart of :mod:`repro.models.layers`.  Weights keep the reference's
 ``x @ W`` layout, ``(d_in, d_out)``, so a weight carries over from the JAX
@@ -7,8 +8,17 @@ package unchanged (:mod:`repro_torch.models.convert`).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
+
+REMAT = ("full", "dots", "none")
+# the plain 2-D products (``x @ W`` lowers to ``mm``): what the
+# reference's ``dots_with_no_batch_dims_saveable`` keeps; batched ones
+# (``bmm`` of the einsums) are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def init_(w: torch.Tensor, generator: torch.Generator,
@@ -124,3 +134,25 @@ class MLP(nn.Module):
             # jax.nn.gelu defaults to the tanh approximation
             h = torch.nn.functional.gelu(up, approximate="tanh")
         return h @ self.w_down
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, policy: str, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under the reference's per-layer remat
+    (``jax.checkpoint``): ``"full"`` saves the inputs alone and recomputes
+    the rest in the backward pass, ``"dots"`` also saves the plain 2-D
+    products (a selective-checkpoint policy), ``"none"`` runs ``fn`` as it
+    is.  Values and gradients are the same bits under every policy."""
+    if policy not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {policy!r}")
+    if policy == "none":
+        return fn(*args, **kwargs)
+    context_fn = ckpt.noop_context_fn if policy == "full" else \
+        functools.partial(ckpt.create_selective_checkpoint_contexts,
+                          _dots_policy)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           context_fn=context_fn, **kwargs)

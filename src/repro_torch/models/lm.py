@@ -21,10 +21,9 @@ hd)}`` for attention blocks, ``{"blocks": {"conv": (L, B, K-1, C), "ssm":
 "v"}: (sites, B, S, KV, hd)}`` beside them, and ``"len"``.  Prefill
 returns one over the prompt (patches included); decode writes the new
 token's state into the given cache in place and returns it with ``len +
-1``.
-
-The training forward (and with it the MoE aux losses' sum over layers) is
-a later slice of the port.
+1``.  The train mode returns the final hidden state and the MoE aux
+losses summed over the layers, as the reference's scan sums them, each
+block under the reference's per-layer remat (:func:`layers.remat`).
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.attention import Attention
-from repro_torch.models.layers import MLP, init_, rms_norm, weight
+from repro_torch.models.layers import MLP, init_, remat, rms_norm, weight
 from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.moe import MoE
 
@@ -43,6 +42,17 @@ KINDS = {"dense": "attn", "vlm": "attn", "moe": "moe", "ssm": "mamba",
 # cache leaves that grow with the sequence (the reference's ``pad_kv``
 # pads only leaves named k / v): never ``conv``, ``ssm``, ``enc_k``/``enc_v``
 KV_LEAVES = ("k", "v")
+AUX = ("load_balance_loss", "router_z_loss")
+
+
+def zero_aux(device) -> dict:
+    """The reference's ``zero_aux()``: both MoE aux losses, f32 zeros."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX}
+
+
+def add_aux(aux: dict, more: dict | None) -> dict:
+    return aux if more is None else {k: aux[k] + more[k] for k in AUX}
 
 
 def extend_cache(cache: dict, extra: int) -> dict:
@@ -87,16 +97,26 @@ class Block(nn.Module):
                 sub.reset_parameters(generator)
 
     def forward(self, x, *, positions, cache=None):
+        x, cache_out, _ = self._apply(x, positions, cache, train=False)
+        return x, cache_out
+
+    def train_forward(self, x, *, positions):
+        """``(x, aux)``: aux the MoE losses, None for a dense block."""
+        x, _, aux = self._apply(x, positions, None, train=True)
+        return x, aux
+
+    def _apply(self, x, positions, cache, *, train: bool):
         h, cache_out = self.attn(rms_norm(self.ln1, x, self.eps),
-                                 positions=positions, cache=cache)
+                                 positions=positions, cache=cache,
+                                 train=train)
         x = x + h
         y = rms_norm(self.ln2, x, self.eps)
         if self.moe is None:
-            return x + self.mlp(y), cache_out
-        ym, _ = self.moe(y)          # the aux losses matter to training only
+            return x + self.mlp(y), cache_out, None
+        ym, aux = self.moe(y)
         if self.mlp is not None:
             ym = ym + self.mlp(y)
-        return x + ym, cache_out
+        return x + ym, cache_out, aux
 
 
 class MambaBlock(nn.Module):
@@ -117,6 +137,9 @@ class MambaBlock(nn.Module):
         h, cache_out = self.mamba(rms_norm(self.ln1, x, self.eps),
                                   cache=cache)
         return x + h, cache_out
+
+    def train_forward(self, x, *, positions=None):
+        return self(x)[0], None
 
 
 class DecoderLM(nn.Module):
@@ -219,16 +242,29 @@ class DecoderLM(nn.Module):
         return out
 
     def forward(self, tokens: torch.Tensor, *, patches=None,
-                mode: str = "prefill", cache: dict | None = None):
-        """Returns ``(hidden, cache_out)``.
+                mode: str = "prefill", cache: dict | None = None,
+                remat: str = "full", unroll: bool = False):
+        """Returns ``(hidden, cache_out)``, or ``(hidden, aux)`` in train
+        mode.
 
         prefill: ``tokens (B, T)`` (vlm: after ``patches (B, P, d)``),
         returns the cache of the T (+ P) positions; decode: ``tokens (B,
-        1)`` and a cache with a free slot.
+        1)`` and a cache with a free slot; train: ``tokens (B, T)`` (and
+        the vlm's patches), returns the MoE aux losses summed over the
+        layers (f32 zeros for the other families), with every block
+        under ``remat`` (``"full" | "dots" | "none"``; the hybrid's shared
+        block ``"full"`` unless ``"none"``, as the reference's) and the
+        attention through :func:`attention.chunked_attention`.  ``remat``
+        and ``unroll`` are train-mode options; ``unroll`` (the reference's
+        loop-free lowering) changes nothing here, where a Python loop runs
+        the layers already.
         """
+        del unroll
+        if mode == "train":
+            return self._train(tokens, patches, remat)
         if mode not in ("prefill", "decode"):
-            raise ValueError(f"mode must be 'prefill' or 'decode', got "
-                             f"{mode!r}")
+            raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
+                             f"got {mode!r}")
         decode = mode == "decode"
         x = self._embed(tokens, None if decode else patches)
         b, t, _ = x.shape
@@ -257,6 +293,19 @@ class DecoderLM(nn.Module):
                          for group, cs in new.items() if cs}
             cache_out["len"] = t
         return rms_norm(self.final_norm, x, self.cfg.norm_eps), cache_out
+
+    def _train(self, tokens, patches, policy: str):
+        x = self._embed(tokens, patches)
+        b, t, _ = x.shape
+        positions = torch.arange(t, device=x.device).expand(b, t)
+        shared = "none" if policy == "none" else "full"
+        aux = zero_aux(x.device)
+        for blk, group, _ in self._layers():
+            x, a = remat(blk.train_forward,
+                         shared if group == "shared" else policy, x,
+                         positions=positions)
+            aux = add_aux(aux, a)
+        return rms_norm(self.final_norm, x, self.cfg.norm_eps), aux
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         w = self.embed.t() if self.cfg.tie_embeddings else self.unembed

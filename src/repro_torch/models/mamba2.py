@@ -1,5 +1,5 @@
-"""Mamba2 (SSD, state-space duality) block: chunked prefill scan and the
-one-token decode recurrence.
+"""Mamba2 (SSD, state-space duality) block: the chunked scan (prefill and
+train) and the one-token decode recurrence.
 
 Counterpart of :mod:`repro.models.mamba2`, plain torch as the reference is
 plain ``jnp``, everything in f32.  The sequence is cut into chunks of
@@ -126,10 +126,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     scores = torch.einsum("bcin,bcjn->bcij", cc, bc)           # (B,nc,L,L)
     ii = torch.arange(l, device=x.device)
     causal = (ii[:, None] >= ii[None, :])[..., None]           # (L,L,1)
-    decay = torch.exp(cum[:, :, :, None] - cum[:, :, None, :])  # (B,nc,L,L,H)
-    m = torch.where(causal, decay, torch.zeros((), dtype=f32,
-                                               device=x.device)) \
-        * scores[..., None]
+    # masked before the exp: above the diagonal cum_i - cum_j > 0 can
+    # overflow to inf, and the reference's where-after-exp then passes
+    # 0 * inf = NaN back through exp (mamba2-130m's chunk of 128 does);
+    # the values kept are the same bits
+    diff = cum[:, :, :, None] - cum[:, :, None, :]             # (B,nc,L,L,H)
+    decay = torch.exp(torch.where(causal, diff, torch.full(
+        (), float("-inf"), dtype=f32, device=x.device)))
+    m = decay * scores[..., None]
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", m, dtx)
 
     # chunk-local end states: S_c = sum_j exp(cum_end - cum_j) B_j (x) dtx_j

@@ -12,6 +12,11 @@ Norms are LayerNorm (scale + bias).
 Caches: ``{"blocks": {"k", "v"}: (L, B, S, KV, hd), "enc_k", "enc_v": (L,
 B, encoder_len, KV, hd), "len"}``.  Decode writes the self-attention k / v
 in place; ``enc_k`` / ``enc_v`` never change and never grow.
+
+The train mode runs the encoder and decoder self-attention through the
+chunked scan under autograd, and every encoder and decoder block under
+``"full"`` remat unless ``remat="none"`` (the reference's whisper
+checkpoints without a policy, so ``"dots"`` is ``"full"`` here too).
 """
 
 from __future__ import annotations
@@ -20,8 +25,9 @@ import torch
 from torch import nn
 
 from repro_torch.models.attention import Attention, _gqa_out, _gqa_scores
-from repro_torch.models.layers import MLP, LayerNorm, init_, weight
-from repro_torch.models.lm import DTYPES, extend_cache
+from repro_torch.models.layers import (MLP, REMAT, LayerNorm, init_, remat,
+                                       weight)
+from repro_torch.models.lm import DTYPES, KV_LEAVES, extend_cache, zero_aux
 
 
 class EncBlock(nn.Module):
@@ -38,8 +44,9 @@ class EncBlock(nn.Module):
         self.attn.reset_parameters(generator)
         self.mlp.reset_parameters(generator)
 
-    def forward(self, x, *, positions):
-        h, _ = self.attn(self.ln1(x), positions=positions, causal=False)
+    def forward(self, x, *, positions, train=False):
+        h, _ = self.attn(self.ln1(x), positions=positions, causal=False,
+                         train=train)
         x = x + h
         return x + self.mlp(self.ln2(x))
 
@@ -73,9 +80,10 @@ class DecBlock(nn.Module):
         for sub in (self.self_attn, self.cross_attn, self.mlp):
             sub.reset_parameters(generator)
 
-    def forward(self, x, enc_k, enc_v, *, positions, cache=None):
+    def forward(self, x, enc_k, enc_v, *, positions, cache=None,
+                train=False):
         h, cache_out = self.self_attn(self.ln1(x), positions=positions,
-                                      cache=cache)
+                                      cache=cache, train=train)
         x = x + h
         x = x + cross_attend(self.cross_attn, self.ln_x(x), enc_k, enc_v,
                              self.cfg)
@@ -115,14 +123,16 @@ class WhisperModel(nn.Module):
         for blk in (*self.encoder, *self.decoder):
             blk.reset_parameters(generator)
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor, *, train: bool = False,
+               remat_policy: str = "none") -> torch.Tensor:
         """frames: (B, encoder_len, d), the stub frontend's output, cast to
-        the model dtype."""
+        the model dtype.  ``train``: attention chunked, each block under
+        ``remat_policy``."""
         b, s, _ = frames.shape
         positions = torch.arange(s, device=frames.device).expand(b, s)
         x = frames.to(self.embed.dtype)
         for blk in self.encoder:
-            x = blk(x, positions=positions)
+            x = remat(blk, remat_policy, x, positions=positions, train=train)
         return self.enc_norm(x)
 
     def enc_kv(self, enc_out: torch.Tensor):
@@ -138,17 +148,36 @@ class WhisperModel(nn.Module):
 
     extend_cache = staticmethod(extend_cache)
 
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """Empty decode caches of ``max_len`` slots, the encoder's K / V
+        over ``encoder_len`` frames, in the weights' dtype."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        enc = (*shape[:2], cfg.encoder_len, *shape[3:])
+        return {"blocks": {name: self.embed.new_zeros(shape)
+                           for name in KV_LEAVES},
+                "enc_k": self.embed.new_zeros(enc),
+                "enc_v": self.embed.new_zeros(enc), "len": 0}
+
     def forward(self, tokens: torch.Tensor, *, frames=None,
-                mode: str = "prefill", cache: dict | None = None):
-        """Returns ``(hidden, cache_out)``.
+                mode: str = "prefill", cache: dict | None = None,
+                remat: str = "full", unroll: bool = False):
+        """Returns ``(hidden, cache_out)``, or ``(hidden, aux)`` in train
+        mode (aux: f32 zeros, the reference's ``zero_aux()``).
 
         prefill: ``tokens (B, T)`` and ``frames (B, encoder_len, d)``,
         returns the cache of the T positions with the encoder's K / V;
-        decode: ``tokens (B, 1)`` and a cache with a free slot.
+        decode: ``tokens (B, 1)`` and a cache with a free slot; train:
+        ``tokens (B, T)`` and frames, every block under ``remat``
+        (``"dots"`` counts as ``"full"``, as in the reference).
+        ``unroll`` changes nothing (a Python loop runs the layers).
         """
+        del unroll
+        if mode == "train":
+            return self._train(tokens, frames, remat)
         if mode not in ("prefill", "decode"):
-            raise ValueError(f"mode must be 'prefill' or 'decode', got "
-                             f"{mode!r}")
+            raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
+                             f"got {mode!r}")
         x = nn.functional.embedding(tokens, self.embed)
         b, t, _ = x.shape
         if mode == "decode":
@@ -174,6 +203,22 @@ class WhisperModel(nn.Module):
                                     "v": torch.stack(vs)},
                          "enc_k": ek, "enc_v": ev, "len": t}
         return self.final_norm(x), cache_out
+
+    def _train(self, tokens, frames, policy: str):
+        if frames is None:
+            raise ValueError("whisper training needs frames")
+        if policy not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {policy!r}")
+        policy = "none" if policy == "none" else "full"
+        ek, ev = self.enc_kv(self.encode(frames, train=True,
+                                         remat_policy=policy))
+        x = nn.functional.embedding(tokens, self.embed)
+        b, t, _ = x.shape
+        positions = torch.arange(t, device=x.device).expand(b, t)
+        for i, blk in enumerate(self.decoder):
+            x, _ = remat(blk, policy, x, ek[i], ev[i], positions=positions,
+                         train=True)
+        return self.final_norm(x), zero_aux(x.device)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return hidden @ self.unembed

@@ -1,1 +1,2 @@
-"""Serving steps of the port (the training step is a later slice)."""
+"""Training and serving steps of the port: the loss, the optimizers, the
+sharding rules and the step builders."""

@@ -1,14 +1,127 @@
-"""Prefill and decode step builders.
+"""Train, prefill and decode step builders.
 
-Counterpart of :func:`repro.train.steps.make_prefill_step` and
-:func:`repro.train.steps.make_decode_step`.  The weights live in the model
-(an ``nn.Module``), so the steps take no parameter argument; both run
-without autograd.  The training step waits for the training slice.
+Counterpart of :mod:`repro.train.steps`.  The weights live in the model
+(an ``nn.Module``), so the steps take no parameter argument:
+``make_train_step`` updates the module's weights in place (through
+:func:`repro_torch.train.optimizer.apply_updates`), and the serving steps
+run without autograd.
+
+The train step is the reference's:
+
+* the batch cut into ``n_microbatches`` equal parts along its leading
+  dim, each part's gradients summed into an accumulator of
+  ``TrainConfig.grad_dtype`` (the reference's ``lax.scan``), then divided
+  by ``n_microbatches`` in that dtype (with one microbatch the gradients
+  stay in the weights' dtype, uncast, as in the reference);
+* per-layer remat (``TrainConfig.remat``) inside the model, the attention
+  through the chunked scan (never the flash kernel, which has no
+  backward);
+* the loss ``xent + moe_aux * load_balance + zloss * router_z``; the
+  metrics the microbatches' means of the cross-entropy and each aux loss,
+  and the global grad norm.
+
+Where the accumulator's dtype is the weights' (bf16 weights, the bf16
+default), autograd's own ``.grad`` accumulation is that bf16 sum; else
+each microbatch's ``.grad`` is added into a buffer of the accumulator's
+dtype.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.train.losses import softmax_xent
+from repro_torch.train.optimizer import apply_updates
+
+
+def acc_dtype(tcfg) -> torch.dtype:
+    """The gradient accumulator's dtype: ``TrainConfig.grad_dtype`` (a
+    torch dtype name), f32 when unset."""
+    return getattr(torch, tcfg.grad_dtype) if tcfg.grad_dtype \
+        else torch.float32
+
+
+def _loss_fn(model, tcfg, tokens, labels, patches=None, unroll=False):
+    """``(total loss, {"loss", "load_balance_loss", "router_z_loss"})``
+    of one microbatch, through the train mode."""
+    kw = {"frames" if model.cfg.family == "encdec" else "patches": patches}
+    hidden, aux = model(tokens, mode="train", remat=tcfg.remat,
+                        unroll=unroll, **kw)
+    w = model.embed.t() if model.cfg.tie_embeddings else model.unembed
+    loss, _ = softmax_xent(hidden, w, labels)
+    total = loss + tcfg.moe_aux * aux["load_balance_loss"] \
+        + tcfg.zloss * aux["router_z_loss"]
+    return total, {"loss": loss, **aux}
+
+
+def accumulate_grads(model, tcfg, batch: dict, *, n_microbatches: int = 1,
+                     unroll: bool = False):
+    """The gradient half of the train step: ``(grads, metrics)``, grads a
+    ``{name: tensor}`` of every parameter (the accumulator's dtype, divided
+    by ``n_microbatches``; the weights' dtype with one microbatch),
+    metrics f32 0-d tensors.  Leaves no ``.grad`` on the weights."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+        p.grad = None
+
+    def grad_of(p, dt):      # a weight the loss never reached: zeros
+        return torch.zeros_like(p, dtype=dt) if p.grad is None \
+            else p.grad.to(dt)
+
+    if n_microbatches == 1:
+        total, metrics = _loss_fn(model, tcfg, batch["tokens"],
+                                  batch["labels"], batch.get("patches"),
+                                  unroll)
+        total.backward()
+        grads = {n: grad_of(p, p.dtype) for n, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    b = batch["tokens"].shape[0]
+    if b % n_microbatches:
+        raise ValueError(f"batch {b} does not split into {n_microbatches} "
+                         f"microbatches")
+    acc_dt = acc_dtype(tcfg)
+    mbs = [dict(zip(batch, parts)) for parts in
+           zip(*(x.chunk(n_microbatches) for x in batch.values()))]
+    bufs, sums = {}, None
+    for mb in mbs:
+        total, aux = _loss_fn(model, tcfg, mb["tokens"], mb["labels"],
+                              mb.get("patches"), unroll)
+        total.backward()
+        sums = {k: v.detach() + (0 if sums is None else sums[k])
+                for k, v in aux.items()}
+        for n, p in params.items():
+            if p.dtype != acc_dt:    # else autograd sums into .grad in acc_dt
+                g = grad_of(p, acc_dt)
+                bufs[n] = g if n not in bufs else bufs[n] + g
+                p.grad = None
+    grads = {n: (bufs[n] if n in bufs else grad_of(p, acc_dt))
+             .div_(n_microbatches) for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    return grads, {k: v / n_microbatches for k, v in sums.items()}
+
+
+def make_train_step(model, tcfg, *, n_microbatches: int = 1,
+                    unroll: bool = False):
+    """``train_step(opt_state, step, batch) -> (opt_state, metrics)``:
+    batch ``{"tokens" (B, T), "labels" (B, T)[, "patches"]}`` (the vlm's
+    patch embeddings or the encdec's frames under ``"patches"``, as the
+    reference's), B a multiple of ``n_microbatches``; the module's weights
+    and ``opt_state`` updated in place; metrics ``loss``,
+    ``load_balance_loss``, ``router_z_loss`` and ``grad_norm``, f32 0-d
+    tensors on the device."""
+
+    def train_step(opt_state: dict, step: int, batch: dict):
+        grads, metrics = accumulate_grads(
+            model, tcfg, batch, n_microbatches=n_microbatches, unroll=unroll)
+        opt_state, gnorm = apply_updates(model, grads, opt_state, step, tcfg)
+        return opt_state, {**metrics, "grad_norm": gnorm}
+
+    return train_step
 
 
 def make_prefill_step(model):

@@ -1134,3 +1134,64 @@ def test_torch_impl_on_the_card_launches_no_kernel(cuda):
     assert ops.launch_counts()["ell_backup"] > 0
     assert np.array_equal(plain.v.view(np.uint64), kern.v.view(np.uint64))
     assert np.array_equal(plain.policy, kern.policy)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "olmoe-1b-7b",
+                                  "zamba2-1.2b", "whisper-base"])
+def test_smoke_train_step_on_the_card_is_the_host_step(cuda, arch):
+    """One Adam step at the smoke config (f32, an f32 accumulator, 2
+    microbatches) on the card and on the host from the same weights and
+    batch: no kernel launched on the card (the train mode takes the
+    chunked scan, never the flash kernel), every attention projection's
+    gradient non-zero, metrics within 1e-4 relative, every gradient
+    within 1e-4 of its largest magnitude and every updated weight within
+    1e-4 of its largest magnitude plus 1e-3 of the step's learning rate
+    (a weight that starts at zero, mamba's ``conv_b``, is its update
+    alone: ``lr * g / (|g| + eps)``, whose tiny gradients eps makes
+    sensitive)."""
+    import dataclasses
+
+    from repro_torch.configs import get_train_config
+    from repro_torch.data.pipeline import SyntheticSource
+    from repro_torch.train.optimizer import apply_updates, init_opt_state
+    from repro_torch.train.steps import accumulate_grads
+
+    cfg = get_smoke_config(arch)
+    tcfg = dataclasses.replace(get_train_config(arch), grad_dtype="float32")
+    card = build_model(cfg, generator=torch.Generator(device="cuda")
+                       .manual_seed(3), device="cuda")
+    host = (WhisperModel if cfg.family == "encdec" else DecoderLM)(
+        cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    batch = SyntheticSource(
+        cfg.vocab_size, 24 + cfg.n_patches, 4, n_patches=cfg.n_patches,
+        d_model=cfg.d_model, device="cuda",
+        encoder_len=cfg.encoder_len if cfg.family == "encdec" else 0
+    ).next_batch(0)
+    out = {}
+    for name, model in (("card", card), ("host", host)):
+        dev = model.embed.device
+        ops.reset_launch_counts()
+        grads, met = accumulate_grads(
+            model, tcfg, {k: v.to(dev) for k, v in batch.items()},
+            n_microbatches=2)
+        _, gnorm = apply_updates(model, grads, init_opt_state(model, tcfg),
+                                 0, tcfg)
+        if name == "card":
+            assert not any(ops.launch_counts().values())
+        out[name] = ({**{k: float(v) for k, v in met.items()},
+                      "grad_norm": float(gnorm)},
+                     {n: g.cpu() for n, g in grads.items()},
+                     {n: p.detach().cpu() for n, p in model.named_parameters()})
+    for k, want in out["host"][0].items():
+        assert abs(out["card"][0][k] - want) <= 1e-4 * abs(want), k
+    lr = tcfg.learning_rate / 100          # step 0 of the warmup
+    for i, extra in ((1, 0.0), (2, 1e-3 * lr)):
+        for n, want in out["host"][i].items():
+            got = out["card"][i][n]
+            assert float((got - want).abs().max()) <= \
+                1e-4 * float(want.abs().max()) + extra, n
+    proj = [n for n in out["card"][1] if n.endswith((".wq", ".wk", ".wv",
+                                                     ".wo"))]
+    assert proj and all(float(out["card"][1][n].abs().sum()) > 0
+                        for n in proj)
