@@ -52,8 +52,9 @@ raises on failure:
    difference logged); (e) ``ipi_anderson`` float64 with ``-monitor``
    must give equal stream and chunk records; then each solve of (a)-(c)
    on the card's tables, once plain and once under torch.profiler (busy
-   time, idle share against the plain run's wall; the Chebyshev and GMRES
-   + block-Jacobi solves over their first 20 and 3 outer steps);
+   time, idle share against the plain run's wall; the Chebyshev, GMRES
+   + block-Jacobi and deterministic GMRES solves over their first 20, 3
+   and 3 outer steps);
 4. GPU vs CPU parity at n=20,000 for vi / mpi / ipi_gmres / ipi_bicgstab
    / ipi_chebyshev / ipi_anderson x mincost / maxreward in float64: same
    policy and counts, values within max(1e-10 |v|_inf, gap bound);
@@ -113,20 +114,20 @@ raises on failure:
    ``async_vi -async_sweeps 8`` to ``1e-8``, certified by phase 3's
    independent CPU backup; the group is torn down; (c) ``torchrun
    --nproc-per-node <cards> -m repro_torch.launch.solve -- --instance
-   garnet --n 1000000 ... --layout 1d`` as a subprocess must exit 0, each
-   rank name its own card, and its value vector pass phase 3's CPU
-   backup; (d) with two or more cards, (a) and (b) over all of them
+   garnet --n 1000000 ... --layout 1d`` as a subprocess (beside 3p (d),
+   below) must exit 0, each rank name its own card, and its value vector
+   pass phase 3's CPU backup; (d) with two or more cards, (a) and (b) over all of them
    (``torchrun`` of this script's ``--ranks`` mode: 1d and 2d give the
    single solve's policy and counts with values within 1e-10 |v|_inf,
    the maze's four ways bitwise); on one card it says that the
    multi-rank cases ran only in the CPU tests;
    (3n) function-backed MDPs, after 3m (b) on its process group: (a)
-   ``MDP.from_generator("garnet", deferred=True, n=10^6, m=16, k=8,
+   ``MDP.from_generator("garnet", deferred=True, n=750,000, m=16, k=8,
    gamma=0.99, seed=0)`` — one rebuild of every row timed (ms per 10^6
    rows) in chunks of half the chunk rule's rows, of the rule's and of
    all rows, with one chunk's measured transient (the rule's under the
    cap); ``ops.ell_backup_chunk`` (the ``ell_backup`` kernel) on one
-   rebuilt chunk of the rule's rows against a value vector of 10^6 and
+   rebuilt chunk of the rule's rows against a value vector of n and
    against four of them with (c)'s gammas over the shared tables, both
    dtypes, bit for bit the plain version on the CPU copies and timed;
    the host's build of the same constructors bit for bit the card's —
@@ -147,10 +148,10 @@ raises on failure:
    ``ipi_gmres`` over 10 outer steps four ways (``-halo 0`` / ``1000`` x
    ``-comm_overlap on`` / ``off``), each bit for bit the
    device-materialized single solve, with its launch counts; (c)
-   ``Session.solve_fleet`` of a matrix-free gamma sweep (B = 4, gamma = 1
-   - geomspace(0.1, 0.01, 4)) in f32 ``mpi``: each lane bit for bit its
-   unbatched matrix-free solve, one ``ell_backup`` launch a chunk for the
-   lanes, fewer than the four solves', walls beside each other;
+   ``Session.solve_fleet`` of a matrix-free gamma sweep (B = 2, gamma
+   0.9 and 0.99) in f32 ``mpi``: each lane bit for bit its unbatched
+   matrix-free solve, one ``ell_backup`` launch a chunk for the lanes,
+   fewer than the two solves', walls beside each other;
    (3p) the fleet layouts, after 3n on 3m's world-1 group: (a) 3h's
    B = 4 seed ensemble (the card's tables, f64 ``ipi_gmres`` to ``1e-8``)
    through ``driver.solve_many(mesh=make_fleet_mesh(1, layout=...))``
@@ -164,15 +165,16 @@ raises on failure:
    block on the card), f32 ``mpi`` to ``1e-4``: the placed tables bit for
    bit the lanes built one by one by 3n's device pipeline, every lane bit
    for bit their mesh-less fleet; (c) ``Session.solve_fleet`` and a
-   ``Server`` over the fleet mesh on ten garnets of 10^5 / 2 x 10^5
+   ``Server`` over the fleet mesh on four garnets of 10^5 / 2 x 10^5
    states (f64 ``ipi_gmres``), every request held to its solo solve
    (policy and counts exact, values within 1e-10 |v|_inf); after the
-   group is torn down, (d) ``torchrun --nproc-per-node <cards> -m
-   repro_torch.launch.solve -- ... --batch 4 --layout fleet --fleet
-   <cards>`` must exit 0 with each lane held to 3h's fleet (bit for bit on
-   one card), and ``python -m repro_torch.launch.elastic --device cuda
-   --batch 4`` must resume its fleet-layout checkpoint (on one card: with
-   no mesh) to ``|dv| < 1e-9``; after 3h (c) the dense fleet under
+   group is torn down, beside 3m (c), (d) ``torchrun --nproc-per-node
+   <cards> -m repro_torch.launch.solve -- ... --batch 4 --layout fleet
+   --fleet <cards>`` must exit 0 with each lane held to 3h's fleet (bit
+   for bit on one card), and beside it ``python -m
+   repro_torch.launch.elastic --device cuda --batch 4`` must resume its
+   fleet-layout checkpoint (on one card: with no mesh) to ``|dv| <
+   1e-9``; after 3h (c) the dense fleet under
    ``fleet`` on a world-1 group of its own, bit for bit with the same
    ``dense_backup`` launches;
    (3s) ``-method auto`` and solve serving, after 3n on the phase-2
@@ -188,9 +190,9 @@ raises on failure:
    ``ipi_chebyshev`` (safeguard off, ``-divtol 10``, ``-atol 1e-3``,
    float64): the swap is logged, the resumed solve converges and passes
    the CPU backup; (c) ``repro_torch.launch.serve`` in this process on a
-   JSONL stream of 24 garnets (``n`` of 500,000 or 1,000,000, ``m=16,
-   k=8``, distinct seeds), a matrix-free gamma sweep of 4 deferred
-   garnets (``n=100,000``, gamma 0.9-0.95, admitted by operator bytes)
+   JSONL stream of 6 garnets (``n`` of 500,000 or 1,000,000, ``m=16,
+   k=8``, distinct seeds), a matrix-free gamma sweep of 2 deferred
+   garnets (``n=50,000``, gamma 0.9-0.95, admitted by operator bytes)
    and 2 dense garnets (``as_dense()`` of ``n=8,192``), Poisson arrivals
    at 20 req/s dealt to 4 client threads, ``-method auto``, ``-serve_batch_window
    0.05``, ``-serve_max_batch 4``: it must exit 0 with every request
@@ -221,8 +223,8 @@ raises on failure:
    with ``impl="torch"`` on the card: no hand kernel launched, 3a's bits;
    (e) the CLI with ``--device cpu --option kernel_impl=cuda`` exits
    non-zero; (f) ``examples/torch/quickstart.py`` and
-   ``epidemic_control.py`` exit 0 on the card with both ELL kernels
-   launched;
+   ``epidemic_control.py``, side by side, exit 0 on the card with both
+   ELL kernels launched;
 9. the LM serving path, minitron-8b (32 layers, d_model 4096, 32 query /
    8 KV heads, d_head 128, vocab 256,000, bf16, random weights from a
    seed):
@@ -291,9 +293,23 @@ raises on failure:
    moment reached); arctic-480b's training is held on the CPU only (one
    layer's weights, f32 masters and gradients pass 80 GB); (d) the CLI's
    resume at the smoke config: 4 steps straight against 2 then 2 resumed,
-   the checkpoints bit for bit;
-   (4r) GPU vs CPU: stablelm-3b and olmoe-1b-7b at full width and 2
-   layers, float32 with an f32 accumulator, batch 2, seq 256, 2
+   the checkpoints bit for bit; (e) the sharded trainer on a world-1
+   process group of its own (NCCL, in this process): stablelm-3b uncut
+   from (b)'s seed, placed on a ``(1, 1)`` ``(data, model)`` mesh by the
+   reference's specs (``infer_param_specs``, ``place``), (b)'s batch and
+   step index: loss, grad norm and three updated weights (a layer's
+   ``wq`` and ``w_down``, the final norm) bit for bit (b)'s first step
+   (every collective over one rank is an identity), no kernel launched;
+   then a step's collectives by kind (a dispatch mode over the
+   ``c10d`` / ``_c10d_functional`` ops), a step timed and profiled, the
+   peak beside ``launch/specs.rank_bytes``; then the CLI under ``torchrun
+   --nproc-per-node 1`` (its ``main`` through this script's
+   ``--train-cli`` mode, which reports the rank's launches; 4r runs here
+   meanwhile) resumes (d)'s 2-step checkpoint: its losses and its step-4 checkpoint bit for bit
+   (d)'s straight run; with at least 2 cards the same step at world 2
+   (``--train-ranks``) against (b)'s within the CPU tests' tolerances;
+   (4r) GPU vs CPU: stablelm-3b and olmoe-1b-7b at full width and 1
+   layer, float32 with an f32 accumulator, batch 2, seq 64, 2
    microbatches, one Adam step from the same weights and batch: loss, aux
    losses and grad norm within 1e-4 relative, every gradient and every
    updated weight within 1e-4 of its largest magnitude;
@@ -302,8 +318,8 @@ raises on failure:
    default method; ``dense_backup``'s is its count in the dense ipi_gmres
    solve (3d); ``ell_qvalues``'s its phase-2q count; ``flash_attention``'s
    its count in the serve_lm CLI run (3f), and its ``launches_by_path``
-   3l's runs too, and 3r's: ``train`` (b), ``train_cli`` (a) and each
-   (c) step, all 0.  ``launches_by_path`` gives
+   3l's runs too, and 3r's: ``train`` (b), ``train_cli`` (a), each
+   (c) step, ``train_sharded`` and ``train_cli_torchrun`` (e), all 0.  ``launches_by_path`` gives
    each path's counts (the ELL kernels' include phase 3g's and 3h's
    paths).  Rows 1-4 carry ``batched``: phase 3h (d)'s rows, keyed by
    ``idx`` kind and dtype; the ELL kernels' also carry phase 3m (a)'s
@@ -315,6 +331,7 @@ raises on failure:
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -324,6 +341,7 @@ import os
 import re
 import shlex
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -348,6 +366,8 @@ SPIN_CYCLES = 1_000_000             # queued ahead of each timed call
 PLAIN_DENSE_REPS = 5                # the dense plain version is slow
 ELL_KERNELS = ("ell_backup", "ell_matvec")
 FLEET_B = 4                         # phase 3h's ELL fleets
+MF_N = 750_000                      # phase 3n's garnet: 3 chunks
+MF_SWEEP_B = 2                      # phase 3n (c)'s matrix-free sweep
 FLEET_SWEEP = (0.9, 0.99)           # (b)'s gamma sweep, the CLI's LO HI
 DFN, DENSE_FLEET_B = 8_192, 2       # (c)'s dense garnets: 2 x 4.3 GB of P
 MAZE_SIZE = 1000                    # phase 3m (b): maze2d, n = 10^6, m = 5
@@ -382,7 +402,8 @@ FAMILY_PARITY_BATCH, FAMILY_PARITY_PROMPT = 1, 64
 # phase 3g profiles these long solves over their first outer steps only
 # (tens of thousands of small ops make torch.profiler's tables slow)
 PROFILE_PREFIX = {"session_ipi_chebyshev": 20,
-                  "session_ipi_gmres_bjacobi": 3}
+                  "session_ipi_gmres_bjacobi": 3,
+                  "driver_ipi_gmres_deterministic": 3}
 
 
 _T0 = time.perf_counter()
@@ -393,13 +414,13 @@ def log(msg: str) -> None:
     print(f"{msg}  [+{time.perf_counter() - _T0:.1f}s]", flush=True)
 
 
-def time_ms(fn, reps: int = REPS) -> float:
+def time_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
     """Median device time of one call, by CUDA events around each call.
     Each call is queued behind a spin of about half a millisecond on the
     card, so that the host's launch time (tens of microseconds through a
     wrapper) falls outside the events where the call's own work is
     shorter than the spin."""
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -423,7 +444,7 @@ def bound_ms(nbytes: int, flops: int, dtype: torch.dtype) -> tuple:
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    ia = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    ia = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
     return a.dtype == b.dtype and a.shape == b.shape and \
         torch.equal(a.view(ia), b.view(ia))
 
@@ -709,6 +730,35 @@ def run_cli(main, argv) -> tuple[int, str]:
     return rc, tee.kept.getvalue()
 
 
+def run_beside(argv, env=None, beside=None, timeout: float = 900):
+    """``argv`` in a process session of its own while ``beside()`` runs
+    here (the host is mostly idle cores and the card mostly idle time, so
+    two such paths take little longer than one): the completed process,
+    its wall and ``beside()``'s result.  Its output goes to files, so it
+    never waits on a full pipe; it and its children are killed if either
+    side fails."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as fo, \
+            tempfile.TemporaryFile("w+") as fe:
+        proc = subprocess.Popen(argv, env=env, stdout=fo, stderr=fe,
+                                text=True, start_new_session=True)
+        try:
+            got = beside() if beside is not None else None
+            proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall = time.perf_counter() - t0
+        fo.seek(0)
+        fe.seek(0)
+        done = subprocess.CompletedProcess(argv, proc.returncode, fo.read(),
+                                           fe.read())
+    return done, wall, got
+
+
 def other_paths(mdp, main: dict) -> dict:
     """Phase 3g: the rest of the single-device surface on the phase-2
     garnet, each path with its own launch counts (both ELL kernels in
@@ -818,8 +868,11 @@ def other_paths(mdp, main: dict) -> dict:
         f"wall={wall:.2f}s; 3a's policy and outer count; max |v - v_3a| "
         f"{dv:.3e} (3a inner {main['cli_inner']}); launches "
         f"{launches['driver_ipi_gmres_deterministic']}")
+    opts_p = IPIOptions(method="ipi_gmres", dtype="float64", atol=1e-8,
+                        deterministic_dots=True, max_outer=PROFILE_PREFIX[
+                            "driver_ipi_gmres_deterministic"])
     profiled["driver_ipi_gmres_deterministic"] = \
-        lambda: driver.solve(mdp, opts_c, device="cuda")
+        lambda: driver.solve(mdp, opts_p, device="cuda")
 
     # (d) phase 3a's solve stopped at -max_outer 3 with -checkpoint_dir,
     # then resumed
@@ -1223,11 +1276,14 @@ def maze_cases(maze, mesh, device: str) -> dict:
 
 
 def sharded_paths(mdp, main: dict, device: str = "cuda",
-                  maze_size: int = MAZE_SIZE, then=None) -> dict:
+                  maze_size: int = MAZE_SIZE, then=None,
+                  beside=None) -> dict:
     """Phase 3m: the sharded solve path (``torch.distributed``) on the
     card, at world size 1 in this process, then ``torchrun`` over every
     card (module docstring).  ``then(meshes)``, if given, runs after (b)
-    on the same process group (phase 3n), its result under ``"then"``."""
+    on the same process group (phase 3n), its result under ``"then"``;
+    ``beside()``, if given, runs while (c)'s process does (phase 3p (d)),
+    its result under ``"beside"``."""
     import torch.distributed as dist
     from repro_torch.core import driver, generators
     from repro_torch.core.ipi import IPIOptions
@@ -1299,7 +1355,7 @@ def sharded_paths(mdp, main: dict, device: str = "cuda",
     finally:
         lm.shutdown()
     # (c) the CLI under torchrun, one rank a card
-    out["torchrun"] = torchrun_cli(mdp, device)
+    out["torchrun"], out["beside"] = torchrun_cli(mdp, device, beside)
     # (d) (a) and (b) over every card, where there are several
     n_dev = torch.cuda.device_count() if device == "cuda" else 1
     if n_dev >= 2:
@@ -1314,7 +1370,8 @@ def sharded_paths(mdp, main: dict, device: str = "cuda",
 def rebuild_rate(spec, n: int, bn: int, device: str) -> dict:
     """Phase 3n (a): one rebuild of every row of ``spec`` in chunks of
     ``bn`` rows (the matrix-free backup's constructor work, without the
-    backup), in milliseconds per 10^6 rows (CUDA events, median of 3), and
+    backup), in milliseconds per 10^6 rows (CUDA events, median of 3
+    after one warm-up), and
     one chunk's measured transient against the cap."""
     from repro_torch.kernels import matrix_free
 
@@ -1327,7 +1384,7 @@ def rebuild_rate(spec, n: int, bn: int, device: str) -> dict:
             matrix_free.build_rows_block(spec, rows, acts, "mincost",
                                          check=False)
 
-    ms = time_ms(rebuild, reps=3)
+    ms = time_ms(rebuild, reps=3, warmup=1)
     gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -1548,6 +1605,7 @@ def matrix_free_paths(meshes, device: str = "cuda", n: int = N,
 
     # (c) a matrix-free gamma sweep: one spec, one rebuild a chunk for the
     # lanes
+    gammas = fleet_gammas(0.9, GAMMA, MF_SWEEP_B)
     sweep = [MDP.from_generator("garnet", deferred=True, n=n, m=M, k=K,
                                 gamma=g, seed=0) for g in gammas]
     opts = {**solves["mpi_f32"], "-mdp_materialize": "matrix_free"}
@@ -1585,9 +1643,9 @@ def matrix_free_paths(meshes, device: str = "cuda", n: int = N,
                                     inner=f.inner_iterations)
                                for f in fleet])
     log(f"[phase3n] (c) matrix-free gamma sweep {gammas} mpi f32: fleet "
-        f"wall {t_fleet:.2f}s against {sum(walls):.2f}s for the four "
-        f"solves, each lane bit for bit its unbatched solve; launches "
-        f"{c_fleet} against {c_solo}")
+        f"wall {t_fleet:.2f}s against {sum(walls):.2f}s for the "
+        f"{len(gammas)} solves, each lane bit for bit its unbatched "
+        f"solve; launches {c_fleet} against {c_solo}")
     return dict(launches=launches, **out)
 
 
@@ -1622,10 +1680,12 @@ def collective_costs(mdp, opts, meshes, device: str,
     return out
 
 
-def torchrun_cli(mdp, device: str) -> dict:
+def torchrun_cli(mdp, device: str, beside=None) -> tuple:
     """Phase 3m (c): ``torchrun --nproc-per-node <cards>`` of the solve CLI
     on the phase-3 garnet, ``--layout 1d``: exit 0, every rank on its own
-    card, the certificate held by phase 3's independent CPU backup."""
+    card, the certificate held by phase 3's independent CPU backup.
+    ``beside()`` runs meanwhile (:func:`run_beside`); its result is
+    returned second."""
     n_dev = torch.cuda.device_count() if device == "cuda" else 2
     v_path, pi_path = OUT / "torchrun_v.npy", OUT / "torchrun_pi.npy"
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -1637,10 +1697,7 @@ def torchrun_cli(mdp, device: str) -> dict:
             "--option", f"file_cost={v_path}",
             "--option", f"file_policy={pi_path}"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(argv, env=env, capture_output=True, text=True,
-                          timeout=900)
-    wall = time.perf_counter() - t0
+    proc, wall, got = run_beside(argv, env, beside)
     log("\n".join(ln for ln in proc.stdout.splitlines()
                    if ln.startswith("[solve]")))
     if proc.returncode != 0:
@@ -1654,11 +1711,11 @@ def torchrun_cli(mdp, device: str) -> dict:
                              f"each on its own device")
     res = certify_on_cpu(mdp, np.load(v_path), np.load(pi_path),
                          "3m (c) torchrun CLI")
-    log(f"[phase3m] (c) torchrun --nproc-per-node {n_dev}: exit 0 in "
-        f"{wall:.1f}s, ranks on {sorted(devices)}, independent CPU "
-        f"residual {res:.3e}")
+    log(f"[phase3m] (c) torchrun --nproc-per-node {n_dev}"
+        f"{' (beside 3p (d))' if beside else ''}: exit 0 in {wall:.1f}s, "
+        f"ranks on {sorted(devices)}, independent CPU residual {res:.3e}")
     return dict(world=n_dev, wall_s=wall, devices=sorted(devices),
-                cpu_residual=res)
+                cpu_residual=res), got
 
 
 def run_ranks(n_dev: int, device: str) -> dict:
@@ -2082,7 +2139,7 @@ def dense_fleet_layout(fleet, opts, base: list, base_launches: dict,
 # phase 3p: the fleet layouts                                                  #
 # --------------------------------------------------------------------------- #
 
-SERVE_FLEET_NS = (100_000, 200_000) * 5   # 3p (c): ten garnets
+SERVE_FLEET_NS = (100_000, 200_000) * 2   # 3p (c): four garnets
 ELASTIC_N = 100_000                       # 3p (d): launch/elastic.py's n
 
 
@@ -2301,9 +2358,10 @@ def fleet_layout_cli(fleet: dict, device: str = "cuda") -> dict:
     """Phase 3p (d): ``torchrun --nproc-per-node <cards>`` of the solve CLI
     on 3h's ensemble (``--batch 4 --layout fleet --fleet <cards>``): exit
     0, each rank on its own card, every lane held to 3h's mesh-less fleet
-    (bit for bit on one card); then ``launch/elastic.py --device cuda
-    --batch 4``: a fleet-layout checkpoint resumed (on one card: with no
-    mesh), ``|dv| < 1e-9``."""
+    (bit for bit on one card); beside it, ``launch/elastic.py --device
+    cuda --batch 4``: a fleet-layout checkpoint resumed (on one card: with
+    no mesh), ``|dv| < 1e-9``.  The two run side by side, so each wall
+    includes the other's share of the host and the card."""
     n_dev = torch.cuda.device_count() if device == "cuda" else 2
     v_path, pi_path = OUT / "fleet_torchrun_v.npz", OUT / "fleet_torchrun_pi.npz"
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -2316,9 +2374,17 @@ def fleet_layout_cli(fleet: dict, device: str = "cuda") -> dict:
             "--option", f"file_policy={pi_path}"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
-    proc = subprocess.run(argv, env=env, capture_output=True, text=True,
-                          timeout=900)
-    wall = time.perf_counter() - t0
+
+    def cli():
+        done = subprocess.run(argv, env=env, capture_output=True, text=True,
+                              timeout=900)
+        return done, time.perf_counter() - t0
+
+    elastic, e_wall, (proc, wall) = run_beside(
+        [sys.executable, "-m", "repro_torch.launch.elastic", "--device",
+         device, "--batch", str(FLEET_B), "--n", str(ELASTIC_N),
+         "--timeout", "400"], env, cli)
+    e_out, e_err = elastic.stdout, elastic.stderr
     log("\n".join(ln for ln in proc.stdout.splitlines()
                    if ln.startswith("[solve]")))
     if proc.returncode != 0:
@@ -2346,25 +2412,19 @@ def fleet_layout_cli(fleet: dict, device: str = "cuda") -> dict:
                 raise AssertionError(f"3p (d) lane {b}: max |dv| {dv} "
                                      f"against 3h's fleet")
     log(f"[phase3p] (d) torchrun --nproc-per-node {n_dev} --batch {FLEET_B} "
-        f"--layout fleet --fleet {n_dev}: exit 0 in {wall:.1f}s, lanes held "
+        f"--layout fleet --fleet {n_dev} (beside elastic.py): exit 0 in "
+        f"{wall:.1f}s, lanes held "
         f"to 3h's fleet{' bit for bit' if n_dev == 1 else ''}; launches "
         f"{launches}")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.elastic",
-                           "--device", device, "--batch", str(FLEET_B),
-                           "--n", str(ELASTIC_N), "--timeout", "400"],
-                          env=env,
-                          capture_output=True, text=True, timeout=900)
-    e_wall = time.perf_counter() - t0
-    lines = [ln for ln in proc.stdout.splitlines()
-             if ln.startswith("[elastic]")]
+    lines = [ln for ln in e_out.splitlines() if ln.startswith("[elastic]")]
     log("\n".join(lines))
-    dv = re.findall(r"\|v - v_ref\|_inf = (\S+)", proc.stdout)
-    if proc.returncode != 0 or not dv or not float(dv[0]) < 1e-9:
-        raise AssertionError(f"3p (d) elastic exited {proc.returncode}: "
-                             f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    dv = re.findall(r"\|v - v_ref\|_inf = (\S+)", e_out)
+    if elastic.returncode != 0 or not dv or not float(dv[0]) < 1e-9:
+        raise AssertionError(f"3p (d) elastic exited {elastic.returncode}: "
+                             f"{e_out[-1500:]} {e_err[-1500:]}")
     log(f"[phase3p] (d) launch/elastic.py --device {device} --batch "
-        f"{FLEET_B}: exit 0 in {e_wall:.1f}s, |dv| {dv[0]}")
+        f"{FLEET_B} (beside the torchrun CLI): exit 0, done within "
+        f"{e_wall:.1f}s, |dv| {dv[0]}")
     return dict(launches={"fleet_layout_cli": launches}, cli_wall_s=wall,
                 world=n_dev, elastic_wall_s=e_wall, elastic_dv=float(dv[0]))
 
@@ -2905,10 +2965,13 @@ TRAIN_FAMILIES = (("mamba2-130m", {}, 4, 2048, None),
 # 3r (d): the CLI's resume at the smoke config
 TRAIN_RESUME = ["--arch", TRAIN_ARCH, "--smoke", "--batch", "8", "--seq",
                 "128", "--log-every", "1"]
-# phase 4r: (arch, depth cut); f32, batch 2, seq 256, 2 microbatches
-TRAIN_PARITY = (("stablelm-3b", dict(n_layers=2)),
-                ("olmoe-1b-7b", dict(n_layers=2)))
-TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 256
+# phase 4r: (arch, depth cut); f32, batch 2, seq 64, 2 microbatches
+TRAIN_PARITY = (("stablelm-3b", dict(n_layers=1)),
+                ("olmoe-1b-7b", dict(n_layers=1)))
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 64
+# 3r (e): the updated weights held bit for bit against (b)'s first step
+TRAIN_SHARDED_WEIGHTS = ("blocks.0.attn.wq", "blocks.0.mlp.w_down",
+                         "final_norm")
 TRAIN_TOL = 1e-4     # GPU vs CPU: metrics relative, tensors of max |x|
 ATTN_PROJ = ("wq", "wk", "wv", "wo")
 
@@ -2993,7 +3056,11 @@ def train_step_main() -> dict:
     resident = torch.cuda.memory_allocated()
     batch = train_source(cfg, TRAIN_BATCH, TRAIN_SEQ).next_batch(0)
     step_fn = make_train_step(model, tcfg, n_microbatches=TRAIN_MICRO)
-    step_fn(opt, 0, batch)                      # warm
+    (opt, met0), first_s = sync_wall(lambda: step_fn(opt, 0, batch))  # warm
+    # (e)'s reference: the first step's metrics and a few updated weights
+    first = dict(metrics={k: v.detach().cpu() for k, v in met0.items()},
+                 weights={n: model.get_parameter(n).detach().cpu().clone()
+                          for n in TRAIN_SHARDED_WEIGHTS}, step_s=first_s)
 
     # the train step's two halves, counted
     torch.cuda.reset_peak_memory_stats()
@@ -3024,7 +3091,7 @@ def train_step_main() -> dict:
                idle_share=prof["idle_share"])
     log(f"[phase3r] (b) {json.dumps(out)}")
     log(f"[phase3r] (b) train step profile: {json.dumps(prof)}")
-    out["profile"] = prof
+    out["profile"], out["first"] = prof, first
     del model, opt, batch, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -3093,36 +3160,274 @@ def train_resume() -> dict:
 
     root = OUT / "train_resume"
     shutil.rmtree(root, ignore_errors=True)
+    texts = {}
     for name, steps in (("a", 4), ("b", 2), ("b", 4)):
-        rc, _ = run_cli(train.main, TRAIN_RESUME + [
+        if (name, steps) == ("b", 4):     # (e) resumes the same file
+            (root / "e").mkdir()
+            shutil.copy(root / "b" / f"step_{2:010d}.npz", root / "e")
+        rc, texts[name] = run_cli(train.main, TRAIN_RESUME + [
             "--steps", str(steps), "--ckpt-dir", str(root / name)])
         if rc != 0:
             raise AssertionError(f"train CLI --smoke --steps {steps}: {rc}")
-    leaves = {}
-    for name in ("a", "b"):
-        with np.load(root / name / f"step_{4:010d}.npz") as z:
-            leaves[name] = [z[k] for k in sorted(z.files)
-                            if k.startswith("leaf_")]
-    same = len(leaves["a"]) == len(leaves["b"]) > 0 and all(
-        x.dtype == y.dtype and np.array_equal(x, y)
-        for x, y in zip(leaves["a"], leaves["b"]))
-    out = dict(leaves=len(leaves["a"]), bit_for_bit=same)
+    same = ckpt_leaves_equal(root / "a", root / "b", 4)
+    out = dict(leaves=same, bit_for_bit=bool(same))
     log(f"[phase3r] (d) resume on the card, 4 straight vs 2 + 2: "
         f"{json.dumps(out)}")
-    shutil.rmtree(root, ignore_errors=True)
     if not same:
         raise AssertionError("the resumed run's weights and state differ")
+    # (e) reads the straight run's log and checkpoint, then removes root
+    return dict(out, root=root, straight=texts["a"])
+
+
+def ckpt_leaves_equal(a: Path, b: Path, step: int) -> int:
+    """The leaf count of two checkpoints at ``step`` if every leaf is equal
+    bit for bit (dtype, shape and bits), else 0."""
+    leaves = {}
+    for d in (a, b):
+        with np.load(d / f"step_{step:010d}.npz") as z:
+            leaves[d] = [z[k] for k in sorted(z.files)
+                         if k.startswith("leaf_")]
+    same = len(leaves[a]) == len(leaves[b]) > 0 and all(
+        x.dtype == y.dtype and np.array_equal(x, y)
+        for x, y in zip(leaves[a], leaves[b]))
+    return len(leaves[a]) if same else 0
+
+
+def count_dispatched_collectives(fn) -> tuple:
+    """``fn()`` with the collectives it issues counted by kind: every
+    ``c10d`` op (``torch.distributed``'s calls, e.g. ``allreduce_``) and
+    ``_c10d_functional`` op (``DTensor``'s redistributions, e.g.
+    ``all_gather_into_tensor``, ``reduce_scatter_tensor``) that reaches
+    the dispatcher, the autograd backward's included; ``wait_tensor`` and
+    the wrappers are no collectives."""
+    import collections
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = collections.Counter()
+    skip = {"wait_tensor", "_wrap_tensor_autograd"}
+
+    class Counting(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.__name__.split(".")[0]
+            if func.namespace in ("c10d", "_c10d_functional") and \
+                    name not in skip:
+                calls[name] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Counting():
+        result = fn()
+    return result, dict(sorted(calls.items()))
+
+
+def sharded_train_model(mesh, device: str = "cuda"):
+    """stablelm-3b uncut from 3r (b)'s seed, placed on ``mesh`` by the
+    reference's specs; its optimizer state, step function and specs."""
+    from repro_torch.configs import get_config, get_train_config
+    from repro_torch.models import build_model
+    from repro_torch.train import sharding as shd
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    cfg, tcfg = get_config(TRAIN_ARCH), get_train_config(TRAIN_ARCH)
+    model = build_model(cfg, generator=torch.Generator(device=device)
+                        .manual_seed(0), device=device)
+    specs = shd.infer_param_specs(model, mesh)
+    shd.place(model, mesh, specs)
+    opt = init_opt_state(model, tcfg)
+    step_fn = make_train_step(model, tcfg, n_microbatches=TRAIN_MICRO,
+                              mesh=mesh)
+    return cfg, tcfg, model, opt, step_fn, specs
+
+
+def train_sharded(first: dict, resume: dict, beside=None) -> dict:
+    """3r (e): the sharded trainer at world 1 against (b)'s first step,
+    its collectives, time, peak and profile, then the CLI under torchrun
+    resuming (d)'s checkpoint (module docstring), ``beside()`` running
+    meanwhile (phase 4r), its result under ``"beside"``."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import specs
+    from repro_torch.train import sharding as shd
+    from repro_torch.train.optimizer import local
+
+    lm.init_distributed("cuda", store=dist.HashStore(), rank=0,
+                        world_size=1)
+    try:
+        mesh = lm.make_host_mesh((1, 1), device="cuda")
+        cfg, tcfg, model, opt, step_fn, pspecs = sharded_train_model(mesh)
+        meta, _, _ = specs.param_specs(TRAIN_ARCH, {"data": 1,
+                                                    "model": 1})
+        state, ospecs = specs.opt_specs(TRAIN_ARCH, {"data": 1, "model": 1},
+                                        meta)
+        reckoned = specs.rank_bytes(meta, state, tcfg, mesh, pspecs, ospecs)
+        del meta, state
+        batch = train_source(cfg, TRAIN_BATCH, TRAIN_SEQ).next_batch(0)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        (opt, met), first_s = sync_wall(lambda: step_fn(opt, 0, batch))
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        require_no_kernel("sharded train step", launches)
+        metrics = finite_metrics("sharded train step", met)
+        same = {k: bits_equal(met[k].detach().cpu(), first["metrics"][k])
+                for k in ("loss", "grad_norm")}
+        rel = {k: abs(metrics[k] - float(first["metrics"][k]))
+               / abs(float(first["metrics"][k])) for k in same}
+        for n, want in first["weights"].items():
+            got = local(model.get_parameter(n)).detach().cpu()
+            same[n] = bits_equal(got, want)
+            rel[n] = _rel_err(got, want)
+        (opt, _), calls = count_dispatched_collectives(
+            lambda: step_fn(opt, 1, batch))
+        (opt, _), prof = device_profile(lambda: step_fn(opt, 2, batch))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        out = dict(arch=TRAIN_ARCH, mesh={"data": 1, "model": 1},
+                   launches=launches, metrics=metrics, bit_for_bit=same,
+                   rel_diff=rel, first_step_s=first_s,
+                   first_step_s_unsharded=first["step_s"],
+                   collectives_a_step=calls,
+                   step_s=prof["wall_ms"] / 1e3,
+                   tokens_per_s=tokens / (prof["wall_ms"] / 1e3),
+                   reckoned_rank_bytes=reckoned, resident_bytes=resident,
+                   peak_bytes=peak,
+                   peak_over_reckoned=peak / reckoned["total"],
+                   idle_share=prof["idle_share"],
+                   placements={n: [repr(p) for p in model.get_parameter(n)
+                                   .placements]
+                               for n in TRAIN_SHARDED_WEIGHTS})
+        log(f"[phase3r] (e) {json.dumps(out)}")
+        log(f"[phase3r] (e) sharded train step profile: {json.dumps(prof)}")
+        out["profile"] = prof
+        del model, opt, batch, step_fn
+    finally:
+        lm.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(same.values()):
+        raise AssertionError(f"3r (e): the world-1 sharded step is not (b)'s "
+                             f"first step bit for bit: {same}, {rel}")
+    out["cli"], out["beside"] = train_cli_torchrun(resume, beside)
+    n_dev = torch.cuda.device_count()
+    if n_dev >= 2:
+        out["ranks"] = run_train_ranks(n_dev, first)
+    else:
+        log("[phase3r] (e) world=1: one card, so the multi-rank sharded "
+            "steps ran only in the CPU tests (tests/test_torch_train_"
+            "sharded.py, 4 gloo ranks)")
     return out
 
 
-def train_paths() -> dict:
-    """Phase 3r (module docstring)."""
+def train_cli_torchrun(resume: dict, beside=None) -> tuple:
+    """3r (e): ``torchrun --nproc-per-node 1`` of the train CLI (its
+    ``main``, through ``--train-cli``) resuming (d)'s 2-step checkpoint on
+    the card: exit 0, steps 2-3's losses as (d)'s straight run's lines,
+    the step-4 checkpoint bit for bit, no kernel launched.  ``beside()``
+    runs meanwhile (:func:`run_beside`); its result is returned second."""
+    root = resume["root"]
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1", str(ROOT / "chip_smoke.py"),
+            "--train-cli", "--", *TRAIN_RESUME, "--steps", "4",
+            "--ckpt-dir", str(root / "e")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc, wall, beside_out = run_beside(argv, env, beside, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"3r (e) torchrun train CLI exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    lines = lambda text: re.findall(r"\[train\] step=(\d+) loss=(\S+)", text)
+    got, want = lines(proc.stdout), lines(resume["straight"])[2:]
+    launches = json.loads(re.search(r"\[train-cli\] rank 0 launches (.*)",
+                                    proc.stdout).group(1))
+    same = ckpt_leaves_equal(root / "a", root / "e", 4)
+    out = dict(wall_s=wall, resumed="[train] resumed from step 2" in
+               proc.stdout, losses=got, straight=want, leaves=same,
+               launches=launches)
+    log(f"[phase3r] (e) torchrun --nproc-per-node 1 train CLI resume"
+        f"{' (beside 4r)' if beside else ''}: {json.dumps(out)}")
+    shutil.rmtree(root, ignore_errors=True)
+    require_no_kernel("torchrun train CLI", launches)
+    if not (out["resumed"] and got == want and len(got) == 2 and same):
+        raise AssertionError(f"3r (e): the torchrun CLI's resume is not the "
+                             f"straight run's: {out}")
+    return out, beside_out
+
+
+def train_cli_main(argv: list) -> int:
+    """``--train-cli ARGS``: ``repro_torch.launch.train.main(ARGS)`` in this
+    rank (under ``torchrun``), then its kernel launches on one line."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    tuner_off()
+    rc = train.main(argv)
+    print(f"[train-cli] rank {os.environ.get('RANK', '0')} launches "
+          f"{json.dumps(ops.launch_counts())}", flush=True)
+    return rc
+
+
+def run_train_ranks(n_dev: int, first: dict) -> dict:
+    """3r (e) with >= 2 cards: ``torchrun`` of ``--train-ranks`` over every
+    card (:func:`train_ranks_main`); its metrics against (b)'s first step
+    (loss 1e-5, grad norm 2e-4 relative, tests/test_torch_train_sharded.py's
+    tolerances)."""
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(n_dev), str(ROOT / "chip_smoke.py"),
+            "--train-ranks"]
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"3r (e) ranks exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("[phase3r] (e) world=")][-1]
+    log(line)
+    got = json.loads(line.split(" ", 3)[3])
+    want = {k: float(v) for k, v in first["metrics"].items()}
+    if abs(got["loss"] - want["loss"]) > 1e-5 * abs(want["loss"]) or \
+            abs(got["grad_norm"] - want["grad_norm"]) > \
+            2e-4 * want["grad_norm"]:
+        raise AssertionError(f"3r (e) world={n_dev}: {got} against {want}")
+    return got
+
+
+def train_ranks_main() -> int:
+    """``--train-ranks``: one rank of 3r (e)'s multi-card step, under
+    ``torchrun``: stablelm-3b placed on ``(world, 1)``, (b)'s batch and
+    step 0; rank 0 prints the metrics on one line."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as lm
+
+    tuner_off()
+    lm.init_distributed("cuda")
+    try:
+        mesh = lm.make_host_mesh(device="cuda")
+        cfg, _, _, opt, step_fn, _ = sharded_train_model(mesh)
+        batch = train_source(cfg, TRAIN_BATCH, TRAIN_SEQ).next_batch(0)
+        (_, met), wall = sync_wall(lambda: step_fn(opt, 0, batch))
+        out = {**{k: float(v) for k, v in met.items()}, "step_s": wall}
+        if dist.get_rank() == 0:
+            print(f"[phase3r] (e) world={dist.get_world_size()} "
+                  f"{json.dumps(out)}", flush=True)
+    finally:
+        lm.shutdown()
+    return 0
+
+
+def train_paths(beside=None) -> dict:
+    """Phase 3r (module docstring); ``beside()`` runs beside 3r (e)'s
+    torchrun CLI, its result under ``out["sharded"]["beside"]``."""
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[phase3r] {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
         f"allocated by the earlier phases")
-    return dict(cli=train_cli(), step=train_step_main(),
-                families=train_families(), resume=train_resume())
+    out = dict(cli=train_cli(), step=train_step_main(),
+               families=train_families(), resume=train_resume())
+    out["sharded"] = train_sharded(out["step"].pop("first"),
+                                   out["resume"], beside)
+    return out
 
 
 def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3198,9 +3503,9 @@ def train_parity() -> list:
 # phase 3s: -method auto, the hot-swap and solve serving
 AUTO_GARNET_CHOICE = "mpi"          # tests/test_torch_adaptive.py CHOICE
 SWAP_N = 1_000_000                  # (b)'s chain_walk
-SERVE_REQUESTS = 24                 # (c)'s materialized garnets ...
+SERVE_REQUESTS = 6                  # (c)'s materialized garnets ...
 SERVE_NS = (500_000, 1_000_000)     # ... with these state counts
-SERVE_MF_N, SERVE_MF_B = 100_000, 4     # (c)'s matrix-free gamma sweep
+SERVE_MF_N, SERVE_MF_B = 50_000, 2      # (c)'s matrix-free gamma sweep
 SERVE_MF_GAMMAS = (0.9, 0.95)           # ... over this range
 SERVE_DENSE_N, SERVE_DENSE_B = 8_192, 2  # (c)'s dense requests
 SERVE_RATE, SERVE_CLIENTS = 20.0, 4
@@ -3209,9 +3514,9 @@ FLEET_ATOL = 1e-9        # tests/test_torch_fleet.py: values, of |v|_inf
 
 
 def serve_workload(path: Path) -> list[dict]:
-    """(c)'s request stream, written as the serve CLI's JSONL: 24 garnets
+    """(c)'s request stream, written as the serve CLI's JSONL: 6 garnets
     of 500,000 or 1,000,000 states (distinct seeds), a matrix-free gamma
-    sweep of 4 deferred garnets of 100,000 (gamma 0.9-0.95: the eager
+    sweep of 2 deferred garnets of 50,000 (gamma 0.9-0.95: the eager
     row constructors rebuild every chunk in every backup, ROADMAP queue 3
     item 9) and 2 dense garnets, in a seeded order."""
     rng = np.random.default_rng(11)
@@ -3896,10 +4201,14 @@ def kernel_option_paths(mdp, main: dict) -> dict:
     log(f"[phase3t] (d) -kernel_impl torch on the card: no kernel launched "
         f"{plain}, 3a's bits, policy and counts; wall {wall_d:.2f}s")
 
-    # (f) two examples on the card, their MDP kernels launched
+    # (f) two examples on the card side by side, their MDP kernels
+    # launched
     out["f"] = {}
-    for name, args in (("quickstart", ()), ("epidemic_control", ())):
-        rc, text, wall_f = run_example(name, *args, env=env_tuned)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        examples = {name: pool.submit(run_example, name, env=env_tuned)
+                    for name in ("quickstart", "epidemic_control")}
+    for name, ran in examples.items():
+        rc, text, wall_f = ran.result()
         launched = {k: int(c) for k, c in re.findall(
             r"(\w+)=(\d+)", _line(text, "kernel launches:"))} if rc == 0 \
             else {}
@@ -3908,8 +4217,8 @@ def kernel_option_paths(mdp, main: dict) -> dict:
             raise AssertionError(f"3t (f) examples/torch/{name}.py exited "
                                  f"{rc}, launches {launched}")
         out["f"][name] = dict(wall_s=wall_f, launches=launched)
-        log(f"[phase3t] (f) examples/torch/{name}.py on the card: exit 0 in "
-            f"{wall_f:.1f}s, launches {launched}")
+        log(f"[phase3t] (f) examples/torch/{name}.py on the card (the two "
+            f"side by side): exit 0 in {wall_f:.1f}s, launches {launched}")
 
     # (e) collected last
     try:
@@ -3979,17 +4288,20 @@ def main() -> int:
     stamp("3m/3n")
 
     def after_3m(meshes):
-        mf = matrix_free_paths(meshes)
+        mf = matrix_free_paths(meshes, n=MF_N)
         stamp("3p (a)-(c)")
         fl = fleet_layout_paths(fleet)
         return dict(launches={**mf["launches"], **fl["launches"]}, mf=mf,
                     fleet_layouts=fl)
 
-    sharded = sharded_paths(mdp, path, then=after_3m)
+    def beside_3mc():
+        stamp("3p (d), beside 3m (c)")
+        return fleet_layout_cli(fleet)
+
+    sharded = sharded_paths(mdp, path, then=after_3m, beside=beside_3mc)
     path["launches"].update(sharded["launches"])
     path["launches"].update(sharded["then"]["launches"])
-    stamp("3p (d)")
-    fleet_cli = fleet_layout_cli(fleet)
+    fleet_cli = sharded["beside"]
     path["launches"].update(fleet_cli["launches"])
     del fleet["_seeds"], fleet["_results"]
     torch.cuda.empty_cache()
@@ -4035,9 +4347,12 @@ def main() -> int:
     stamp("4l")
     lm_family_parity()
     stamp("3r")
-    train = train_paths()
-    stamp("4r")
-    train_parity()
+
+    def beside_3re():
+        stamp("4r, beside 3r (e)'s torchrun CLI")
+        return train_parity()
+
+    train = train_paths(beside=beside_3re)
 
     sources = {"ell_backup": ("src/repro_torch/kernels/csrc/ell_backup.cu",
                               "src/repro/kernels/bellman_ell.py:109"),
@@ -4108,6 +4423,10 @@ def main() -> int:
                             *row["launches"].items()) if c},
             "train": train["step"]["launches"]["flash_attention"],
             "train_cli": train["cli"]["launches"]["flash_attention"],
+            "train_sharded":
+                train["sharded"]["launches"]["flash_attention"],
+            "train_cli_torchrun":
+                train["sharded"]["cli"]["launches"]["flash_attention"],
             **{f"3r_{r['arch']}_{r['layers']}_{r['optimizer']}":
                r["launches"]["flash_attention"]
                for r in train["families"]}},
@@ -4136,4 +4455,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--ranks"]:
         # --ranks DEVICE [N MAZE_SIZE]: one rank of phase 3m (d)
         sys.exit(ranks_main(sys.argv[2], *map(int, sys.argv[3:5])))
+    if sys.argv[1:2] == ["--train-cli"]:
+        # --train-cli [--] ARGS: the train CLI in one rank of phase 3r (e)
+        sys.exit(train_cli_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--train-ranks"]:
+        sys.exit(train_ranks_main())    # one rank of phase 3r (e), >= 2 cards
     sys.exit(main())

@@ -7,7 +7,8 @@ model, its optimizer state, the batch and the decode cache on PyTorch's
 ``meta`` device: every shape and dtype, no memory, no data.  Specs are
 the rules of :mod:`repro_torch.train.sharding` (tuples of axis names).
 The same builders size the full configs without allocating them:
-:func:`state_bytes` is what a trainer holds before its activations.
+:func:`state_bytes` is what a trainer holds before its activations, and
+:func:`rank_bytes` what one rank of a mesh holds of it under given specs.
 """
 
 from __future__ import annotations
@@ -154,3 +155,31 @@ def state_bytes(model, opt_state: dict, tcfg) -> dict:
                grads=grads)
     out["total"] = sum(out.values())
     return out
+
+
+def rank_bytes(model, opt_state: dict, tcfg, mesh, param_specs: dict,
+               opt_specs: dict) -> dict:
+    """:func:`state_bytes` of one rank of ``mesh`` (a mapping of axis
+    sizes or a ``DeviceMesh``) when the weights lie on ``param_specs`` and
+    the optimizer state on ``opt_specs`` (keyed as ``opt_state``): each
+    tensor's local block, a dim named by axes divided by their sizes (the
+    rules split only dims they divide); one gradient a weight on its
+    weight's block, in the accumulator's dtype."""
+    sizes = shd.mesh_shape(mesh)
+
+    def local(t, spec) -> int:
+        n = t.numel()
+        for entry in spec:
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                n //= sizes.get(a, 1)
+        return n
+
+    named = dict(model.named_parameters())
+    params = sum(local(p, param_specs[n]) * p.element_size()
+                 for n, p in named.items())
+    opt = sum(local(t, opt_specs[k][n]) * t.element_size()
+              for k, d in opt_state.items() for n, t in d.items())
+    grads = sum(local(p, param_specs[n]) for n, p in named.items()) \
+        * acc_dtype(tcfg).itemsize
+    return dict(params=params, opt_state=opt, grads=grads,
+                total=params + opt + grads)

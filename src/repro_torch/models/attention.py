@@ -20,6 +20,13 @@ sequence (``cache=None``):
 Decode is plain torch, as the reference's is plain ``jnp``: one new token
 against the cache, softmax in f32 (:func:`_gqa_scores` /
 :func:`_gqa_out`, which whisper's full cross-attention also uses).
+
+Head counts are read off the projections, so a placed model's train mode
+runs the same code on its local heads: with ``tp`` (the ``model`` axis;
+:mod:`repro_torch.models.parallel`) ``wq`` / ``wo`` are this rank's heads,
+``wk`` / ``wv`` its KV heads or, where the KV heads do not split over the
+axis, all of them (:func:`kv_for_heads` then picks the ones its query
+heads read), and ``wo``'s product is summed over the axis.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from torch import nn
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import init_, rope, weight
+from repro_torch.models.parallel import copy_to, reduce_from
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -79,6 +87,14 @@ def _gqa_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return o.reshape(b, t, kvh * g, v.shape[-1])
 
 
+def kv_for_heads(k: torch.Tensor, cfg, first: int, n: int) -> torch.Tensor:
+    """The KV heads (dim 2 of ``k`` (B, S, KV, hd), every KV head) that
+    query heads ``[first, first + n)`` read, one a query head."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    idx = torch.arange(first, first + n, device=k.device) // g
+    return k.index_select(2, idx)
+
+
 class Attention(nn.Module):
     """The projections ``wq (d, H*hd)``, ``wk``/``wv (d, KV*hd)``, ``wo
     (H*hd, d)`` in the reference's ``x @ W`` layout."""
@@ -87,6 +103,7 @@ class Attention(nn.Module):
         super().__init__()
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         self.cfg = cfg
+        self.tp = None
         self.wq = weight((d, h * hd), dtype, device)
         self.wk = weight((d, kv * hd), dtype, device)
         self.wv = weight((d, kv * hd), dtype, device)
@@ -102,6 +119,17 @@ class Attention(nn.Module):
         return apply_attention(self, x, self.cfg, positions=positions,
                                cache=cache, kv_x=kv_x, causal=causal,
                                train=train)
+
+
+def _local_kv(k, v, cfg, tp, h: int):
+    """Under ``tp``, the KV heads the rank's ``h`` query heads read when
+    ``wk`` / ``wv`` were gathered whole (their KV heads do not split over
+    the axis, so the rank's query heads need not cover whole KV groups);
+    else ``k``, ``v`` as they are."""
+    if tp is None or k.shape[2] * tp.size == cfg.n_kv_heads:
+        return k, v
+    first = tp.rank * h
+    return kv_for_heads(k, cfg, first, h), kv_for_heads(v, cfg, first, h)
 
 
 def apply_attention(p: Attention, x: torch.Tensor, cfg, *,
@@ -121,25 +149,31 @@ def apply_attention(p: Attention, x: torch.Tensor, cfg, *,
       **in place** (the reference returns updated copies) and returns
       ``(y, (k_cache, v_cache, length + 1))``.
     """
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    h, kv = p.wq.shape[-1] // hd, p.wk.shape[-1] // hd
+    tp = p.tp
     b, t, _ = x.shape
+    x = copy_to(x, tp)
     q = (x @ p.wq).view(b, t, h, hd)
     if kv_x is not None:
         if cache is not None:
             raise ValueError("cross-attention (kv_x) has no decode cache")
+        kv_x = copy_to(kv_x, tp)
         k = (kv_x @ p.wk).view(b, kv_x.shape[1], kv, hd)
         v = (kv_x @ p.wv).view(b, kv_x.shape[1], kv, hd)
+        k, v = _local_kv(k, v, cfg, tp, h)
         y = _train_attention(q, k, v, cfg, causal=False) if train else \
             ops.flash_attention(q, k, v, causal=False)
-        return y.reshape(b, t, h * hd) @ p.wo, (k, v)
+        return reduce_from(y.reshape(b, t, h * hd) @ p.wo, tp), (k, v)
     q = rope(q, positions, cfg.rope_theta)
     k = rope((x @ p.wk).view(b, t, kv, hd), positions, cfg.rope_theta)
     v = (x @ p.wv).view(b, t, kv, hd)
 
     if cache is None:
+        k, v = _local_kv(k, v, cfg, tp, h)
         y = _train_attention(q, k, v, cfg, causal=causal) if train else \
             ops.flash_attention(q, k, v, causal=causal)
-        return y.reshape(b, t, h * hd) @ p.wo, (k, v)
+        return reduce_from(y.reshape(b, t, h * hd) @ p.wo, tp), (k, v)
 
     # ---- decode: one new token against the cache ------------------------ #
     k_cache, v_cache, length = cache

@@ -14,6 +14,8 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.models.parallel import copy_to, reduce_from
+
 REMAT = ("full", "dots", "none")
 # the plain 2-D products (``x @ W`` lowers to ``mm``): what the
 # reference's ``dots_with_no_batch_dims_saveable`` keeps; batched ones
@@ -105,7 +107,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 class MLP(nn.Module):
     """Dense FFN: ``swiglu`` (gate, up, down), ``relu2`` (squared ReLU) or
-    ``gelu`` (up, down)."""
+    ``gelu`` (up, down).  With ``tp`` (a placed model's ``model`` axis) the
+    weights are this rank's slices of ``d_ff`` and the output is summed
+    over the axis."""
 
     def __init__(self, d_model: int, d_ff: int, mlp_type: str,
                  dtype: torch.dtype, device):
@@ -113,6 +117,7 @@ class MLP(nn.Module):
         if mlp_type not in ("swiglu", "relu2", "gelu"):
             raise ValueError(f"unknown mlp_type {mlp_type!r}")
         self.mlp_type = mlp_type
+        self.tp = None
         if mlp_type == "swiglu":
             self.w_gate = weight((d_model, d_ff), dtype, device)
         self.w_up = weight((d_model, d_ff), dtype, device)
@@ -125,6 +130,7 @@ class MLP(nn.Module):
         init_(self.w_down, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to(x, self.tp)
         up = x @ self.w_up
         if self.mlp_type == "swiglu":
             h = torch.nn.functional.silu(x @ self.w_gate) * up
@@ -133,7 +139,7 @@ class MLP(nn.Module):
         else:
             # jax.nn.gelu defaults to the tanh approximation
             h = torch.nn.functional.gelu(up, approximate="tanh")
-        return h @ self.w_down
+        return reduce_from(h @ self.w_down, self.tp)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

@@ -24,6 +24,12 @@ token's state into the given cache in place and returns it with ``len +
 1``.  The train mode returns the final hidden state and the MoE aux
 losses summed over the layers, as the reference's scan sums them, each
 block under the reference's per-layer remat (:func:`layers.remat`).
+
+A model placed over a mesh (:func:`repro_torch.train.sharding.place`)
+trains only: each block gathers its weights inside its remat (so its
+recompute gathers them again) and frees them after, the embedding looks
+up its vocab slice, and the blocks' modules run their local shards
+(:mod:`repro_torch.models.parallel`).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, init_, remat, rms_norm, weight
 from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.moe import MoE
+from repro_torch.models.parallel import block_fn, embed_lookup, gathered
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 KINDS = {"dense": "attn", "vlm": "attn", "moe": "moe", "ssm": "mamba",
@@ -156,6 +163,7 @@ class DecoderLM(nn.Module):
                              f"got {cfg.family!r}")
         self.cfg = cfg
         self.kind = KINDS[cfg.family]
+        self.placed = None
         dtype = DTYPES[cfg.dtype]
         self.embed = weight((cfg.vocab_size, cfg.d_model), dtype, device)
         if self.kind == "mamba":
@@ -223,7 +231,8 @@ class DecoderLM(nn.Module):
 
     # -------------------------------------------------------------- forward
     def _embed(self, tokens, patches):
-        x = nn.functional.embedding(tokens, self.embed)
+        x = embed_lookup(tokens, self.embed, self.placed and
+                         self.placed.embed_tp)
         if self.patch_proj is not None and patches is not None:
             pe = patches.to(x.dtype) @ self.patch_proj
             x = torch.cat([pe, x], dim=1)
@@ -262,6 +271,9 @@ class DecoderLM(nn.Module):
         del unroll
         if mode == "train":
             return self._train(tokens, patches, remat)
+        if self.placed is not None:
+            raise ValueError(f"a placed model trains; {mode} runs on an "
+                             f"unplaced one")
         if mode not in ("prefill", "decode"):
             raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
                              f"got {mode!r}")
@@ -295,17 +307,23 @@ class DecoderLM(nn.Module):
         return rms_norm(self.final_norm, x, self.cfg.norm_eps), cache_out
 
     def _train(self, tokens, patches, policy: str):
-        x = self._embed(tokens, patches)
+        pl = self.placed
+        top = ["embed"] + (["patch_proj"] if self.patch_proj is not None
+                           else [])
+        with gathered(pl, self, "", top):
+            x = self._embed(tokens, patches)
         b, t, _ = x.shape
         positions = torch.arange(t, device=x.device).expand(b, t)
         shared = "none" if policy == "none" else "full"
         aux = zero_aux(x.device)
-        for blk, group, _ in self._layers():
-            x, a = remat(blk.train_forward,
+        for blk, group, i in self._layers():
+            prefix = "shared." if group == "shared" else f"blocks.{i}."
+            x, a = remat(block_fn(pl, blk, prefix, "train_forward"),
                          shared if group == "shared" else policy, x,
                          positions=positions)
             aux = add_aux(aux, a)
-        return rms_norm(self.final_norm, x, self.cfg.norm_eps), aux
+        with gathered(pl, self, "", ["final_norm"]):
+            return rms_norm(self.final_norm, x, self.cfg.norm_eps), aux
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         w = self.embed.t() if self.cfg.tie_embeddings else self.unembed

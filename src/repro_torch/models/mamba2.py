@@ -13,6 +13,14 @@ Shapes: ``d_inner = expand * d_model``; ``H = d_inner / head_p`` heads of
 size ``N``.  The decode caches are the conv window ``(B, K-1, C)``, the
 last ``K - 1`` *pre-conv* rows of ``[x, B, C]`` in the model dtype, and
 the SSD state ``(B, H, P, N)`` in f32.
+
+On a placed model with ``tp`` (the ``model`` axis;
+:mod:`repro_torch.models.parallel`) a rank runs ``H / model`` heads: its
+columns of ``z``, ``x`` and ``dt`` and all of ``B`` and ``C`` out of the
+gathered ``in_proj`` (whose split over the axis does not fall on heads),
+its channels of the conv and the per-head vectors, the gated norm over
+the whole ``d_inner`` (its sum of squares all-reduced), and its rows of
+``out_proj``, whose product is summed over the axis.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import init_, rms_norm, weight
+from repro_torch.models.parallel import (copy_to, reduce_from,
+                                         rms_norm_split)
 
 
 class Mamba2(nn.Module):
@@ -37,6 +47,7 @@ class Mamba2(nn.Module):
         d_inner = cfg.expand * d
         conv_dim = d_inner + 2 * n
         self.cfg = cfg
+        self.tp = None
         self.in_proj = weight((d, 2 * d_inner + 2 * n + h), dtype, device)
         self.conv_w = weight((cfg.d_conv, conv_dim), dtype, device)
         self.conv_b = weight((conv_dim,), dtype, device)
@@ -157,12 +168,54 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y, s_cur
 
 
+def _head_columns(cfg, rank: int, size: int, device):
+    """Under a ``model`` axis of ``size``: the ``in_proj`` columns of rank
+    ``rank``'s heads (``z``, ``x``, then all of ``B`` and ``C``, then
+    ``dt``), and the conv channels among them (``x``, ``B``, ``C``)."""
+    d_inner, n, h = cfg.expand * cfg.d_model, cfg.ssm_state, cfg.ssm_heads
+    di, hl = d_inner // size, h // size
+    ar = lambda lo, k: torch.arange(lo, lo + k, device=device)
+    conv = torch.cat([ar(rank * di, di), ar(d_inner, 2 * n)])
+    cols = torch.cat([ar(rank * di, di), d_inner + conv,
+                      ar(2 * d_inner + 2 * n + rank * hl, hl)])
+    return cols, conv
+
+
+def _tp_mamba2(p: Mamba2, x: torch.Tensor, cfg, tp):
+    """The train route on ``tp``'s local heads (module docstring)."""
+    bsz, t, d = x.shape
+    d_inner, n = cfg.expand * d, cfg.ssm_state
+    di, hl = d_inner // tp.size, cfg.ssm_heads // tp.size
+    hp = d_inner // cfg.ssm_heads
+    cols, conv = _head_columns(cfg, tp.rank, tp.size, x.device)
+    heads = slice(tp.rank * hl, (tp.rank + 1) * hl)
+    x = copy_to(x, tp)
+    z, xbc, dt = (x @ p.in_proj.index_select(1, cols)).split(
+        [di, di + 2 * n, hl], dim=-1)
+    dt = softplus(dt.float() + p.dt_bias[heads])
+    xbc = _causal_conv(xbc, p.conv_w.index_select(1, conv),
+                       p.conv_b.index_select(0, conv))
+    xs, b_mat, c_mat = xbc.split([di, n, n], dim=-1)
+    y, _ = ssd_scan(xs.reshape(bsz, t, hl, hp), dt, p.a_log[heads], b_mat,
+                    c_mat, cfg.ssm_chunk)
+    y = y + p.d_skip[heads][:, None] * xs.reshape(bsz, t, hl, hp).float()
+    y = y.reshape(bsz, t, di).to(x.dtype) * nn.functional.silu(z)
+    y = rms_norm_split(p.norm_w[tp.rank * di:(tp.rank + 1) * di], y,
+                       d_inner, tp, cfg.norm_eps)
+    return reduce_from(y @ p.out_proj, tp)
+
+
 def apply_mamba2(p: Mamba2, x: torch.Tensor, cfg, *, cache=None):
     """``cache=None``: the whole sequence through the chunked scan
     (prefill), returning ``(y, (conv_state, ssm_state))``.  ``cache =
     (conv_state (B, K-1, C), ssm_state (B, H, P, N))`` with ``T = 1``:
     one step of the recurrence, which writes both states **in place**
     (the reference returns updated copies) and returns them."""
+    if p.tp is not None:
+        if cache is not None:
+            raise ValueError("a placed mamba2 block trains; it has no "
+                             "decode cache")
+        return _tp_mamba2(p, x, cfg, p.tp), None
     bsz, t, d = x.shape
     d_inner = cfg.expand * d
     n, h = cfg.ssm_state, cfg.ssm_heads

@@ -18,6 +18,14 @@ running per-expert counts), so it matches the reference exactly:
 
 Aux outputs: the Switch load-balance loss and the router z-loss, returned
 beside ``y`` (serving drops them; training weights them in).
+
+On a placed model (:mod:`repro_torch.models.parallel`) the router runs
+on every rank of the ``model`` axis alike; with ``tp`` each rank holds
+``E / model`` experts (EP) and computes their share of the output, summed
+over the axis.  With ``dp`` (the batch axes) the group size comes from the
+global token count, a rank's tokens must split into whole groups, and the
+aux losses are those of every rank's tokens: ``me`` and ``ce`` summed
+over the batch axes before their product, the z-loss's mean global.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import init_, weight
+from repro_torch.models.parallel import copy_to, reduce_from
 
 
 class MoE(nn.Module):
@@ -36,6 +45,7 @@ class MoE(nn.Module):
         super().__init__()
         d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
         self.cfg = cfg
+        self.tp = self.dp = None
         self.router = weight((d, e), torch.float32, device)
         self.w_up = weight((e, d, f), dtype, device)
         self.w_down = weight((e, f, d), dtype, device)
@@ -77,10 +87,18 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg):
     "router_z_loss"}`` (f32 scalars)."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    s = min(cfg.moe_group_size, b * t)
+    tp, dp = p.tp, p.dp
+    ranks = 1 if dp is None else dp.size
+    s = min(cfg.moe_group_size, b * t * ranks)
     tokens = x.reshape(-1, d)
     n_tok = tokens.shape[0]
     pad = (-n_tok) % s
+    if pad and ranks > 1:
+        raise ValueError(
+            f"MoE over {ranks} batch ranks: a rank's {b} x {t} = {n_tok} "
+            f"tokens do not split into groups of {s} (moe_group_size "
+            f"{cfg.moe_group_size}, {b * t * ranks} tokens in all); a group "
+            f"across ranks would route with another capacity")
     if pad:   # zero rows to a full group; they route too, and go below
         tokens = torch.cat([tokens, tokens.new_zeros((pad, d))])
     g = tokens.shape[0] // s
@@ -95,8 +113,12 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg):
     # aux losses on slot-0 statistics, Switch-style
     me = probs.mean(dim=(0, 1))                                  # (E,)
     ce = nn.functional.one_hot(experts[..., 0], e).float().mean(dim=(0, 1))
-    aux = {"load_balance_loss": e * torch.sum(me * ce),
-           "router_z_loss": torch.mean(torch.logsumexp(logits, -1) ** 2)}
+    z = torch.mean(torch.logsumexp(logits, -1) ** 2)
+    if dp is not None:    # the means over every rank's (equal) token count
+        me = reduce_from(me, dp) / ranks
+        ce = reduce_from(ce, dp) / ranks
+        z = reduce_from(z, dp) / ranks
+    aux = {"load_balance_loss": e * torch.sum(me * ce), "router_z_loss": z}
 
     slots = torch.arange(c, device=x.device, dtype=torch.float32)
     dispatch = torch.zeros((g, s, e, c), dtype=torch.float32,
@@ -113,6 +135,12 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg):
         counts += m.sum(dim=1)
 
     dt = x.dtype
+    if tp is not None:    # this rank's experts; the others' add elsewhere
+        lo = tp.rank * p.w_up.shape[0]
+        sl = slice(lo, lo + p.w_up.shape[0])
+        dispatch = dispatch[:, :, sl]
+        combine = copy_to(combine, tp)[:, :, sl]
+        xg = copy_to(xg, tp)
     xe = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), xg)
     up = torch.einsum("egcd,edf->egcf", xe, p.w_up)
     if cfg.mlp_type == "swiglu":
@@ -122,5 +150,5 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg):
         # jax.nn.gelu defaults to the tanh approximation
         h = nn.functional.gelu(up, approximate="tanh")
     ye = torch.einsum("egcf,efd->egcd", h, p.w_down)
-    y = torch.einsum("gsec,egcd->gsd", combine.to(dt), ye)
+    y = reduce_from(torch.einsum("gsec,egcd->gsd", combine.to(dt), ye), tp)
     return y.reshape(-1, d)[:n_tok].view(b, t, d), aux

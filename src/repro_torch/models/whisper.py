@@ -16,7 +16,10 @@ in place; ``enc_k`` / ``enc_v`` never change and never grow.
 The train mode runs the encoder and decoder self-attention through the
 chunked scan under autograd, and every encoder and decoder block under
 ``"full"`` remat unless ``remat="none"`` (the reference's whisper
-checkpoints without a policy, so ``"dots"`` is ``"full"`` here too).
+checkpoints without a policy, so ``"dots"`` is ``"full"`` here too).  A
+placed model (:func:`repro_torch.train.sharding.place`) trains only, each
+block on its gathered weights as :mod:`repro_torch.models.lm`'s do, the
+cross-attention's K / V on the rank's heads.
 """
 
 from __future__ import annotations
@@ -24,10 +27,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models.attention import Attention, _gqa_out, _gqa_scores
+from repro_torch.models.attention import (Attention, _gqa_out, _gqa_scores,
+                                          _local_kv)
 from repro_torch.models.layers import (MLP, REMAT, LayerNorm, init_, remat,
                                        weight)
 from repro_torch.models.lm import DTYPES, KV_LEAVES, extend_cache, zero_aux
+from repro_torch.models.parallel import (block_fn, copy_to, embed_lookup,
+                                         gathered, reduce_from)
+
+CROSS_KV = ("cross_attn.wk", "cross_attn.wv")
 
 
 class EncBlock(nn.Module):
@@ -54,13 +62,15 @@ class EncBlock(nn.Module):
 def cross_attend(p: Attention, x: torch.Tensor, enc_k: torch.Tensor,
                  enc_v: torch.Tensor, cfg) -> torch.Tensor:
     """Full (not chunked) cross-attention of ``x`` (B, T, d) over the
-    encoder's K / V (B, S, KV, hd), unrotated, softmax in f32."""
-    h, hd = cfg.n_heads, cfg.head_dim
+    encoder's K / V (B, S, KV, hd), unrotated, softmax in f32; under
+    ``p.tp`` on the rank's heads (K / V those heads read)."""
+    hd = cfg.head_dim
+    h = p.wq.shape[-1] // hd
     b, t, _ = x.shape
-    q = (x @ p.wq).view(b, t, h, hd)
+    q = (copy_to(x, p.tp) @ p.wq).view(b, t, h, hd)
     pr = torch.softmax(_gqa_scores(q.float(), enc_k.float()), dim=-1)
     y = _gqa_out(pr, enc_v.float()).to(x.dtype)
-    return y.reshape(b, t, h * hd) @ p.wo
+    return reduce_from(y.reshape(b, t, h * hd) @ p.wo, p.tp)
 
 
 class DecBlock(nn.Module):
@@ -102,6 +112,7 @@ class WhisperModel(nn.Module):
             raise ValueError(f"WhisperModel takes the encdec family, got "
                              f"{cfg.family!r}")
         self.cfg = cfg
+        self.placed = None
         dtype = DTYPES[cfg.dtype]
         d = cfg.d_model
         self.embed = weight((cfg.vocab_size, d), dtype, device)
@@ -131,19 +142,29 @@ class WhisperModel(nn.Module):
         b, s, _ = frames.shape
         positions = torch.arange(s, device=frames.device).expand(b, s)
         x = frames.to(self.embed.dtype)
-        for blk in self.encoder:
-            x = remat(blk, remat_policy, x, positions=positions, train=train)
-        return self.enc_norm(x)
+        for i, blk in enumerate(self.encoder):
+            x = remat(block_fn(self.placed, blk, f"encoder.{i}."),
+                      remat_policy, x, positions=positions, train=train)
+        with gathered(self.placed, self, "", ["enc_norm.scale",
+                                              "enc_norm.bias"]):
+            return self.enc_norm(x)
 
     def enc_kv(self, enc_out: torch.Tensor):
         """Per-decoder-layer cross K / V, (L, B, S, KV, hd) each, computed
-        once."""
+        once (on a placed model: the rank's heads)."""
         b, s, _ = enc_out.shape
-        kv, hd = self.cfg.n_kv_heads, self.cfg.head_dim
-        ks = [(enc_out @ blk.cross_attn.wk).view(b, s, kv, hd)
-              for blk in self.decoder]
-        vs = [(enc_out @ blk.cross_attn.wv).view(b, s, kv, hd)
-              for blk in self.decoder]
+        hd = self.cfg.head_dim
+        ks, vs = [], []
+        for i, blk in enumerate(self.decoder):
+            with gathered(self.placed, blk, f"decoder.{i}.", CROSS_KV):
+                p = blk.cross_attn
+                x = copy_to(enc_out, p.tp)
+                kv = p.wk.shape[-1] // hd
+                k, v = _local_kv((x @ p.wk).view(b, s, kv, hd),
+                                 (x @ p.wv).view(b, s, kv, hd), self.cfg,
+                                 p.tp, p.wq.shape[-1] // hd)
+            ks.append(k)
+            vs.append(v)
         return torch.stack(ks), torch.stack(vs)
 
     extend_cache = staticmethod(extend_cache)
@@ -175,6 +196,9 @@ class WhisperModel(nn.Module):
         del unroll
         if mode == "train":
             return self._train(tokens, frames, remat)
+        if self.placed is not None:
+            raise ValueError(f"a placed model trains; {mode} runs on an "
+                             f"unplaced one")
         if mode not in ("prefill", "decode"):
             raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
                              f"got {mode!r}")
@@ -210,15 +234,21 @@ class WhisperModel(nn.Module):
         if policy not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got {policy!r}")
         policy = "none" if policy == "none" else "full"
+        pl = self.placed
         ek, ev = self.enc_kv(self.encode(frames, train=True,
                                          remat_policy=policy))
-        x = nn.functional.embedding(tokens, self.embed)
+        with gathered(pl, self, "", ["embed"]):
+            x = embed_lookup(tokens, self.embed, pl and pl.embed_tp)
         b, t, _ = x.shape
         positions = torch.arange(t, device=x.device).expand(b, t)
         for i, blk in enumerate(self.decoder):
-            x, _ = remat(blk, policy, x, ek[i], ev[i], positions=positions,
+            names = None if pl is None else [
+                n for n, _ in blk.named_parameters() if n not in CROSS_KV]
+            x, _ = remat(block_fn(pl, blk, f"decoder.{i}.", names=names),
+                         policy, x, ek[i], ev[i], positions=positions,
                          train=True)
-        return self.final_norm(x), zero_aux(x.device)
+        with gathered(pl, self, "", ["final_norm.scale", "final_norm.bias"]):
+            return self.final_norm(x), zero_aux(x.device)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return hidden @ self.unembed

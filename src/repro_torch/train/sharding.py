@@ -21,8 +21,18 @@ on the stacked shape of a tensor's layer group
 (:func:`repro_torch.train.optimizer.layer_groups`) and gives each layer
 the stacked spec without its leading ``L`` entry (FSDP's threshold reads
 the stacked size: olmoe's router is 2.1M entries stacked, 131k a layer).
-Placing tensors by these specs over a ``torch.distributed`` world is not
-ported yet (ROADMAP queue 1 item 16).
+
+Placing (the reference's ``place``, ``jax.device_put`` by
+``NamedSharding``): :func:`placements` turns a spec into ``DTensor``
+placements over a ``DeviceMesh``; :func:`place` makes every parameter of a
+model (or every tensor of a dict) a ``DTensor`` holding this rank's block
+and records, on the model, how its train mode reads each weight
+(:class:`repro_torch.models.parallel.Placed`): attention heads, the FFN's
+``d_ff`` and mamba's heads split over ``model`` (TP) where they divide,
+MoE experts over ``model`` (EP), the vocab of ``embed`` / ``unembed``
+over ``model``, everything else gathered.  :func:`batch_rows` is the
+batch's counterpart of :func:`data_spec`: a rank's rows of each
+microbatch.
 """
 
 from __future__ import annotations
@@ -30,6 +40,14 @@ from __future__ import annotations
 import math
 from collections.abc import Mapping
 
+import torch
+from torch import nn
+
+from repro_torch.models.attention import Attention
+from repro_torch.models.layers import MLP
+from repro_torch.models.mamba2 import Mamba2
+from repro_torch.models.moe import MoE
+from repro_torch.models.parallel import Placed
 from repro_torch.train.optimizer import STACKED, group_of, layer_groups
 
 FSDP_THRESHOLD = 1 << 20  # params smaller than 1M entries stay unsharded
@@ -141,3 +159,167 @@ def cache_spec(cfg, mesh, batch: int) -> dict:
         else (None, b_ax, None, None)
     ssm = (None, b_ax, None, None, None)
     return dict(attn=attn, conv=conv, ssm=ssm, batch_sharded=batch_ok)
+
+
+def _axes(entry) -> tuple:
+    """The axis names of one spec entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(spec, mesh) -> tuple:
+    """The ``DTensor`` placements of ``spec`` on ``mesh`` (a
+    ``DeviceMesh``): each mesh dim the spec names at tensor dim ``d``
+    becomes ``Shard(d)``, every other one ``Replicate()``.  Mesh dims that
+    shard one tensor dim split it in mesh-dim order, so ``("pod",
+    "data")`` is JAX's major-to-minor; axes the mesh lacks are size 1."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    at = {}
+    for d, entry in enumerate(spec):
+        axes = [a for a in _axes(entry) if a in names]
+        if axes != sorted(axes, key=names.index):
+            raise ValueError(f"spec {spec}: dim {d} names {tuple(axes)} "
+                             f"against the mesh's order {names}")
+        for a in axes:
+            if a in at:
+                raise ValueError(f"spec {spec} names {a!r} twice")
+            at[a] = d
+    return tuple(Shard(at[n]) if n in at else Replicate() for n in names)
+
+
+def local_block(t: torch.Tensor, mesh, pls) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under placements
+    ``pls`` (a view; the rules shard only dims the mesh dims divide)."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard):
+            size = mesh.size(i)
+            if t.shape[pl.dim] % size:
+                raise ValueError(f"dim {pl.dim} of {tuple(t.shape)} does not "
+                                 f"split over {size} ranks")
+            t = t.chunk(size, pl.dim)[coord[i]]
+    return t
+
+
+def _dtensor(t: torch.Tensor, mesh, pls):
+    from torch.distributed.tensor import DTensor, Shard
+
+    local = local_block(t, mesh, pls)
+    if any(isinstance(pl, Shard) and mesh.size(i) > 1
+           for i, pl in enumerate(pls)):
+        local = local.clone()      # the whole tensor is not kept
+    return DTensor.from_local(local, mesh, pls, run_check=False)
+
+
+def _uses(model: nn.Module, specs: dict, model_size: int) -> tuple:
+    """How the train mode reads each weight (``"shard"``, ``"partial"`` or
+    ``"full"``, :mod:`repro_torch.models.parallel`), and which modules run
+    on their ``model`` split: ``{name: use}``, ``[module]``."""
+    uses = {n: "full" for n, _ in model.named_parameters()}
+    split = []
+    if model_size == 1:
+        return uses, split
+    for prefix, mod in model.named_modules():
+        pre = f"{prefix}." if prefix else ""
+        on = lambda leaf, d: "model" in _axes(specs[pre + leaf][d])
+        if isinstance(mod, Attention):
+            ok = mod.cfg.n_heads % model_size == 0 and on("wq", -1) \
+                and on("wo", -2)
+            if ok:
+                kv = "shard" if mod.cfg.n_kv_heads % model_size == 0 \
+                    and on("wk", -1) else "partial"
+                uses.update({pre + "wq": "shard", pre + "wo": "shard",
+                             pre + "wk": kv, pre + "wv": kv})
+        elif isinstance(mod, MLP):
+            leaves = [n for n, _ in mod.named_parameters()]
+            ok = all(on(n, -2 if n == "w_down" else -1) for n in leaves)
+            if ok:
+                uses.update({pre + n: "shard" for n in leaves})
+        elif isinstance(mod, MoE):
+            experts = [n for n in ("w_gate", "w_up", "w_down")
+                       if hasattr(mod, n)]
+            ok = all(on(n, 0) for n in experts)
+            if ok:
+                uses.update({pre + n: "shard" for n in experts})
+        elif isinstance(mod, Mamba2):
+            ok = mod.cfg.ssm_heads % model_size == 0 and on("out_proj", 0)
+            if ok:
+                uses.update({pre + n: "partial"
+                             for n, _ in mod.named_parameters()})
+                uses[pre + "out_proj"] = "shard"
+        else:
+            continue
+        if ok:
+            split.append(mod)
+    for n, d in (("embed", 0), ("unembed", 1)):    # the vocab dims
+        if n in uses and "model" in _axes(specs[n][d]):
+            uses[n] = "shard"
+    return uses, split
+
+
+def place(model_or_tensors, mesh, specs: dict):
+    """The reference's ``place``: each tensor a ``DTensor`` on ``mesh``
+    (a ``DeviceMesh``) holding this rank's block of it under
+    :func:`placements` of its spec.
+
+    A dict ``{name: tensor}`` comes back as ``{name: DTensor}``.  A model's
+    parameters are replaced in place (every rank holds the same whole
+    weights, from the same seed or file, and keeps its block), and the
+    model records how its train mode reads them (``model.placed``, a
+    :class:`repro_torch.models.parallel.Placed`); its attention, MLP, MoE
+    and mamba modules whose split over ``model`` falls on heads, ``d_ff``
+    or experts get ``tp``, and its MoE modules ``dp``.  Returns the model
+    or the dict."""
+    if not isinstance(model_or_tensors, nn.Module):
+        return {n: _dtensor(t, mesh, placements(specs[n], mesh))
+                for n, t in model_or_tensors.items()}
+    model = model_or_tensors
+    if getattr(model, "placed", None) is not None:
+        raise ValueError("the model is placed already")
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        model.get_submodule(owner)._parameters[leaf] = nn.Parameter(
+            _dtensor(p.detach(), mesh, placements(specs[name], mesh)),
+            requires_grad=p.requires_grad)
+    names = tuple(mesh.mesh_dim_names)
+    size = mesh.size(names.index("model")) if "model" in names else 1
+    uses, split = _uses(model, specs, size)
+    model.placed = Placed(mesh, uses)
+    for mod in split:
+        mod.tp = model.placed.model
+    for mod in model.modules():
+        if isinstance(mod, MoE):
+            mod.dp = model.placed.batch
+    return model
+
+
+def batch_rows(batch: dict, mesh, n_microbatches: int = 1) -> dict:
+    """This rank's rows of the global ``batch`` (``{name: (B, ...)}``, the
+    same on every rank): the batch's counterpart of :func:`data_spec`.
+    Microbatch ``i`` is global rows ``[i B / n, (i + 1) B / n)``, the
+    reference's ``reshape(n, B / n, ...)``, and the rank keeps its ``1 /
+    dp`` of each (over the batch axes, major to minor), so that its
+    ``i``-th chunk of ``B / (n dp)`` rows is its share of microbatch
+    ``i``."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    k, dp = 0, 1
+    for a in batch_axes(mesh):
+        i = names.index(a)
+        k, dp = k * mesh.size(i) + coord[i], dp * mesh.size(i)
+    out = {}
+    for key, x in batch.items():
+        b = x.shape[0]
+        if b % (n_microbatches * dp):
+            raise ValueError(f"a batch of {b} does not split into "
+                             f"{n_microbatches} microbatches over {dp} "
+                             f"batch ranks")
+        rows = x.reshape(n_microbatches, dp, b // (n_microbatches * dp),
+                         *x.shape[1:])[:, k]
+        out[key] = rows.reshape(-1, *x.shape[1:])
+    return out

@@ -24,14 +24,24 @@ Where the accumulator's dtype is the weights' (bf16 weights, the bf16
 default), autograd's own ``.grad`` accumulation is that bf16 sum; else
 each microbatch's ``.grad`` is added into a buffer of the accumulator's
 dtype.
+
+On a model placed over a mesh (:func:`repro_torch.train.sharding.place`,
+``mesh=``) the step takes the global batch, the same on every rank, and
+keeps the rank's share of each microbatch
+(:func:`repro_torch.train.sharding.batch_rows`); each microbatch's
+gradients land, summed over the batch axes, on their weights' placements
+(the gathers' backward), its loss and aux losses are the whole
+microbatch's (:mod:`repro_torch.train.losses`,
+:mod:`repro_torch.models.moe`), and the update runs on the local blocks.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models.parallel import gathered
 from repro_torch.train.losses import softmax_xent
-from repro_torch.train.optimizer import apply_updates
+from repro_torch.train.optimizer import apply_updates, local
 
 
 def acc_dtype(tcfg) -> torch.dtype:
@@ -47,8 +57,13 @@ def _loss_fn(model, tcfg, tokens, labels, patches=None, unroll=False):
     kw = {"frames" if model.cfg.family == "encdec" else "patches": patches}
     hidden, aux = model(tokens, mode="train", remat=tcfg.remat,
                         unroll=unroll, **kw)
-    w = model.embed.t() if model.cfg.tie_embeddings else model.unembed
-    loss, _ = softmax_xent(hidden, w, labels)
+    pl = model.placed
+    tied = model.cfg.tie_embeddings
+    with gathered(pl, model, "", ["embed" if tied else "unembed"]):
+        w = model.embed.t() if tied else model.unembed
+        loss, _ = softmax_xent(hidden, w, labels,
+                               vocab=pl and pl.unembed_tp,
+                               batch=pl and pl.batch)
     total = loss + tcfg.moe_aux * aux["load_balance_loss"] \
         + tcfg.zloss * aux["router_z_loss"]
     return total, {"loss": loss, **aux}
@@ -59,15 +74,17 @@ def accumulate_grads(model, tcfg, batch: dict, *, n_microbatches: int = 1,
     """The gradient half of the train step: ``(grads, metrics)``, grads a
     ``{name: tensor}`` of every parameter (the accumulator's dtype, divided
     by ``n_microbatches``; the weights' dtype with one microbatch),
-    metrics f32 0-d tensors.  Leaves no ``.grad`` on the weights."""
+    metrics f32 0-d tensors.  Leaves no ``.grad`` on the weights.  On a
+    placed model ``batch`` is the rank's rows and each gradient its
+    weight's local block."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
         p.grad = None
 
     def grad_of(p, dt):      # a weight the loss never reached: zeros
-        return torch.zeros_like(p, dtype=dt) if p.grad is None \
-            else p.grad.to(dt)
+        return torch.zeros_like(local(p), dtype=dt) if p.grad is None \
+            else local(p.grad).to(dt)
 
     if n_microbatches == 1:
         total, metrics = _loss_fn(model, tcfg, batch["tokens"],
@@ -106,16 +123,30 @@ def accumulate_grads(model, tcfg, batch: dict, *, n_microbatches: int = 1,
 
 
 def make_train_step(model, tcfg, *, n_microbatches: int = 1,
-                    unroll: bool = False):
+                    unroll: bool = False, mesh=None):
     """``train_step(opt_state, step, batch) -> (opt_state, metrics)``:
     batch ``{"tokens" (B, T), "labels" (B, T)[, "patches"]}`` (the vlm's
     patch embeddings or the encdec's frames under ``"patches"``, as the
     reference's), B a multiple of ``n_microbatches``; the module's weights
     and ``opt_state`` updated in place; metrics ``loss``,
     ``load_balance_loss``, ``router_z_loss`` and ``grad_norm``, f32 0-d
-    tensors on the device."""
+    tensors on the device.
+
+    ``mesh``: the ``DeviceMesh`` the model was placed on; ``batch`` is
+    then the global batch (every rank's alike), B a multiple of
+    ``n_microbatches`` times the batch axes' size, and the metrics are
+    global."""
+    placed = model.placed
+    if (mesh is None) != (placed is None) or \
+            (mesh is not None and mesh is not placed.mesh):
+        raise ValueError("a model placed on a mesh trains with mesh= that "
+                         "mesh, and an unplaced one without")
 
     def train_step(opt_state: dict, step: int, batch: dict):
+        if mesh is not None:
+            from repro_torch.train.sharding import batch_rows
+
+            batch = batch_rows(batch, mesh, n_microbatches)
         grads, metrics = accumulate_grads(
             model, tcfg, batch, n_microbatches=n_microbatches, unroll=unroll)
         opt_state, gnorm = apply_updates(model, grads, opt_state, step, tcfg)

@@ -1195,3 +1195,48 @@ def test_smoke_train_step_on_the_card_is_the_host_step(cuda, arch):
                                                      ".wo"))]
     assert proj and all(float(out["card"][1][n].abs().sum()) > 0
                         for n in proj)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "olmoe-1b-7b",
+                                  "zamba2-1.2b", "whisper-base"])
+def test_sharded_train_step_on_the_card_is_the_one_device_step(cuda, arch):
+    """The train step of a model placed on a ``(1, 1)`` mesh over a world
+    of one rank (NCCL, in this process) is the unplaced step on the card
+    bit for bit: metrics and every updated weight (every collective over
+    one rank copies), no kernel launched."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_train_config
+    from repro_torch.data.pipeline import SyntheticSource
+    from repro_torch.launch import mesh as lm
+    from repro_torch.train import sharding as shd
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    cfg, tcfg = get_smoke_config(arch), get_train_config(arch)
+    batch = SyntheticSource(
+        cfg.vocab_size, 32, 8, d_model=cfg.d_model, device="cuda",
+        encoder_len=cfg.encoder_len if cfg.family == "encdec" else 0
+    ).next_batch(0)
+    models = [build_model(cfg, generator=torch.Generator(device="cuda")
+                          .manual_seed(3), device="cuda") for _ in range(2)]
+    lm.init_distributed("cuda", store=dist.HashStore(), rank=0,
+                        world_size=1)
+    try:
+        mesh = lm.make_host_mesh((1, 1), device="cuda")
+        shd.place(models[1], mesh, shd.infer_param_specs(models[1], mesh))
+        out = []
+        for model, m in zip(models, (None, mesh)):
+            ops.reset_launch_counts()
+            _, met = make_train_step(model, tcfg, n_microbatches=2, mesh=m)(
+                init_opt_state(model, tcfg), 0, batch)
+            assert not any(ops.launch_counts().values())
+            out.append((met, {n: (p.to_local() if m else p).detach().cpu()
+                              for n, p in model.named_parameters()}))
+    finally:
+        lm.shutdown()
+    (met0, w0), (met1, w1) = out
+    for k in met0:
+        assert torch.equal(met0[k].cpu(), met1[k].cpu()), k
+    for n, w in w0.items():
+        assert torch.equal(w1[n], w), n

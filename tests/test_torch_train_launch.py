@@ -287,9 +287,17 @@ def test_cli_resume_is_bit_for_bit(tmp_path, capsys):
 
 
 def test_cli_refuses_a_multi_rank_world(monkeypatch):
+    """Under ``WORLD_SIZE > 1`` (torchrun) the CLI trains sharded
+    (``tests/test_torch_train_sharded_launch.py``); it refuses, before the
+    process group comes up, a batch that does not split into the
+    microbatches over the ranks, and a rank without a card."""
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(RuntimeError, match="item 16"):
-        ttrain.main(["--arch", "stablelm-3b", "--smoke", "--device", "cpu"])
+    with pytest.raises(ValueError, match="over 4 ranks"):
+        ttrain.main(["--arch", "stablelm-3b", "--smoke", "--device", "cpu",
+                     "--batch", "6"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ttrain.main(["--arch", "stablelm-3b", "--smoke"])
 
 
 def test_cli_asks_for_the_card_by_default():
