@@ -244,6 +244,17 @@ raises on failure:
    the logits of a prefill over 2049 tokens within 5% of their largest
    magnitude (bf16 through 32 layers); then that decode step and the
    prefill profiled as in phase 3b;
+   (3v) the CLI's run of 3f again in the script (seed 0, batch 4, prompt
+   2048, 16 greedy tokens), unplaced and then placed on a ``(1, 1)``
+   ``(data, model)`` mesh over a world-1 NCCL group (``place`` by
+   ``infer_param_specs``, the cache by ``place_cache``): tokens and every
+   step's logits bit for bit, 32 flash launches in each prefill, the
+   placed prefill's and decode step's collectives by kind (the dry run's
+   counter, ``launch/dryrun.py``), both runs' prefill and decode step
+   profiled beside 3f's; (b) one full-size dry-run cell (stablelm-3b
+   ``train_4k`` at 256 ranks of the fake backend, ``python -m
+   repro_torch.launch.dryrun``) runs on the host beside phases 3m-3p and
+   its record is logged;
    (4f) GPU vs CPU parity: minitron-8b at full width but 2 layers, float32,
    the same weights on both, prompt 256, batch 2, 8 greedy tokens: logits
    within 1e-4 of their largest magnitude at every step, tokens equal;
@@ -318,7 +329,7 @@ raises on failure:
    default method; ``dense_backup``'s is its count in the dense ipi_gmres
    solve (3d); ``ell_qvalues``'s its phase-2q count; ``flash_attention``'s
    its count in the serve_lm CLI run (3f), and its ``launches_by_path``
-   3l's runs too, and 3r's: ``train`` (b), ``train_cli`` (a), each
+   3v's and 3l's runs too, and 3r's: ``train`` (b), ``train_cli`` (a), each
    (c) step, ``train_sharded`` and ``train_cli_torchrun`` (e), all 0.  ``launches_by_path`` gives
    each path's counts (the ELL kernels' include phase 3g's and 3h's
    paths).  Rows 1-4 carry ``batched``: phase 3h (d)'s rows, keyed by
@@ -385,6 +396,8 @@ FLASH_CASES = (("minitron-8b", 32, 8, 128, 2048, True),
                ("llava-next-34b", 56, 8, 128, 512 + 2880, True),
                ("whisper-base-encoder", 8, 8, 64, 1500, False))
 PLAIN_FLASH_REPS = 5                # the plain scan is slow
+# phase 3v: one full-size dry-run cell on the host, beside 3m-3p
+DRYRUN_CELL = ("stablelm-3b", "train_4k", "pod")
 DECODE_TOL = 0.05    # decode vs prefill logits, of max |logit| (bf16)
 PARITY_TOL = 1e-4    # GPU vs CPU logits, of max |logit| (float32)
 PARITY_BATCH, PARITY_PROMPT, PARITY_GEN = 2, 256, 8
@@ -2748,6 +2761,140 @@ def lm_parity() -> dict:
     return row
 
 
+def lm_serve_loop(model, prompts, place=None) -> dict:
+    """serve_lm's loop on ``model``: prefill (its flash launches counted),
+    ``extend_cache`` (then ``place(cache)`` where given), ``LM_GEN - 1``
+    greedy decode steps; the tokens, every step's logits and the final
+    cache (one free slot left)."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    ops.reset_launch_counts()
+    logits, cache = prefill(prompts)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    cache = model.extend_cache(cache, LM_GEN)
+    if place is not None:
+        cache = place(cache)
+    tok = torch.argmax(logits, dim=-1)
+    out, steps = [tok], [logits]
+    for _ in range(LM_GEN - 1):
+        tok, logits, cache = decode(tok, cache)
+        out.append(tok)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    return dict(tokens=torch.cat(out, 1), logits=steps, cache=cache,
+                tok=tok, launches=launches, prefill=prefill, decode=decode)
+
+
+def lm_placed(lm: dict) -> dict:
+    """Phase 3v: serve_lm's run of phase 3f (minitron-8b uncut, seed 0,
+    batch LM_BATCH, prompt LM_PROMPT, LM_GEN greedy tokens) in-process,
+    unplaced and then placed on a ``(1, 1)`` mesh over a world-1 NCCL
+    group (``place`` by ``infer_param_specs``, the cache by
+    ``place_cache``): tokens and every step's logits bit for bit, one
+    flash launch a layer in each prefill, the collectives of a placed
+    prefill and decode step by kind (the dry run's counter), and both
+    runs' prefill and decode step profiled beside 3f's."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.dryrun import StepMeter
+    from repro_torch.models import build_model
+    from repro_torch.train import sharding as shd
+
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)     # serve_lm's
+    model = build_model(cfg, generator=gen, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device="cuda")
+    runs, profiles = {}, {}
+
+    def profile(name, run):
+        _, profiles[f"{name}_prefill"] = device_profile(
+            lambda: run["prefill"](prompts))
+        _, profiles[f"{name}_decode"] = device_profile(
+            lambda: run["decode"](run["tok"], run["cache"]))
+
+    runs["unplaced"], unplaced_s = sync_wall(
+        lambda: lm_serve_loop(model, prompts))
+    profile("unplaced", runs["unplaced"])
+    lmesh.init_distributed("cuda", store=dist.HashStore(), rank=0,
+                           world_size=1)
+    try:
+        mesh = lmesh.make_host_mesh((1, 1), device="cuda")
+        shd.place(model, mesh, shd.infer_param_specs(model, mesh))
+        runs["placed"], placed_s = sync_wall(lambda: lm_serve_loop(
+            model, prompts, lambda c: shd.place_cache(c, mesh, cfg,
+                                                      LM_BATCH)))
+        run = runs["placed"]
+        with StepMeter() as m_prefill:
+            run["prefill"](prompts)
+        with StepMeter() as m_decode:
+            run["decode"](run["tok"], run["cache"])
+        torch.cuda.synchronize()
+        profile("placed", run)
+    finally:
+        lmesh.shutdown()
+    a, b = runs["unplaced"], runs["placed"]
+    same = dict(tokens=bits_equal(a["tokens"], b["tokens"]),
+                logits=all(bits_equal(x, y)
+                           for x, y in zip(a["logits"], b["logits"])))
+    out = dict(
+        arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
+        mesh={"data": 1, "model": 1}, bit_for_bit=same,
+        launches={k: r["launches"] for k, r in runs.items()},
+        collectives_prefill=m_prefill.by_kind(),
+        collective_ops_prefill=dict(m_prefill.calls),
+        collectives_decode=m_decode.by_kind(),
+        collective_ops_decode=dict(m_decode.calls),
+        serve_s=dict(unplaced=unplaced_s, placed=placed_s),
+        walls_ms={k: p["wall_ms"] for k, p in profiles.items()},
+        idle_share={k: p["idle_share"] for k, p in profiles.items()},
+        walls_ms_3f=dict(prefill=lm["prefill_profile"]["wall_ms"],
+                         decode=lm["decode_profile"]["wall_ms"]),
+        idle_share_3f=dict(prefill=lm["prefill_profile"]["idle_share"],
+                           decode=lm["decode_profile"]["idle_share"]),
+        tokens=b["tokens"][0].tolist())
+    log(f"[phase3v] {json.dumps(out)}")
+    for k, p in profiles.items():
+        log(f"[phase3v] {k} profile: {json.dumps(p)}")
+    del model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash = {k: v["flash_attention"] for k, v in out["launches"].items()}
+    if not all(same.values()):
+        raise AssertionError(f"3v: the placed run is not the unplaced one "
+                             f"bit for bit: {same}")
+    if set(flash.values()) != {cfg.n_layers}:
+        raise AssertionError(f"3v: flash launches a prefill {flash}, not "
+                             f"{cfg.n_layers}")
+    return out
+
+
+def dryrun_cell_beside(beside) -> tuple:
+    """Phase 3v (b): the dry run of ``DRYRUN_CELL`` (a full-size cell at
+    256 ranks of the fake backend, on the host) in a process of its own
+    while ``beside()`` runs here (:func:`run_beside`); its record is
+    logged, and ``beside()``'s result returned with it."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    arch, shape, mesh = DRYRUN_CELL
+    path = OUT / "dryrun_cell.json"
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            arch, "--shape", shape, "--mesh", mesh, "--out", str(path)]
+    # one thread: the phases beside it are host-bound too
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    done, wall, got = run_beside(argv, env=env, beside=beside, timeout=900)
+    if done.returncode != 0:
+        raise AssertionError(f"3v (b): the dry run exited "
+                             f"{done.returncode}:\n{done.stderr[-3000:]}")
+    rec = json.loads(path.read_text())[f"{arch}/{shape}/{mesh}"]
+    log(f"[phase3v] (b) dry run {arch}/{shape}/{mesh} in {wall:.1f}s "
+        f"(beside 3m-3p): {json.dumps(rec)}")
+    return rec, got
+
+
 # --------------------------------------------------------------------------- #
 # phases 3l / 4l: the other LM families                                       #
 # --------------------------------------------------------------------------- #
@@ -3193,32 +3340,6 @@ def ckpt_leaves_equal(a: Path, b: Path, step: int) -> int:
     return len(leaves[a]) if same else 0
 
 
-def count_dispatched_collectives(fn) -> tuple:
-    """``fn()`` with the collectives it issues counted by kind: every
-    ``c10d`` op (``torch.distributed``'s calls, e.g. ``allreduce_``) and
-    ``_c10d_functional`` op (``DTensor``'s redistributions, e.g.
-    ``all_gather_into_tensor``, ``reduce_scatter_tensor``) that reaches
-    the dispatcher, the autograd backward's included; ``wait_tensor`` and
-    the wrappers are no collectives."""
-    import collections
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    calls = collections.Counter()
-    skip = {"wait_tensor", "_wrap_tensor_autograd"}
-
-    class Counting(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            name = func.__name__.split(".")[0]
-            if func.namespace in ("c10d", "_c10d_functional") and \
-                    name not in skip:
-                calls[name] += 1
-            return func(*args, **(kwargs or {}))
-
-    with Counting():
-        result = fn()
-    return result, dict(sorted(calls.items()))
-
-
 def sharded_train_model(mesh, device: str = "cuda"):
     """stablelm-3b uncut from 3r (b)'s seed, placed on ``mesh`` by the
     reference's specs; its optimizer state, step function and specs."""
@@ -3248,6 +3369,7 @@ def train_sharded(first: dict, resume: dict, beside=None) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as lm
     from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import count_dispatched_collectives
     from repro_torch.train import sharding as shd
     from repro_torch.train.optimizer import local
 
@@ -3281,7 +3403,7 @@ def train_sharded(first: dict, resume: dict, beside=None) -> dict:
             same[n] = bits_equal(got, want)
             rel[n] = _rel_err(got, want)
         (opt, _), calls = count_dispatched_collectives(
-            lambda: step_fn(opt, 1, batch))
+            lambda: step_fn(opt, 1, batch))  # the dry run's counter
         (opt, _), prof = device_profile(lambda: step_fn(opt, 2, batch))
         tokens = TRAIN_BATCH * TRAIN_SEQ
         out = dict(arch=TRAIN_ARCH, mesh={"data": 1, "model": 1},
@@ -4298,7 +4420,8 @@ def main() -> int:
         stamp("3p (d), beside 3m (c)")
         return fleet_layout_cli(fleet)
 
-    sharded = sharded_paths(mdp, path, then=after_3m, beside=beside_3mc)
+    _, sharded = dryrun_cell_beside(lambda: sharded_paths(
+        mdp, path, then=after_3m, beside=beside_3mc))
     path["launches"].update(sharded["launches"])
     path["launches"].update(sharded["then"]["launches"])
     fleet_cli = sharded["beside"]
@@ -4340,6 +4463,8 @@ def main() -> int:
     fresources = flash_report(libs[flash_attention.SOURCE])
     stamp("3f")
     lm = lm_main_path()
+    stamp("3v")
+    placed = lm_placed(lm)
     stamp("4f")
     lm_parity()
     stamp("3l")
@@ -4421,6 +4546,8 @@ def main() -> int:
                for arch, row in families.items()
                for p, c in (("serve_lm_cli", row.get("cli_launches")),
                             *row["launches"].items()) if c},
+            **{f"3v_{k}_prefill": v["flash_attention"]
+               for k, v in placed["launches"].items()},
             "train": train["step"]["launches"]["flash_attention"],
             "train_cli": train["cli"]["launches"]["flash_attention"],
             "train_sharded":

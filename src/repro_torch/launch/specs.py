@@ -97,22 +97,7 @@ def cache_specs(arch: str, shape: ShapeConfig, mesh) -> tuple:
     dtype, the SSD state f32) and each leaf's spec."""
     cfg = get_config(arch)
     cache = meta_model(cfg).init_cache(shape.global_batch, shape.seq_len)
-    cs = shd.cache_spec(cfg, mesh, shape.global_batch)
-    kind = {"k": "attn", "v": "attn", "enc_k": "attn", "enc_v": "attn",
-            "conv": "conv", "ssm": "ssm"}
-
-    def spec(name, leaf):
-        return cs[kind[name]] if name in kind else (None,) * leaf.dim()
-
-    specs = {}
-    for key, val in cache.items():
-        if isinstance(val, dict):
-            specs[key] = {n: spec(n, x) for n, x in val.items()}
-        elif isinstance(val, torch.Tensor):
-            specs[key] = spec(key, val)
-        else:
-            specs[key] = ()          # "len", a host int
-    return cache, specs
+    return cache, shd.cache_leaf_specs(cfg, mesh, shape.global_batch, cache)
 
 
 def decode_token_specs(arch: str, shape: ShapeConfig, mesh) -> tuple:

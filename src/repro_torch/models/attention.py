@@ -21,12 +21,18 @@ Decode is plain torch, as the reference's is plain ``jnp``: one new token
 against the cache, softmax in f32 (:func:`_gqa_scores` /
 :func:`_gqa_out`, which whisper's full cross-attention also uses).
 
-Head counts are read off the projections, so a placed model's train mode
-runs the same code on its local heads: with ``tp`` (the ``model`` axis;
+Head counts are read off the projections, so a placed model runs the
+same code on its local heads: with ``tp`` (the ``model`` axis;
 :mod:`repro_torch.models.parallel`) ``wq`` / ``wo`` are this rank's heads,
 ``wk`` / ``wv`` its KV heads or, where the KV heads do not split over the
 axis, all of them (:func:`kv_for_heads` then picks the ones its query
-heads read), and ``wo``'s product is summed over the axis.
+heads read), and ``wo``'s product is summed over the axis.  The keys and
+values a prefill returns for the cache, and the decode cache, hold the
+same KV heads as ``wk``: the rank's, or all of them where they do not
+split (the reference's ``cache_spec``).  With ``sp`` (the batch axis, at a
+batch that does not split over it) the decode cache holds the rank's
+slice of the sequence: the rank owning slot ``length`` writes it, and the
+softmax over the slots is combined across the axis (:func:`decode_attend`).
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from torch import nn
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import init_, rope, weight
-from repro_torch.models.parallel import copy_to, reduce_from
+from repro_torch.models.parallel import (_reduce, all_max, copy_to,
+                                         reduce_from)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -103,7 +110,7 @@ class Attention(nn.Module):
         super().__init__()
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         self.cfg = cfg
-        self.tp = None
+        self.tp = self.sp = None
         self.wq = weight((d, h * hd), dtype, device)
         self.wk = weight((d, kv * hd), dtype, device)
         self.wv = weight((d, kv * hd), dtype, device)
@@ -119,6 +126,27 @@ class Attention(nn.Module):
         return apply_attention(self, x, self.cfg, positions=positions,
                                cache=cache, kv_x=kv_x, causal=causal,
                                train=train)
+
+
+def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  sp=None) -> torch.Tensor:
+    """One query step ``q (B, 1, H, hd)`` against every slot of ``k`` /
+    ``v (B, S, KV, hd)``, softmax in f32; returns (B, 1, H, hd) f32.  Under
+    ``sp`` each rank holds a slice of the sequence (maybe none of it): the
+    row maxima are all-maxed over the axis, then the sums of ``exp`` and
+    of the weighted values all-reduced, and their quotient is the whole
+    softmax's."""
+    if sp is None:
+        pr = torch.softmax(_gqa_scores(q.float(), k.float()), dim=-1)
+        return _gqa_out(pr, v.float())
+    b, _, h, _ = q.shape
+    sc = _gqa_scores(q.float(), k.float())                  # (B,KV,G,1,S)
+    m = sc.amax(-1) if k.shape[1] else \
+        sc.new_full(sc.shape[:-1], float("-inf"))
+    e = torch.exp(sc - all_max(m, sp)[..., None])
+    den = _reduce(e.sum(-1), sp)                            # (B,KV,G,1)
+    num = _reduce(_gqa_out(e, v.float()), sp)               # (B,1,H,hd)
+    return num / den.permute(0, 3, 1, 2).reshape(b, 1, h, 1)
 
 
 def _local_kv(k, v, cfg, tp, h: int):
@@ -147,7 +175,8 @@ def apply_attention(p: Attention, x: torch.Tensor, cfg, *,
     * decode, ``cache=(k_cache, v_cache, length)`` with caches (B, S, KV,
       hd) and ``T = 1``: writes the new key and value at slot ``length``
       **in place** (the reference returns updated copies) and returns
-      ``(y, (k_cache, v_cache, length + 1))``.
+      ``(y, (k_cache, v_cache, length + 1))``; under ``p.sp`` the caches
+      are the rank's ``S`` slots of ``S * sp.size``.
     """
     hd = cfg.head_dim
     h, kv = p.wq.shape[-1] // hd, p.wk.shape[-1] // hd
@@ -161,30 +190,34 @@ def apply_attention(p: Attention, x: torch.Tensor, cfg, *,
         kv_x = copy_to(kv_x, tp)
         k = (kv_x @ p.wk).view(b, kv_x.shape[1], kv, hd)
         v = (kv_x @ p.wv).view(b, kv_x.shape[1], kv, hd)
-        k, v = _local_kv(k, v, cfg, tp, h)
-        y = _train_attention(q, k, v, cfg, causal=False) if train else \
-            ops.flash_attention(q, k, v, causal=False)
+        kh, vh = _local_kv(k, v, cfg, tp, h)
+        y = _train_attention(q, kh, vh, cfg, causal=False) if train else \
+            ops.flash_attention(q, kh, vh, causal=False)
         return reduce_from(y.reshape(b, t, h * hd) @ p.wo, tp), (k, v)
     q = rope(q, positions, cfg.rope_theta)
     k = rope((x @ p.wk).view(b, t, kv, hd), positions, cfg.rope_theta)
     v = (x @ p.wv).view(b, t, kv, hd)
 
     if cache is None:
-        k, v = _local_kv(k, v, cfg, tp, h)
-        y = _train_attention(q, k, v, cfg, causal=causal) if train else \
-            ops.flash_attention(q, k, v, causal=causal)
+        kh, vh = _local_kv(k, v, cfg, tp, h)
+        y = _train_attention(q, kh, vh, cfg, causal=causal) if train else \
+            ops.flash_attention(q, kh, vh, causal=causal)
         return reduce_from(y.reshape(b, t, h * hd) @ p.wo, tp), (k, v)
 
     # ---- decode: one new token against the cache ------------------------ #
     k_cache, v_cache, length = cache
-    if t != 1 or not 0 <= length < k_cache.shape[1]:
+    sp, s_l = p.sp, k_cache.shape[1]
+    first = 0 if sp is None else sp.rank * s_l       # the rank's first slot
+    slots = s_l if sp is None else s_l * sp.size
+    if t != 1 or not 0 <= length < slots:
         raise ValueError(f"decode takes one token and a free cache slot; got "
-                         f"T={t}, length={length}, cache of "
-                         f"{k_cache.shape[1]} slots")
-    k_cache[:, length] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, length] = v[:, 0].to(v_cache.dtype)
+                         f"T={t}, length={length}, cache of {slots} slots")
+    if first <= length < first + s_l:
+        k_cache[:, length - first] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, length - first] = v[:, 0].to(v_cache.dtype)
     # slots > length are masked in the reference; leaving them out is exact
-    sc = _gqa_scores(q.float(), k_cache[:, :length + 1].float())
-    pr = torch.softmax(sc, dim=-1)
-    y = _gqa_out(pr, v_cache[:, :length + 1].float()).reshape(b, 1, h * hd)
-    return y.to(x.dtype) @ p.wo, (k_cache, v_cache, length + 1)
+    n = max(0, min(length + 1 - first, s_l))
+    kc, vc = _local_kv(k_cache[:, :n], v_cache[:, :n], cfg, tp, h)
+    y = decode_attend(q, kc, vc, sp).reshape(b, 1, h * hd)
+    return reduce_from(y.to(x.dtype) @ p.wo, tp), \
+        (k_cache, v_cache, length + 1)

@@ -26,10 +26,17 @@ losses summed over the layers, as the reference's scan sums them, each
 block under the reference's per-layer remat (:func:`layers.remat`).
 
 A model placed over a mesh (:func:`repro_torch.train.sharding.place`)
-trains only: each block gathers its weights inside its remat (so its
-recompute gathers them again) and frees them after, the embedding looks
-up its vocab slice, and the blocks' modules run their local shards
-(:mod:`repro_torch.models.parallel`).
+trains, prefills and decodes: each block gathers its weights (in train
+mode inside its remat, so its recompute gathers them again) and frees
+them after, the embedding looks up its vocab slice, and the blocks'
+modules run their local shards (:mod:`repro_torch.models.parallel`).
+Its prefill and decode take the rank's rows of the batch
+(:meth:`repro_torch.models.parallel.Placed.serving` says whether they
+are split) and caches on the reference's ``cache_spec``
+(:func:`repro_torch.train.sharding.place_cache`): the rank's rows and KV
+heads (mamba: its conv channels; every SSD head), the sequence whole but
+where the rows are not split; :meth:`DecoderLM.logits` gathers the vocab
+split.
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, init_, remat, rms_norm, weight
 from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.moe import MoE
-from repro_torch.models.parallel import block_fn, embed_lookup, gathered
+from repro_torch.models.parallel import (all_gather, block_fn, embed_lookup,
+                                         gathered)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 KINDS = {"dense": "attn", "vlm": "attn", "moe": "moe", "ssm": "mamba",
@@ -60,6 +68,14 @@ def zero_aux(device) -> dict:
 
 def add_aux(aux: dict, more: dict | None) -> dict:
     return aux if more is None else {k: aux[k] + more[k] for k in AUX}
+
+
+def cache_zeros(like: torch.Tensor):
+    """``zeros(shape, dtype=None)``: plain zeros in ``like``'s dtype (or
+    ``dtype``) on its device, a placed model's weights being ``DTensor``s
+    whose caches are not."""
+    return lambda shape, dtype=None: torch.zeros(
+        shape, dtype=dtype or like.dtype, device=like.device)
 
 
 def extend_cache(cache: dict, extra: int) -> dict:
@@ -120,7 +136,7 @@ class Block(nn.Module):
         y = rms_norm(self.ln2, x, self.eps)
         if self.moe is None:
             return x + self.mlp(y), cache_out, None
-        ym, aux = self.moe(y)
+        ym, aux = self.moe(y, aux=train)
         if self.mlp is not None:
             ym = ym + self.mlp(y)
         return x + ym, cache_out, aux
@@ -140,13 +156,13 @@ class MambaBlock(nn.Module):
             self.ln1.fill_(1.0)
         self.mamba.reset_parameters(generator)
 
-    def forward(self, x, *, positions=None, cache=None):
+    def forward(self, x, *, positions=None, cache=None, train=False):
         h, cache_out = self.mamba(rms_norm(self.ln1, x, self.eps),
-                                  cache=cache)
+                                  cache=cache, train=train)
         return x + h, cache_out
 
     def train_forward(self, x, *, positions=None):
-        return self(x)[0], None
+        return self(x, train=True)[0], None
 
 
 class DecoderLM(nn.Module):
@@ -210,20 +226,19 @@ class DecoderLM(nn.Module):
         """Empty decode caches of ``max_len`` slots in the weights' dtype
         (the SSD state in f32)."""
         cfg = self.cfg
+        zeros = cache_zeros(self.embed)
         kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         if self.kind != "mamba":
-            return {"blocks": {name: self.embed.new_zeros((cfg.n_layers,
-                                                           *kv_shape))
+            return {"blocks": {name: zeros((cfg.n_layers, *kv_shape))
                                for name in KV_LEAVES}, "len": 0}
         cache = {"blocks": {
-            "conv": self.embed.new_zeros((cfg.n_layers, batch, cfg.d_conv - 1,
-                                          cfg.d_inner + 2 * cfg.ssm_state)),
-            "ssm": self.embed.new_zeros((cfg.n_layers, batch, cfg.ssm_heads,
-                                         cfg.head_p, cfg.ssm_state),
-                                        dtype=torch.float32)}, "len": 0}
+            "conv": zeros((cfg.n_layers, batch, cfg.d_conv - 1,
+                           cfg.d_inner + 2 * cfg.ssm_state)),
+            "ssm": zeros((cfg.n_layers, batch, cfg.ssm_heads, cfg.head_p,
+                          cfg.ssm_state), torch.float32)}, "len": 0}
         sites = self.n_shared_sites()
         if sites:
-            cache["shared"] = {name: self.embed.new_zeros((sites, *kv_shape))
+            cache["shared"] = {name: zeros((sites, *kv_shape))
                                for name in KV_LEAVES}
         return cache
 
@@ -271,14 +286,16 @@ class DecoderLM(nn.Module):
         del unroll
         if mode == "train":
             return self._train(tokens, patches, remat)
-        if self.placed is not None:
-            raise ValueError(f"a placed model trains; {mode} runs on an "
-                             f"unplaced one")
         if mode not in ("prefill", "decode"):
             raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
                              f"got {mode!r}")
+        pl = self.placed
         decode = mode == "decode"
-        x = self._embed(tokens, None if decode else patches)
+        patches = None if decode else patches
+        top = ["embed"] + (["patch_proj"] if self.patch_proj is not None
+                           and patches is not None else [])
+        with gathered(pl, self, "", top):
+            x = self._embed(tokens, patches)
         b, t, _ = x.shape
         if decode:
             length = cache["len"]
@@ -289,13 +306,15 @@ class DecoderLM(nn.Module):
                   else KV_LEAVES, "shared": KV_LEAVES}
         new = {"blocks": [], "shared": []}
         for blk, group, i in self._layers():
+            run = block_fn(pl, blk, "shared." if group == "shared"
+                           else f"blocks.{i}.")
             if decode:
                 c = tuple(cache[group][name][i] for name in leaves[group])
                 if leaves[group] is KV_LEAVES:
                     c += (length,)        # attention writes at slot len
-                x, _ = blk(x, positions=positions, cache=c)
+                x, _ = run(x, positions=positions, cache=c)
             else:
-                x, c = blk(x, positions=positions)
+                x, c = run(x, positions=positions)
                 new[group].append(c)
         if decode:
             cache_out = {**cache, "len": length + 1}
@@ -304,7 +323,8 @@ class DecoderLM(nn.Module):
                                  for j, name in enumerate(leaves[group])}
                          for group, cs in new.items() if cs}
             cache_out["len"] = t
-        return rms_norm(self.final_norm, x, self.cfg.norm_eps), cache_out
+        with gathered(pl, self, "", ["final_norm"]):
+            return rms_norm(self.final_norm, x, self.cfg.norm_eps), cache_out
 
     def _train(self, tokens, patches, policy: str):
         pl = self.placed
@@ -326,5 +346,11 @@ class DecoderLM(nn.Module):
             return rms_norm(self.final_norm, x, self.cfg.norm_eps), aux
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        w = self.embed.t() if self.cfg.tie_embeddings else self.unembed
-        return hidden @ w
+        """``hidden @ unembed`` (the tied embedding's transpose); on a
+        placed model every rank's vocab slice gathered, so that each holds
+        the logits of its rows over the whole vocab."""
+        tied = self.cfg.tie_embeddings
+        pl = self.placed
+        with gathered(pl, self, "", ["embed" if tied else "unembed"]):
+            out = hidden @ (self.embed.t() if tied else self.unembed)
+        return all_gather(out, pl and pl.unembed_tp, -1)

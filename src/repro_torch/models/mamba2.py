@@ -21,6 +21,18 @@ gathered ``in_proj`` (whose split over the axis does not fall on heads),
 its channels of the conv and the per-head vectors, the gated norm over
 the whole ``d_inner`` (its sum of squares all-reduced), and its rows of
 ``out_proj``, whose product is summed over the axis.
+
+The decode caches stay on the reference's ``cache_spec``, which is not
+the layout the heads' compute reads: ``conv`` splits its ``C`` channels
+over ``model`` in contiguous blocks (``conv_ax``, set wherever ``C``
+divides, with or without ``tp``), while a rank's heads read their ``x``
+channels and the shared ``B``, ``C``; and ``ssm`` holds every head on
+every rank.  So the cache moves between the layouts by all-gathers over
+``model``, each counted in the dry run
+(:mod:`repro_torch.launch.dryrun`): a prefill gathers the heads' ``x``
+rows of the conv window (with ``tp``) and their SSD states; a decode step
+gathers the conv window's blocks, the new row's ``x`` channels (with
+``tp``) and the updated states, and keeps its block of each.
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import init_, rms_norm, weight
-from repro_torch.models.parallel import (copy_to, reduce_from,
+from repro_torch.models.parallel import (all_gather, copy_to, reduce_from,
                                          rms_norm_split)
 
 
@@ -47,7 +59,7 @@ class Mamba2(nn.Module):
         d_inner = cfg.expand * d
         conv_dim = d_inner + 2 * n
         self.cfg = cfg
-        self.tp = None
+        self.tp = self.conv_ax = None
         self.in_proj = weight((d, 2 * d_inner + 2 * n + h), dtype, device)
         self.conv_w = weight((cfg.d_conv, conv_dim), dtype, device)
         self.conv_b = weight((conv_dim,), dtype, device)
@@ -75,8 +87,8 @@ class Mamba2(nn.Module):
             self.d_skip.fill_(1.0)
             self.norm_w.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, *, cache=None):
-        return apply_mamba2(self, x, self.cfg, cache=cache)
+    def forward(self, x: torch.Tensor, *, cache=None, train: bool = False):
+        return apply_mamba2(self, x, self.cfg, cache=cache, train=train)
 
 
 def _split_proj(cfg, proj: torch.Tensor):
@@ -181,8 +193,46 @@ def _head_columns(cfg, rank: int, size: int, device):
     return cols, conv
 
 
-def _tp_mamba2(p: Mamba2, x: torch.Tensor, cfg, tp):
-    """The train route on ``tp``'s local heads (module docstring)."""
+def _conv_block(window: torch.Tensor, ax) -> torch.Tensor:
+    """The rank's contiguous block of the conv window's channels (its
+    ``cache_spec`` block), or the window where ``ax`` is None."""
+    if ax is None:
+        return window
+    c = window.shape[-1] // ax.size
+    return window[..., ax.rank * c:(ax.rank + 1) * c]
+
+
+def _conv_step(window: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """The depthwise conv of one new row over its ``(B, K, C)`` window,
+    then SiLU: the reference's decode conv, in the window's dtype."""
+    conv = window[:, 0:1] * w[0]
+    for i in range(1, w.shape[0]):
+        conv = conv + window[:, i:i + 1] * w[i]
+    return nn.functional.silu(conv + b)
+
+
+def _ssd_step(s_prev: torch.Tensor, xs: torch.Tensor, dt: torch.Tensor,
+              a_log: torch.Tensor, b_mat: torch.Tensor,
+              c_mat: torch.Tensor) -> torch.Tensor:
+    """One step of the recurrence on ``s_prev (B, H, P, N)`` **in place**
+    for ``xs (B, 1, H * P)``, ``dt (B, 1, H)`` and ``b_mat`` / ``c_mat
+    (B, 1, N)``; returns ``y (B, 1, H, P)``, f32."""
+    bsz, h = dt.shape[0], dt.shape[-1]
+    xh = xs.reshape(bsz, h, -1).float()
+    a = torch.exp(-torch.exp(a_log) * dt[:, 0])          # (B,H)
+    dbx = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0], b_mat[:, 0].float(), xh)
+    s_prev.mul_(a[..., None, None]).add_(dbx)
+    return torch.einsum("bn,bhpn->bhp", c_mat[:, 0].float(), s_prev)[:, None]
+
+
+def _tp_mamba2(p: Mamba2, x: torch.Tensor, cfg, tp, cache=None,
+               serve: bool = False):
+    """The route on ``tp``'s local heads (module docstring): ``(y,
+    cache_out)``.  ``cache=None``: the chunked scan, and with ``serve``
+    the prefill's caches on the reference's specs (else None); ``cache =
+    (conv block, ssm (B, H, P, N))``: one decode step, both written in
+    place."""
     bsz, t, d = x.shape
     d_inner, n = cfg.expand * d, cfg.ssm_state
     di, hl = d_inner // tp.size, cfg.ssm_heads // tp.size
@@ -193,29 +243,59 @@ def _tp_mamba2(p: Mamba2, x: torch.Tensor, cfg, tp):
     z, xbc, dt = (x @ p.in_proj.index_select(1, cols)).split(
         [di, di + 2 * n, hl], dim=-1)
     dt = softplus(dt.float() + p.dt_bias[heads])
-    xbc = _causal_conv(xbc, p.conv_w.index_select(1, conv),
-                       p.conv_b.index_select(0, conv))
-    xs, b_mat, c_mat = xbc.split([di, n, n], dim=-1)
-    y, _ = ssd_scan(xs.reshape(bsz, t, hl, hp), dt, p.a_log[heads], b_mat,
-                    c_mat, cfg.ssm_chunk)
+    conv_w = p.conv_w.index_select(1, conv)
+    conv_b = p.conv_b.index_select(0, conv)
+
+    def whole_rows(rows):
+        """The rows of every channel from the rank's (its ``x`` columns
+        and the shared ``B``, ``C``): the ``x`` columns all-gathered."""
+        xr, bc = rows.split([di, 2 * n], dim=-1)
+        return torch.cat([all_gather(xr, tp, -1), bc], dim=-1)
+
+    if cache is None:
+        xbc_conv = _causal_conv(xbc, conv_w, conv_b)
+        xs, b_mat, c_mat = xbc_conv.split([di, n, n], dim=-1)
+        y, s_final = ssd_scan(xs.reshape(bsz, t, hl, hp), dt,
+                              p.a_log[heads], b_mat, c_mat, cfg.ssm_chunk)
+        cache_out = None
+        if serve:
+            window = nn.functional.pad(xbc, (0, 0, cfg.d_conv - 1, 0)) \
+                [:, -(cfg.d_conv - 1):]
+            cache_out = (_conv_block(whole_rows(window), p.conv_ax)
+                         .to(x.dtype), all_gather(s_final, tp, 1))
+    else:
+        conv_state, ssm = cache
+        if t != 1:
+            raise ValueError(f"mamba2 decode takes one token, got T={t}")
+        old = all_gather(conv_state, p.conv_ax, -1)          # (B,K-1,C)
+        window = torch.cat([old.index_select(-1, conv).to(xbc.dtype), xbc],
+                           dim=1)
+        xs, b_mat, c_mat = _conv_step(window, conv_w, conv_b).split(
+            [di, n, n], dim=-1)
+        s_loc = ssm[:, heads].clone()
+        y = _ssd_step(s_loc, xs, dt, p.a_log[heads], b_mat, c_mat)
+        ssm.copy_(all_gather(s_loc, tp, 1))
+        new = torch.cat([old[:, 1:], whole_rows(xbc).to(old.dtype)], dim=1)
+        conv_state.copy_(_conv_block(new, p.conv_ax))
+        cache_out = (conv_state, ssm)
     y = y + p.d_skip[heads][:, None] * xs.reshape(bsz, t, hl, hp).float()
     y = y.reshape(bsz, t, di).to(x.dtype) * nn.functional.silu(z)
     y = rms_norm_split(p.norm_w[tp.rank * di:(tp.rank + 1) * di], y,
                        d_inner, tp, cfg.norm_eps)
-    return reduce_from(y @ p.out_proj, tp)
+    return reduce_from(y @ p.out_proj, tp), cache_out
 
 
-def apply_mamba2(p: Mamba2, x: torch.Tensor, cfg, *, cache=None):
+def apply_mamba2(p: Mamba2, x: torch.Tensor, cfg, *, cache=None,
+                 train: bool = False):
     """``cache=None``: the whole sequence through the chunked scan
-    (prefill), returning ``(y, (conv_state, ssm_state))``.  ``cache =
-    (conv_state (B, K-1, C), ssm_state (B, H, P, N))`` with ``T = 1``:
-    one step of the recurrence, which writes both states **in place**
-    (the reference returns updated copies) and returns them."""
+    (prefill), returning ``(y, (conv_state, ssm_state))`` (``(y, None)``
+    with ``train`` on ``tp``).  ``cache = (conv_state (B, K-1, C),
+    ssm_state (B, H, P, N))`` with ``T = 1``: one step of the recurrence,
+    which writes both states **in place** (the reference returns updated
+    copies) and returns them.  On a placed model the states lie on the
+    reference's specs (module docstring)."""
     if p.tp is not None:
-        if cache is not None:
-            raise ValueError("a placed mamba2 block trains; it has no "
-                             "decode cache")
-        return _tp_mamba2(p, x, cfg, p.tp), None
+        return _tp_mamba2(p, x, cfg, p.tp, cache, serve=not train)
     bsz, t, d = x.shape
     d_inner = cfg.expand * d
     n, h = cfg.ssm_state, cfg.ssm_heads
@@ -231,25 +311,18 @@ def apply_mamba2(p: Mamba2, x: torch.Tensor, cfg, *, cache=None):
         # the window the next token's conv needs: the last K-1 pre-conv rows
         conv_state = nn.functional.pad(xbc, (0, 0, cfg.d_conv - 1, 0)) \
             [:, -(cfg.d_conv - 1):]
-        cache_out = (conv_state.to(x.dtype), s_final)
+        cache_out = (_conv_block(conv_state, p.conv_ax).to(x.dtype),
+                     s_final)
     else:
         conv_state, s_prev = cache
         if t != 1:
             raise ValueError(f"mamba2 decode takes one token, got T={t}")
-        window = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
-        conv = window[:, 0:1] * p.conv_w[0]
-        for i in range(1, cfg.d_conv):
-            conv = conv + window[:, i:i + 1] * p.conv_w[i]
-        xbc_conv = nn.functional.silu(conv + p.conv_b)
-        xs, b_mat, c_mat = xbc_conv.split([d_inner, n, n], dim=-1)
-        xh = xs.reshape(bsz, h, hp).float()
-        a = torch.exp(-torch.exp(p.a_log) * dt[:, 0])          # (B,H)
-        dbx = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0],
-                           b_mat[:, 0].float(), xh)
-        s_prev.mul_(a[..., None, None]).add_(dbx)
-        y = torch.einsum("bn,bhpn->bhp", c_mat[:, 0].float(),
-                         s_prev)[:, None]
-        conv_state.copy_(window[:, 1:])
+        old = all_gather(conv_state, p.conv_ax, -1)
+        window = torch.cat([old.to(xbc.dtype), xbc], dim=1)
+        xs, b_mat, c_mat = _conv_step(window, p.conv_w, p.conv_b).split(
+            [d_inner, n, n], dim=-1)
+        y = _ssd_step(s_prev, xs, dt, p.a_log, b_mat, c_mat)
+        conv_state.copy_(_conv_block(window[:, 1:], p.conv_ax))
         cache_out = (conv_state, s_prev)
 
     y = y + p.d_skip[:, None] * xs.reshape(bsz, t, h, hp).float()

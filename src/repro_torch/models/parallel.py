@@ -14,6 +14,9 @@ local shards of a model placed by :func:`repro_torch.train.sharding.place`:
   MoE statistics); :func:`all_reduce` (all-reduce both ways) where the
   sum feeds partial work again (mamba's norm over the split ``d_inner``);
   :func:`all_max` for the softmax's max, which takes no gradient;
+  :func:`all_gather` (serving only, no gradient) where the ranks' slices
+  of a dim are put back together: the logits' vocab and rows, mamba's
+  heads and conv channels for the decode cache;
 * :class:`Placed` records, on the model, how each weight is stored (a
   ``DTensor``'s placements) and how the compute reads it:
 
@@ -31,6 +34,14 @@ local shards of a model placed by :func:`repro_torch.train.sharding.place`:
 A module's ``tp`` attribute (``None`` unless placed over a ``model`` dim of
 size > 1 whose split that module can run on) switches it to the local
 compute; ``dp`` is the batch axis a MoE's statistics reduce over.
+
+Prefill and decode run on the same local shards, without remat and
+without autograd, the batch's rows split over the batch dims where they
+divide (:meth:`Placed.serving`).  Where they do not (the long_500k cell's
+B = 1), every rank of the batch dims holds the whole batch, and the decode
+cache's *sequence* lies over those dims instead: an attention module's
+``sp`` is then the batch :class:`Axis`, over which its decode softmax is
+combined.
 """
 
 from __future__ import annotations
@@ -115,6 +126,21 @@ def all_max(x: torch.Tensor, axis: Axis | None) -> torch.Tensor:
                                           dist.ReduceOp.MAX)
 
 
+def all_gather(x: torch.Tensor, axis: Axis | None,
+               dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (no
+    gradient; ``x`` itself where ``axis`` is None)."""
+    if axis is None:
+        return x
+    x = x.detach().contiguous()
+    out = x.new_empty((axis.size * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=axis.group)
+    dim = dim % x.dim()
+    if dim == 0:
+        return out
+    return out.view(axis.size, *x.shape).movedim(0, dim).flatten(dim, dim + 1)
+
+
 def rms_norm_split(w: torch.Tensor, x: torch.Tensor, n: int, axis: Axis,
                    eps: float = 1e-5) -> torch.Tensor:
     """:func:`repro_torch.models.layers.rms_norm` over a last dim of ``n``
@@ -182,6 +208,30 @@ class Placed:
         self.unembed_tp = vocab("unembed") if "unembed" in uses \
             else self.embed_tp
         self.coord = mesh.get_coordinate()
+
+    @contextlib.contextmanager
+    def serving(self, model: torch.nn.Module, split: bool):
+        """Prefill and decode of a batch whose rows are split over the
+        batch axis (``split``) or held whole by every rank of it: MoE
+        groups count the batch axis's tokens only where they are split
+        (``dp``), and attention reads a decode cache whose sequence lies
+        over that axis where they are not (``sp``)."""
+        from repro_torch.models.attention import Attention
+        from repro_torch.models.moe import MoE
+
+        moes = [m for m in model.modules() if isinstance(m, MoE)]
+        attns = [m for m in model.modules() if isinstance(m, Attention)]
+        try:
+            for m in moes:
+                m.dp = self.batch if split else None
+            for m in attns:
+                m.sp = None if split else self.batch
+            yield self
+        finally:
+            for m in moes:
+                m.dp = self.batch      # as place leaves it, for training
+            for m in attns:
+                m.sp = None
 
     def owns(self, pls) -> bool:
         """Whether this rank's block of a tensor of placements ``pls`` is

@@ -17,9 +17,15 @@ The train mode runs the encoder and decoder self-attention through the
 chunked scan under autograd, and every encoder and decoder block under
 ``"full"`` remat unless ``remat="none"`` (the reference's whisper
 checkpoints without a policy, so ``"dots"`` is ``"full"`` here too).  A
-placed model (:func:`repro_torch.train.sharding.place`) trains only, each
-block on its gathered weights as :mod:`repro_torch.models.lm`'s do, the
-cross-attention's K / V on the rank's heads.
+placed model (:func:`repro_torch.train.sharding.place`) trains, prefills
+and decodes, each block on its gathered weights as
+:mod:`repro_torch.models.lm`'s do.  Its caches lie on the reference's
+``cache_spec``: ``enc_k`` / ``enc_v`` on the ``attn`` spec, so with the
+self-attention's KV heads (the rank's, or all of them where they do not
+split, the rank's query heads then reading theirs), and, where the batch
+does not split over the batch axes, with the encoder's frames split over
+them, which a decode's cross-attention combines as its self-attention
+does (:func:`repro_torch.models.attention.decode_attend`).
 """
 
 from __future__ import annotations
@@ -27,13 +33,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models.attention import (Attention, _gqa_out, _gqa_scores,
-                                          _local_kv)
+from repro_torch.models.attention import Attention, _local_kv, decode_attend
 from repro_torch.models.layers import (MLP, REMAT, LayerNorm, init_, remat,
                                        weight)
-from repro_torch.models.lm import DTYPES, KV_LEAVES, extend_cache, zero_aux
-from repro_torch.models.parallel import (block_fn, copy_to, embed_lookup,
-                                         gathered, reduce_from)
+from repro_torch.models.lm import (DTYPES, KV_LEAVES, cache_zeros,
+                                   extend_cache, zero_aux)
+from repro_torch.models.parallel import (all_gather, block_fn, copy_to,
+                                         embed_lookup, gathered, reduce_from)
 
 CROSS_KV = ("cross_attn.wk", "cross_attn.wv")
 
@@ -60,16 +66,18 @@ class EncBlock(nn.Module):
 
 
 def cross_attend(p: Attention, x: torch.Tensor, enc_k: torch.Tensor,
-                 enc_v: torch.Tensor, cfg) -> torch.Tensor:
+                 enc_v: torch.Tensor, cfg, sp=None) -> torch.Tensor:
     """Full (not chunked) cross-attention of ``x`` (B, T, d) over the
     encoder's K / V (B, S, KV, hd), unrotated, softmax in f32; under
-    ``p.tp`` on the rank's heads (K / V those heads read)."""
+    ``p.tp`` on the rank's heads (K / V the rank's KV heads, or all of
+    them, of which its query heads read theirs); under ``sp`` (decode) K /
+    V are the rank's slice of the frames."""
     hd = cfg.head_dim
     h = p.wq.shape[-1] // hd
     b, t, _ = x.shape
     q = (copy_to(x, p.tp) @ p.wq).view(b, t, h, hd)
-    pr = torch.softmax(_gqa_scores(q.float(), enc_k.float()), dim=-1)
-    y = _gqa_out(pr, enc_v.float()).to(x.dtype)
+    enc_k, enc_v = _local_kv(enc_k, enc_v, cfg, p.tp, h)
+    y = decode_attend(q, enc_k, enc_v, sp).to(x.dtype)
     return reduce_from(y.reshape(b, t, h * hd) @ p.wo, p.tp)
 
 
@@ -95,8 +103,9 @@ class DecBlock(nn.Module):
         h, cache_out = self.self_attn(self.ln1(x), positions=positions,
                                       cache=cache, train=train)
         x = x + h
+        sp = None if cache is None else self.cross_attn.sp
         x = x + cross_attend(self.cross_attn, self.ln_x(x), enc_k, enc_v,
-                             self.cfg)
+                             self.cfg, sp)
         return x + self.mlp(self.ln2(x)), cache_out
 
 
@@ -151,7 +160,8 @@ class WhisperModel(nn.Module):
 
     def enc_kv(self, enc_out: torch.Tensor):
         """Per-decoder-layer cross K / V, (L, B, S, KV, hd) each, computed
-        once (on a placed model: the rank's heads)."""
+        once (on a placed model: the KV heads of ``wk``, the rank's or
+        all of them)."""
         b, s, _ = enc_out.shape
         hd = self.cfg.head_dim
         ks, vs = [], []
@@ -160,11 +170,8 @@ class WhisperModel(nn.Module):
                 p = blk.cross_attn
                 x = copy_to(enc_out, p.tp)
                 kv = p.wk.shape[-1] // hd
-                k, v = _local_kv((x @ p.wk).view(b, s, kv, hd),
-                                 (x @ p.wv).view(b, s, kv, hd), self.cfg,
-                                 p.tp, p.wq.shape[-1] // hd)
-            ks.append(k)
-            vs.append(v)
+                ks.append((x @ p.wk).view(b, s, kv, hd))
+                vs.append((x @ p.wv).view(b, s, kv, hd))
         return torch.stack(ks), torch.stack(vs)
 
     extend_cache = staticmethod(extend_cache)
@@ -173,12 +180,11 @@ class WhisperModel(nn.Module):
         """Empty decode caches of ``max_len`` slots, the encoder's K / V
         over ``encoder_len`` frames, in the weights' dtype."""
         cfg = self.cfg
+        zeros = cache_zeros(self.embed)
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         enc = (*shape[:2], cfg.encoder_len, *shape[3:])
-        return {"blocks": {name: self.embed.new_zeros(shape)
-                           for name in KV_LEAVES},
-                "enc_k": self.embed.new_zeros(enc),
-                "enc_v": self.embed.new_zeros(enc), "len": 0}
+        return {"blocks": {name: zeros(shape) for name in KV_LEAVES},
+                "enc_k": zeros(enc), "enc_v": zeros(enc), "len": 0}
 
     def forward(self, tokens: torch.Tensor, *, frames=None,
                 mode: str = "prefill", cache: dict | None = None,
@@ -196,20 +202,23 @@ class WhisperModel(nn.Module):
         del unroll
         if mode == "train":
             return self._train(tokens, frames, remat)
-        if self.placed is not None:
-            raise ValueError(f"a placed model trains; {mode} runs on an "
-                             f"unplaced one")
         if mode not in ("prefill", "decode"):
             raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
                              f"got {mode!r}")
-        x = nn.functional.embedding(tokens, self.embed)
+        pl = self.placed
+        with gathered(pl, self, "", ["embed"]):
+            x = embed_lookup(tokens, self.embed, pl and pl.embed_tp)
         b, t, _ = x.shape
+        run = [block_fn(pl, blk, f"decoder.{i}.", names=None if pl is None
+                        else [n for n, _ in blk.named_parameters()
+                              if n not in CROSS_KV])
+               for i, blk in enumerate(self.decoder)]
         if mode == "decode":
             length = cache["len"]
             positions = torch.full((b, 1), length, device=x.device)
             ek, ev = cache["enc_k"], cache["enc_v"]
             kc, vc = cache["blocks"]["k"], cache["blocks"]["v"]
-            for i, blk in enumerate(self.decoder):
+            for i, blk in enumerate(run):
                 x, _ = blk(x, ek[i], ev[i], positions=positions,
                            cache=(kc[i], vc[i], length))
             cache_out = {**cache, "len": length + 1}
@@ -219,14 +228,15 @@ class WhisperModel(nn.Module):
             positions = torch.arange(t, device=x.device).expand(b, t)
             ek, ev = self.enc_kv(self.encode(frames))
             ks, vs = [], []
-            for i, blk in enumerate(self.decoder):
+            for i, blk in enumerate(run):
                 x, (k, v) = blk(x, ek[i], ev[i], positions=positions)
                 ks.append(k)
                 vs.append(v)
             cache_out = {"blocks": {"k": torch.stack(ks),
                                     "v": torch.stack(vs)},
                          "enc_k": ek, "enc_v": ev, "len": t}
-        return self.final_norm(x), cache_out
+        with gathered(pl, self, "", ["final_norm.scale", "final_norm.bias"]):
+            return self.final_norm(x), cache_out
 
     def _train(self, tokens, frames, policy: str):
         if frames is None:
@@ -251,4 +261,9 @@ class WhisperModel(nn.Module):
             return self.final_norm(x), zero_aux(x.device)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        return hidden @ self.unembed
+        """``hidden @ unembed``, the vocab split gathered on a placed
+        model (:meth:`repro_torch.models.lm.DecoderLM.logits`)."""
+        pl = self.placed
+        with gathered(pl, self, "", ["unembed"]):
+            out = hidden @ self.unembed
+        return all_gather(out, pl and pl.unembed_tp, -1)

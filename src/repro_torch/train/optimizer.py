@@ -128,10 +128,14 @@ def _state_shapes(model, tcfg) -> dict:
     return {"vr": vr, "vc": vc}
 
 
-def init_opt_state(model, tcfg) -> dict:
+def init_opt_state(model, tcfg, specs: dict | None = None) -> dict:
     """The optimizer state of ``model``'s parameters, on their device
     (``meta`` included): f32 masters and zero moments; on a placed model
-    ``DTensor`` objects on the reference's specs (module docstring)."""
+    ``DTensor`` objects on the reference's specs (module docstring), or on
+    ``specs`` (``{key: {name: spec}}`` of the moments, as
+    :func:`repro_torch.launch.specs.opt_specs` gives them: replicated
+    where ``TrainConfig.replicate_params``); the masters lie on their
+    weights'."""
     f32 = torch.float32
     params = dict(model.named_parameters())
     master = {n: p.detach().to(f32, copy=True) for n, p in params.items()}
@@ -141,12 +145,15 @@ def init_opt_state(model, tcfg) -> dict:
         return {"master": master, **{
             k: {n: torch.zeros(s, dtype=f32, device=params[n].device)
                 for n, s in d.items()} for k, d in shapes.items()}}
-    from repro_torch.train.sharding import infer_param_specs
+    if specs is None:
+        from repro_torch.train.sharding import infer_param_specs
 
-    specs = infer_param_specs({f"{k}.{n}": s for k, d in shapes.items()
-                               for n, s in d.items()}, placed.mesh)
+        flat = infer_param_specs({f"{k}.{n}": s for k, d in shapes.items()
+                                  for n, s in d.items()}, placed.mesh)
+        specs = {k: {n: flat[f"{k}.{n}"] for n in d}
+                 for k, d in shapes.items()}
     return {"master": master, **{
-        k: {n: _placed_zeros(placed.mesh, specs[f"{k}.{n}"], s,
+        k: {n: _placed_zeros(placed.mesh, specs[k][n], s,
                              local(params[n]).device)
             for n, s in d.items()} for k, d in shapes.items()}}
 

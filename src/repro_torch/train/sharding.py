@@ -32,7 +32,8 @@ and records, on the model, how its train mode reads each weight
 MoE experts over ``model`` (EP), the vocab of ``embed`` / ``unembed``
 over ``model``, everything else gathered.  :func:`batch_rows` is the
 batch's counterpart of :func:`data_spec`: a rank's rows of each
-microbatch.
+microbatch.  :func:`place_cache` is the decode cache's counterpart of
+:func:`place`: each leaf the rank's block on :func:`cache_spec`.
 """
 
 from __future__ import annotations
@@ -295,7 +296,89 @@ def place(model_or_tensors, mesh, specs: dict):
     for mod in model.modules():
         if isinstance(mod, MoE):
             mod.dp = model.placed.batch
+        if isinstance(mod, Mamba2) and size > 1 and \
+                (mod.cfg.d_inner + 2 * mod.cfg.ssm_state) % size == 0:
+            mod.conv_ax = model.placed.model   # cache_spec's conv split
     return model
+
+
+CACHE_KINDS = {"k": "attn", "v": "attn", "enc_k": "attn", "enc_v": "attn",
+               "conv": "conv", "ssm": "ssm"}
+
+
+def cache_leaf_specs(cfg, mesh, batch: int, cache: dict) -> dict:
+    """``{key: spec}`` (a dict for a dict of leaves) of a decode cache's
+    leaves by :func:`cache_spec` (``"len"``: ``()``)."""
+    cs = cache_spec(cfg, mesh, batch)
+    out = {}
+    for key, val in cache.items():
+        if isinstance(val, dict):
+            out[key] = {n: cs[CACHE_KINDS[n]] for n in val}
+        elif isinstance(val, torch.Tensor):
+            out[key] = cs[CACHE_KINDS[key]]
+        else:
+            out[key] = ()
+    return out
+
+
+def place_cache(cache: dict, mesh, cfg, batch: int) -> dict:
+    """The decode ``cache`` (a model's ``init_cache`` or what its prefill
+    returns, extended or not) with each leaf this rank's block on
+    :func:`cache_spec` of the global ``batch``, ``"len"`` as it is.
+
+    A leaf may come whole, or already the rank's block along the dims a
+    placed prefill splits (its rows, KV heads, conv channels): a dim of
+    the whole size (``batch``, ``n_kv_heads``, ``d_inner + 2 N``) is cut
+    to the rank's block, one of the block's size kept.  The sequence
+    (split only where the batch does not divide the batch axes) always
+    comes whole.  A leaf that is cut is copied, so the whole is not kept
+    and the decode's writes stay the rank's."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    specs = cache_leaf_specs(cfg, mesh, batch, cache)
+
+    def one(name, x, spec):
+        whole = {1: batch, 2: x.shape[2],
+                 3: cfg.n_kv_heads if CACHE_KINDS[name] == "attn"
+                 else cfg.d_inner + 2 * cfg.ssm_state}
+        out = x
+        for d, entry in enumerate(spec):
+            axes = [a for a in _axes(entry) if a in names]
+            n = math.prod(mesh.size(names.index(a)) for a in axes)
+            if n == 1:
+                continue
+            k = 0
+            for a in axes:
+                k = k * mesh.size(names.index(a)) + coord[names.index(a)]
+            if x.shape[d] == whole[d]:
+                if whole[d] % n:
+                    raise ValueError(f"cache leaf {name}: dim {d} of "
+                                     f"{tuple(x.shape)} does not split over "
+                                     f"{n} ranks")
+                out = out.chunk(n, d)[k]
+            elif x.shape[d] * n != whole[d]:
+                raise ValueError(f"cache leaf {name}: dim {d} of "
+                                 f"{tuple(x.shape)} is neither {whole[d]} "
+                                 f"nor its block over {n} ranks")
+        return out if out is x else out.clone()
+
+    placed = {}
+    for key, val in cache.items():
+        if isinstance(val, dict):
+            placed[key] = {n: one(n, x, specs[key][n]) for n, x in val.items()}
+        elif isinstance(val, torch.Tensor):
+            placed[key] = one(key, val, specs[key])
+        else:
+            placed[key] = val
+    return placed
+
+
+def batch_split(mesh, batch: int) -> bool:
+    """Whether a serving batch of ``batch`` rows splits over the batch
+    axes (:func:`cache_spec`'s ``batch_sharded``; a mesh without them
+    counts as one rank)."""
+    sizes = mesh_shape(mesh)
+    return batch % math.prod(sizes[a] for a in batch_axes(mesh)) == 0
 
 
 def batch_rows(batch: dict, mesh, n_microbatches: int = 1) -> dict:

@@ -33,13 +33,23 @@ gradients land, summed over the batch axes, on their weights' placements
 (the gathers' backward), its loss and aux losses are the whole
 microbatch's (:mod:`repro_torch.train.losses`,
 :mod:`repro_torch.models.moe`), and the update runs on the local blocks.
+
+The serving steps take a placed model as they are (``model.placed``), and
+then the global batch too: the rank runs its rows where the batch splits
+over the batch axes, else the whole batch
+(:meth:`repro_torch.models.parallel.Placed.serving`); its caches are its
+blocks on the reference's ``cache_spec``
+(:func:`repro_torch.train.sharding.place_cache`), and the logits and next
+tokens every rank returns are the whole batch's, the rows all-gathered.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from repro_torch.models.parallel import gathered
+from repro_torch.models.parallel import all_gather, gathered
 from repro_torch.train.losses import softmax_xent
 from repro_torch.train.optimizer import apply_updates, local
 
@@ -155,32 +165,64 @@ def make_train_step(model, tcfg, *, n_microbatches: int = 1,
     return train_step
 
 
+@contextlib.contextmanager
+def serving(model, batch: int):
+    """``(rows, whole)`` for a serving step of ``batch`` rows: ``rows(x)``
+    the rank's rows of a global ``(B, ...)`` input (None as it is),
+    ``whole(y)`` the whole batch's output from the rank's (both the
+    identity on an unplaced model), inside
+    :meth:`repro_torch.models.parallel.Placed.serving`."""
+    pl = model.placed
+    if pl is None:
+        yield (lambda x: x), (lambda y: y)
+        return
+    from repro_torch.train.sharding import batch_rows, batch_split
+
+    split = batch_split(pl.mesh, batch)
+
+    def rows(x):
+        if x is None or not split:
+            return x
+        return batch_rows({"x": x}, pl.mesh)["x"]
+
+    with pl.serving(model, split):
+        yield rows, (lambda y: all_gather(y, pl.batch) if split else y)
+
+
 def make_prefill_step(model):
     """``prefill(tokens (B, T), extra=None) -> (last-position logits (B, 1,
     V), cache)``; ``extra`` is the vlm family's patch embeddings (B,
-    n_patches, d) or the encdec family's frames (B, encoder_len, d)."""
+    n_patches, d) or the encdec family's frames (B, encoder_len, d).  On a
+    placed model the cache is the rank's (module docstring), its sequence
+    whole: where the batch does not split, :func:`repro_torch.train.
+    sharding.place_cache` cuts it after ``extend_cache``."""
     family = model.cfg.family
 
     @torch.no_grad()
     def prefill_step(tokens: torch.Tensor, extra=None):
-        if family == "encdec":
-            hidden, cache = model(tokens, frames=extra, mode="prefill")
-        else:
-            hidden, cache = model(tokens, mode="prefill",
-                                  patches=extra if family == "vlm" else None)
-        return model.logits(hidden[:, -1:]), cache
+        with serving(model, tokens.shape[0]) as (rows, whole):
+            tokens, extra = rows(tokens), rows(extra)
+            if family == "encdec":
+                hidden, cache = model(tokens, frames=extra, mode="prefill")
+            else:
+                hidden, cache = model(tokens, mode="prefill",
+                                      patches=extra if family == "vlm"
+                                      else None)
+            return whole(model.logits(hidden[:, -1:])), cache
 
     return prefill_step
 
 
 def make_decode_step(model):
     """``decode(token (B, 1), cache) -> (next token (B, 1) int64, logits
-    (B, 1, V), cache)``; the cache is updated in place."""
+    (B, 1, V), cache)``; the cache is updated in place (on a placed model
+    the rank's blocks, module docstring)."""
 
     @torch.no_grad()
     def decode_step(token: torch.Tensor, cache: dict):
-        hidden, cache = model(token, mode="decode", cache=cache)
-        logits = model.logits(hidden)
+        with serving(model, token.shape[0]) as (rows, whole):
+            hidden, cache = model(rows(token), mode="decode", cache=cache)
+            logits = whole(model.logits(hidden))
         return torch.argmax(logits, dim=-1), logits, cache
 
     return decode_step

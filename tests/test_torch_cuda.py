@@ -1240,3 +1240,53 @@ def test_sharded_train_step_on_the_card_is_the_one_device_step(cuda, arch):
         assert torch.equal(met0[k].cpu(), met1[k].cpu()), k
     for n, w in w0.items():
         assert torch.equal(w1[n], w), n
+
+
+@pytest.mark.parametrize("arch", ["minitron-8b", "olmoe-1b-7b",
+                                  "zamba2-1.2b", "whisper-base",
+                                  "llava-next-34b"])
+def test_placed_serving_on_the_card_is_the_one_device_serving(cuda, arch):
+    """Prefill and 4 greedy decode steps of a model placed on a ``(1, 1)``
+    mesh over a world of one rank (NCCL, in this process) are the unplaced
+    model's on the card bit for bit: tokens and every step's logits, one
+    flash launch a prefill's attention layer in each."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch.serve_lm import stub_inputs
+    from repro_torch.train import sharding as shd
+
+    cfg = get_smoke_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    model = build_model(cfg, generator=gen, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (4, 12), generator=gen,
+                            device="cuda")
+    extra = stub_inputs(cfg, 4, gen)
+
+    def serve(place=None):
+        ops.reset_launch_counts()
+        logits, cache = make_prefill_step(model)(prompts, extra)
+        flash = ops.launch_counts()["flash_attention"]
+        cache = model.extend_cache(cache, 4)
+        if place is not None:
+            cache = place(cache)
+        decode, tok, steps = make_decode_step(model), logits.argmax(-1), \
+            [logits]
+        for _ in range(4):
+            tok, logits, cache = decode(tok, cache)
+            steps.append(logits)
+        return tok, steps, flash
+
+    want = serve()
+    lm.init_distributed("cuda", store=dist.HashStore(), rank=0,
+                        world_size=1)
+    try:
+        mesh = lm.make_host_mesh((1, 1), device="cuda")
+        shd.place(model, mesh, shd.infer_param_specs(model, mesh))
+        got = serve(lambda c: shd.place_cache(c, mesh, cfg, 4))
+    finally:
+        lm.shutdown()
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+    assert got[2] == want[2] and (want[2] > 0) == (cfg.family != "ssm")

@@ -10,7 +10,10 @@ One module fixture runs everything once, each launch with a timeout:
 * a world of 4 gloo ranks (``torchrun --standalone``) that places each
   case's model on its mesh (``infer_param_specs``, ``place``), records
   every parameter's and optimizer tensor's placements, local shape and
-  bytes, its batch rows, and runs one train step of the global batch;
+  bytes, its batch rows, and runs one train step of the global batch,
+  counting its collectives by kind, count and bytes
+  (:class:`repro_torch.launch.dryrun.StepMeter`, the dry run's counter,
+  which ``tests/test_torch_dryrun.py`` holds against a fake world's);
 * the reference in a subprocess on 4 forced host devices: ``place`` on
   ``jax.make_mesh``, the jitted ``make_train_step`` on placed inputs;
 * meanwhile, the port's one-device step of every case, here, on one
@@ -109,6 +112,7 @@ from repro_torch import configs
 from repro_torch.data.pipeline import SyntheticSource
 from repro_torch.launch import mesh as lm
 from repro_torch.launch import specs as tspecs
+from repro_torch.launch.dryrun import StepMeter
 from repro_torch.models import DecoderLM, WhisperModel
 from repro_torch.models.convert import (lm_params_from_numpy,
                                         whisper_params_from_numpy)
@@ -187,7 +191,9 @@ for case in cfgs["cases"]:
     rec["rows"] = shd.batch_rows(batch, mesh, cfgs["micro"])["tokens"]
     step = make_train_step(model, tcfg, n_microbatches=cfgs["micro"],
                            mesh=mesh)
-    state, met = step(state, cfgs["step"], batch)
+    with StepMeter() as meter:
+        state, met = step(state, cfgs["step"], batch)
+    rec["collectives"] = meter.by_kind()
     rec["metrics"] = {k: float(v) for k, v in met.items()}
     weights = {n: p.detach().full_tensor() for n, p in
                model.named_parameters()}
@@ -554,3 +560,18 @@ def test_batch_rows_follow_the_microbatch_grouping(runs, tag):
         want = np.concatenate([mbs[i, k * b:(k + 1) * b]
                                for i in range(MICRO)])
         assert np.array_equal(rank[tag]["rows"].numpy(), want), r
+
+
+@pytest.mark.parametrize("tag", list(CASES))
+def test_every_rank_counts_the_same_collectives(runs, tag):
+    """The dry run's counter on the step: every rank issues the same
+    collectives (kinds, counts and bytes), and each step sums gradients
+    or statistics over ranks (a reduce-scatter or an all-reduce), each
+    kind counted with its bytes."""
+    first = runs["ranks"][0][tag]["collectives"]
+    for other in runs["ranks"][1:]:
+        assert other[tag]["collectives"] == first
+    nbytes, counts = first
+    assert counts["reduce-scatter"] + counts["all-reduce"] > 0
+    assert all((counts[k] > 0) == (nbytes[k] > 0) for k in counts)
+

@@ -232,13 +232,40 @@ def test_kv_for_heads_picks_the_heads_a_query_reads():
         [0, 1, 1]
 
 
-def test_moe_refuses_groups_across_batch_ranks():
+@pytest.mark.parametrize("rank", [0, 1])
+def test_moe_refuses_groups_across_batch_ranks(monkeypatch, rank):
+    """A group across batch ranks (olmoe's groups of 32 over 2 ranks of 24
+    tokens), which the MoE once refused, routes as on one device: each
+    rank's outputs and aux losses are the one-device MoE's on the whole
+    48 tokens (the other rank's experts come from the all-gather, here
+    the one-device routing's)."""
     cfg = tconfigs.get_smoke_config("olmoe-1b-7b")     # groups of 32
     moe = tmoe.MoE(cfg, torch.float32, "cpu")
     moe.reset_parameters(torch.Generator().manual_seed(0))
-    moe.dp = Axis(None, 2, 0)
-    with pytest.raises(ValueError, match="groups of 32"):
-        moe(torch.zeros((1, 24, cfg.d_model)))
+    x = torch.randn((2, 24, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    want, want_aux = moe(x.reshape(1, 48, -1))
+    tokens = x.reshape(48, -1)
+    probs = torch.softmax(tokens @ moe.router, dim=-1)
+    experts = tmoe._top_k(probs, cfg.top_k)[1]
+    gathered = []
+
+    def all_gather(t, axis, dim=0):
+        gathered.append(tuple(t.shape))
+        return experts if t.dtype == torch.long else \
+            torch.cat([t, t]) if axis is not None else t
+
+    monkeypatch.setattr(tmoe, "all_gather", all_gather)
+    monkeypatch.setattr(tmoe, "reduce_from",
+                        lambda t, axis: t if axis is None else t * 2)
+    moe.dp = Axis(None, 2, rank)
+    got, aux = moe(x[rank:rank + 1])
+    assert gathered == [(24, cfg.top_k)]
+    assert torch.allclose(got[0], want[0, 24 * rank:24 * (rank + 1)],
+                          rtol=0, atol=1e-6)
+    # the aux losses' sums over the ranks stand in as twice this rank's
+    assert torch.isfinite(aux["load_balance_loss"])
+    assert want_aux["router_z_loss"] > 0
 
 
 def test_train_step_checks_the_mesh():
