@@ -55,6 +55,14 @@ raises on failure:
    time, idle share against the plain run's wall; the Chebyshev, GMRES
    + block-Jacobi and deterministic GMRES solves over their first 20, 3
    and 3 outer steps);
+   (3w) the rest of the reference's public surface on the same garnet:
+   (a) ``repro_torch.api.MDP.save`` into a temporary directory under
+   ``build/`` and ``MDP.from_file`` back, the tables bit for bit 3a's,
+   the save and load timed; (b) ``ipi.init_state`` and then
+   ``ipi.outer_step`` until the lane stops, with the options of 3a's CLI
+   solve: its values bit for bit, its policy, outer and inner counts, and
+   its ``ell_backup`` / ``ell_matvec`` launches (counters set to 0 just
+   before the loop);
 4. GPU vs CPU parity at n=20,000 for vi / mpi / ipi_gmres / ipi_bicgstab
    / ipi_chebyshev / ipi_anderson x mincost / maxreward in float64: same
    policy and counts, values within max(1e-10 |v|_inf, gap bound);
@@ -951,6 +959,79 @@ def other_paths(mdp, main: dict) -> dict:
         rows[name]["profile"] = prof
         log(f"[phase3g] profile {name}: {json.dumps(prof)}")
     return dict(launches=launches, rows=rows)
+
+
+def surface_paths(mdp, main: dict) -> dict:
+    """Phase 3w: (a) ``MDP.save`` and ``MDP.from_file`` of the phase-2
+    garnet, the tables bit for bit; (b) ``outer_step`` from
+    ``init_state`` until the lane stops, bit for bit 3a's CLI solve with
+    its launches."""
+    import tempfile
+
+    from repro_torch.api import MDP, Options
+    from repro_torch.core import ipi
+    from repro_torch.core.comm import Axes
+    from repro_torch.core.mdp import as_fleet
+    from repro_torch.kernels import ops
+
+    # (a) the file round trip
+    OUT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MDP(mdp).save(tmp)
+        t_save = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(tmp).iterdir())
+        t0 = time.perf_counter()
+        loaded = MDP.from_file(tmp)
+        t_load = time.perf_counter() - t0
+        core = loaded.core.to("cuda")
+    same = {f: bits_equal(getattr(core, f), getattr(mdp, f))
+            for f in ("idx", "val", "cost")}
+    meta = (core.n_global, core.m_global, core.gamma, loaded.mode)
+    if not all(same.values()) or meta != (mdp.n_global, mdp.m_global,
+                                          mdp.gamma, "mincost"):
+        raise AssertionError(f"3w (a): MDP.save / MDP.from_file gave tables "
+                             f"{same}, shape and mode {meta}")
+    del core, loaded
+    log(f"[phase3w] (a) MDP.save {nbytes / 1e9:.3f} GB in {t_save:.2f}s, "
+        f"MDP.from_file in {t_load:.2f}s; idx, val, cost bit for bit 3a's")
+
+    # (b) the solve as a loop of outer steps, with the CLI's options
+    opts = Options({"-method": "ipi_gmres", "-dtype": "float64",
+                    "-atol": 1e-8, "-max_outer": 2000}).to_ipi()
+    dev, axes = as_fleet(mdp), Axes()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ipi.init_state(dev, axes, opts)
+    stop, _, _, k = ipi.stop_flags(state, axes)
+    while not stop.all() and k.max() < opts.max_outer:
+        # the step's own read gives the flags: one read a step
+        state, (stop, _, _, k) = ipi.outer_step(dev, state, opts, axes,
+                                               with_flags=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    v, pi = state.v[0].cpu().numpy(), state.pi[0].cpu().numpy()
+    outer, inner = int(state.k[0]), int(state.inner_total[0])
+    want = main["launches"]["cli_ipi_gmres"]
+    if not (bool(state.done[0]) and np.array_equal(
+            v.view(np.int64), main["cli_v"].view(np.int64))
+            and np.array_equal(pi, main["cli_pi"])
+            and (outer, inner) == (main["cli_outer"], main["cli_inner"])
+            and launches == want):
+        raise AssertionError(
+            f"3w (b): outer_step loop outer={outer} inner={inner} launches "
+            f"{launches} against 3a's CLI outer={main['cli_outer']} inner="
+            f"{main['cli_inner']} launches {want} (policies equal: "
+            f"{np.array_equal(pi, main['cli_pi'])}, max |dv| "
+            f"{np.abs(v - main['cli_v']).max():.3e})")
+    log(f"[phase3w] (b) init_state + {outer} outer_step calls, ipi_gmres "
+        f"f64: inner={inner} wall={wall:.2f}s; values bit for bit 3a's CLI, "
+        f"its policy, counts and launches {launches}")
+    return dict(launches={"outer_step_loop": launches}, save_s=t_save,
+                load_s=t_load, save_bytes=nbytes, loop_wall_s=wall)
 
 
 def device_profile(fn) -> tuple:
@@ -4402,6 +4483,8 @@ def main() -> int:
     stamp("3g")
     other = other_paths(mdp, path)
     path["launches"].update(other["launches"])
+    stamp("3w")
+    path["launches"].update(surface_paths(mdp, path)["launches"])
     stamp("4")
     parity()
     stamp("3h")

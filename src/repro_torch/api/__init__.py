@@ -20,12 +20,13 @@
     with madupite_session({"-method": "ipi_gmres", "-atol": 1e-8}) as s:
         result = s.solve(mdp)          # on the GPU; "-device": "cpu" for host
 
-Module-level :func:`solve` is a one-shot convenience over a shared
-default session.
+Module-level :func:`solve` / :func:`solve_fleet` are one-shot
+conveniences over a shared default session.
 """
 
 from __future__ import annotations
 
+from repro_torch.api.fleet import bucket_indices
 from repro_torch.api.mdp import MDP, place_function_fleet
 from repro_torch.api.methods import (StopMetrics, ksp_names, ksp_table,
                                      method_names, method_table,
@@ -39,11 +40,11 @@ from repro_torch.api.options import (OPTION_SPECS, Options, OptionTypeError,
 from repro_torch.api.session import Session, madupite_session
 
 __all__ = ["MDP", "Options", "OptionTypeError", "OPTION_SPECS", "Session",
-           "StopMetrics", "UnknownOptionError", "ksp_names", "ksp_table",
-           "madupite_session", "method_names", "method_table",
-           "option_table", "place_function_fleet", "register_ksp",
-           "register_method",
-           "register_stop_criterion", "solve", "stop_names", "stop_table",
+           "StopMetrics", "UnknownOptionError", "bucket_indices",
+           "ksp_names", "ksp_table", "madupite_session", "method_names",
+           "method_table", "option_table", "place_function_fleet",
+           "register_ksp", "register_method", "register_stop_criterion",
+           "solve", "solve_fleet", "stop_names", "stop_table",
            "unregister_ksp", "unregister_method",
            "unregister_stop_criterion"]
 
@@ -65,3 +66,12 @@ def solve(mdp, options=None, **overrides):
         with Session(options) as s:
             return s.solve(mdp, **overrides)
     return _default().solve(mdp, **overrides)
+
+
+def solve_fleet(mdps, options=None, **overrides):
+    """One-shot :meth:`Session.solve_fleet`, on a throwaway session or the
+    shared default one as :func:`solve` picks."""
+    if options is not None:
+        with Session(options) as s:
+            return s.solve_fleet(mdps, **overrides)
+    return _default().solve_fleet(mdps, **overrides)

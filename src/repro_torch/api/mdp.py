@@ -7,7 +7,8 @@ reward and solves ``max_a``), built
 * from arrays (:meth:`MDP.from_arrays`): ELL tables (``idx`` + ``val`` +
   ``cost``) or a dense transition tensor (``p`` + ``cost``);
 * from files (:meth:`MDP.from_file`): the block-manifest format of
-  :mod:`repro_torch.core.io` (either package's files);
+  :mod:`repro_torch.core.io` (either package's files), which
+  :meth:`MDP.save` writes;
 * from the built-in generator families (:meth:`MDP.from_generator`),
   optionally *deferred* (``deferred=True``: the torch constructors of
   :data:`repro_torch.core.generators.FN_REGISTRY`);
@@ -413,6 +414,24 @@ class MDP:
                                          device=dev)
             self._device_cache[key] = core
         return self._device_cache[key]
+
+    # ---- persistence -------------------------------------------------------
+    def save(self, path: str, n_blocks: int = 1, *,
+             device: str | torch.device = "cuda") -> None:
+        """Write the block-manifest format of :mod:`repro_torch.core.io`
+        in ``n_blocks`` row blocks, with this MDP's ``mode``.
+
+        An MDP that holds its core container (arrays, files, the built-in
+        generators) writes that container as it is, wherever its tables
+        lie, and builds nothing.  A function-backed MDP is built first, as
+        :meth:`build` builds it on ``device`` (cached per device, so one
+        already built there is not built again).  Only the ELL
+        representation has a file format: a dense or matrix-free MDP
+        raises ``ValueError``."""
+        core = self._core if self._core is not None else self.build(device)
+        if not isinstance(core, EllMDP):
+            raise ValueError("save() supports the ELL representation only")
+        core_io.save_mdp(path, core, n_blocks=n_blocks, mode=self.mode)
 
     def place(self, mesh, layout: str = "1d", *, mode: str | None = None,
               materialize: str = "auto",

@@ -422,8 +422,10 @@ def _normalize(key: Any) -> str:
 class Options:
     """The options database: a validated, precedence-aware flat key store.
 
-    Keys may be given with or without the leading dash.  Reads return the
-    registry default for unset keys.
+    Construct empty, from a mapping, from the environment and/or CLI
+    (:meth:`from_sources`), or from an :class:`IPIOptions`
+    (:meth:`from_ipi`).  Keys may be given with or without the leading
+    dash.  Reads return the registry default for unset keys.
     """
 
     def __init__(self, values: Mapping[str, Any] | None = None):
@@ -453,6 +455,10 @@ class Options:
     def is_set(self, key: str) -> bool:
         """True when the key was explicitly provided (any source)."""
         return _normalize(key) in self._values
+
+    def unset(self, key: str) -> None:
+        """Forget an explicitly set key: reads give its default again."""
+        self._values.pop(_normalize(key), None)
 
     def __repr__(self) -> str:
         kv = ", ".join(f"{k}={v[0]!r}"
@@ -518,6 +524,16 @@ class Options:
             return IPIOptions(**kw)
         except ValueError as e:
             raise OptionTypeError(str(e)) from None
+
+    @classmethod
+    def from_ipi(cls, ipi: IPIOptions) -> "Options":
+        """Database holding exactly ``ipi``'s settings, over the fields
+        :meth:`to_ipi` reads (round-trips: ``Options.from_ipi(o).to_ipi()
+        == o``)."""
+        out = cls()
+        for name, field in _IPI_FIELDS.items():
+            out.set(name, getattr(ipi, field))
+        return out
 
     def with_overrides(self, overrides: Mapping[str, Any]) -> "Options":
         """Copy with ``overrides`` applied at user precedence."""

@@ -40,6 +40,9 @@ from repro_torch.core.solvers import PC_TYPES, build_precond, lanes
 from repro_torch.core.mdp import MDP, batch_parts, gammas_of
 from repro_torch.kernels import ops
 
+# the built-in method names (the live registry, :mod:`.methods`, also
+# holds the user-registered ones)
+METHODS = tuple(methods.method_names(builtin_only=True))
 MODES = ("mincost", "maxreward")
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -308,9 +311,15 @@ def stop_flags(state: SolveState, axes: Axes = Axes()) -> tuple:
     arrays ``(B,)``.  Under a fleet axis they hold the lanes of every
     fleet shard, in order (one all-gather over the fleet group)."""
     stop = state.done | torch.isnan(state.res) | state.diverged
-    flags = _read([stop, state.res, state.diverged], state.k, axes)
+    return _stop_tuple(_read([stop, state.res, state.diverged], state.k,
+                             axes), state.k, axes)
+
+
+def _stop_tuple(flags: np.ndarray, k: np.ndarray, axes: Axes) -> tuple:
+    """:func:`stop_flags`'s tuple from a :func:`_read` whose first rows are
+    stop, residual and diverged."""
     return flags[0] != 0, flags[1], flags[2] != 0, \
-        state.k if axes.fleet is None else flags[-1].astype(np.int64)
+        k if axes.fleet is None else flags[-1].astype(np.int64)
 
 
 def _read(rows: list, k: np.ndarray, axes: Axes) -> np.ndarray:
@@ -407,6 +416,101 @@ def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
     return v1, tv1, pi1, res1, span1, inner, state.win
 
 
+def _step(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
+          gamma_t, act_h: np.ndarray, lanes_here: slice) -> tuple:
+    """One outer step of this shard's lanes in ``act_h`` (host bools; the
+    others stay frozen), with the k, trace, ``done`` and ``diverged``
+    bookkeeping and the step's one read.  The traces are written in
+    place.  Returns ``(state1, flags, k_col)``: ``flags`` is the read
+    (:func:`_read` of stop, residual, diverged and inner count), ``k_col``
+    the outer index the active lanes wrote."""
+    dev = state.v.device
+    gamma = mdp.gamma if gamma_t is None else gamma_t
+    # with every lane active no lane is masked, and nothing is copied
+    act = None if act_h.all() else lanes.to_device(act_h, dev)
+    v1, tv1, pi1, res1, span1, inner, win1 = _outer_core(
+        mdp, state, opts, axes, gamma_t, act, act_h)
+    k1 = state.k + act_h
+    done1 = methods.stop_done(
+        opts, res=res1, span=span1, res0=state.res0,
+        k=lanes.to_device(k1.astype(np.int32), dev), gamma=gamma)
+    div = torch.isnan(res1) | (
+        res1 > opts.divtol * torch.clamp_min(state.res0, 1e-30))
+    sel = lambda new, old: lanes.keep(act, act is None, new, old)
+    div1 = state.diverged | (div if act is None else act & div)
+    # lockstep: every active lane writes outer index k_col; frozen lanes
+    # keep their column
+    k_col = int(k1[act_h].max())
+    state.trace_res[:, k_col] = sel(res1.to(state.trace_res.dtype),
+                                    state.trace_res[:, k_col])
+    if act is not None:
+        inner = torch.where(act, inner, 0)
+    state.trace_inner[:, k_col - 1] = sel(
+        inner, state.trace_inner[:, k_col - 1])
+    res = sel(res1, state.res)
+    done = sel(done1, state.done)
+    stop = done | torch.isnan(res) | div1
+    # the step's one read: every lane's flags, residual, inner count
+    flags = _read([stop, res, div1, inner], k1, axes)
+    state = SolveState(
+        v=sel(v1, state.v), tv=sel(tv1, state.tv),
+        pi=sel(pi1, state.pi), res=res, k=k1,
+        inner_total=state.inner_total
+        + flags[3].astype(np.int64)[lanes_here],
+        trace_res=state.trace_res, trace_inner=state.trace_inner,
+        res0=state.res0, span=sel(span1, state.span), done=done,
+        diverged=div1, n_true=state.n_true,
+        win=None if win1 is None else sel(win1, state.win))
+    return state, flags, k_col
+
+
+def _fleet_lanes(mdp: MDP, axes: Axes) -> slice:
+    """This fleet shard's lanes among the fleet's."""
+    lo = axes.fleet_index() * mdp.batch
+    return slice(lo, lo + mdp.batch)
+
+
+def outer_step(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
+               *, gamma_t: torch.Tensor | None = None,
+               with_flags: bool = False):
+    """One outer iPI iteration of every lane of ``state`` (the greedy
+    policy is already in it), with the reference's ``k``, trace,
+    ``done`` and ``diverged`` bookkeeping: :func:`solve_chunk`'s step with
+    no lane frozen, so a loop of these from :func:`init_state` until the
+    lanes stop is bit for bit the chunked solve, launch for launch.
+
+    Functional, as the reference's step is: the caller's ``state`` is left
+    as it was (the two traces, ``(B, max_outer + 1)`` and small, are
+    copied before the step writes them).  ``gamma_t`` (``(B,)``), if
+    given, replaces the MDP's per-lane discounts for the step.  The lanes
+    step in lockstep, so they must share one outer index below
+    ``opts.max_outer``.
+
+    With ``with_flags`` it returns ``(state, flags)``: ``flags`` is
+    :func:`stop_flags` of the new state, taken from the step's own read,
+    so a host loop over the steps reads the device once a step, as
+    :func:`solve_chunk` does."""
+    ks = np.unique(state.k)
+    if len(ks) != 1:
+        raise ValueError(f"outer_step steps every lane at one outer index; "
+                         f"this state's lanes are at k = {state.k.tolist()}"
+                         f" (step a fleet whose lanes stopped apart with "
+                         f"solve_chunk)")
+    if ks[0] >= opts.max_outer:
+        raise ValueError(f"outer_step at k = {int(ks[0])}: the traces hold "
+                         f"max_outer = {opts.max_outer} outer steps")
+    if gamma_t is not None:
+        g = tuple(torch.as_tensor(gamma_t).reshape(-1).tolist())
+        mdp = dataclasses.replace(mdp, gamma=g if len(set(g)) > 1 else g[0])
+    state = dataclasses.replace(state, trace_res=state.trace_res.clone(),
+                                trace_inner=state.trace_inner.clone())
+    state, flags, _ = _step(mdp, state, opts, axes,
+                            batch_parts(mdp, DTYPES[opts.dtype]),
+                            np.ones(mdp.batch, bool), _fleet_lanes(mdp, axes))
+    return (state, _stop_tuple(flags, state.k, axes)) if with_flags \
+        else state
+
+
 def solve_chunk(mdp: MDP, state: SolveState, k_hi: int,
                 opts: IPIOptions, axes: Axes,
                 on_step=None) -> SolveState:
@@ -420,12 +524,8 @@ def solve_chunk(mdp: MDP, state: SolveState, k_hi: int,
     every shard runs the same steps: one whose lanes have all stopped runs
     no-op steps (its state frozen) until the whole fleet has, and the
     record covers the whole fleet."""
-    dt = DTYPES[opts.dtype]
-    dev = state.v.device
-    gamma_t = batch_parts(mdp, dt)
-    gamma = mdp.gamma if gamma_t is None else gamma_t
-    lo = axes.fleet_index() * mdp.batch
-    lanes_here = slice(lo, lo + mdp.batch)
+    gamma_t = batch_parts(mdp, DTYPES[opts.dtype])
+    lanes_here = _fleet_lanes(mdp, axes)
     stop_g, _, _, k_g = stop_flags(state, axes)
     while True:
         act_g = ~stop_g & (k_g < k_hi)
@@ -443,42 +543,9 @@ def solve_chunk(mdp: MDP, state: SolveState, k_hi: int,
                 on_step(int(k_g[act_g].max()), flags[1],
                         flags[3].astype(np.int64), flags[2] != 0)
             continue
-        # with every lane active no lane is masked, and nothing is copied
-        act = None if act_h.all() else lanes.to_device(act_h, dev)
-        v1, tv1, pi1, res1, span1, inner, win1 = _outer_core(
-            mdp, state, opts, axes, gamma_t, act, act_h)
-        k1 = state.k + act_h
-        done1 = methods.stop_done(
-            opts, res=res1, span=span1, res0=state.res0,
-            k=lanes.to_device(k1.astype(np.int32), dev), gamma=gamma)
-        div = torch.isnan(res1) | (
-            res1 > opts.divtol * torch.clamp_min(state.res0, 1e-30))
-        sel = lambda new, old: lanes.keep(act, act is None, new, old)
-        div1 = state.diverged | (div if act is None else act & div)
-        # lockstep: every active lane writes outer index k_col; frozen
-        # lanes keep their column
-        k_col = int(k1[act_h].max())
-        state.trace_res[:, k_col] = sel(res1.to(state.trace_res.dtype),
-                                        state.trace_res[:, k_col])
-        if act is not None:
-            inner = torch.where(act, inner, 0)
-        state.trace_inner[:, k_col - 1] = sel(
-            inner, state.trace_inner[:, k_col - 1])
-        res = sel(res1, state.res)
-        done = sel(done1, state.done)
-        stop = done | torch.isnan(res) | div1
-        # the step's one read: every lane's flags, residual, inner count
-        flags = _read([stop, res, div1, inner], k1, axes)
-        stop_g = flags[0] != 0
-        inner_g = flags[3].astype(np.int64)
-        k_g = k1 if axes.fleet is None else flags[-1].astype(np.int64)
-        state = SolveState(
-            v=sel(v1, state.v), tv=sel(tv1, state.tv),
-            pi=sel(pi1, state.pi), res=res, k=k1,
-            inner_total=state.inner_total + inner_g[lanes_here],
-            trace_res=state.trace_res, trace_inner=state.trace_inner,
-            res0=state.res0, span=sel(span1, state.span), done=done,
-            diverged=div1, n_true=state.n_true,
-            win=None if win1 is None else sel(win1, state.win))
+        state, flags, k_col = _step(mdp, state, opts, axes, gamma_t, act_h,
+                                    lanes_here)
+        stop_g, _, _, k_g = _stop_tuple(flags, state.k, axes)
         if on_step is not None:
-            on_step(k_col, flags[1], inner_g, flags[2] != 0)
+            on_step(k_col, flags[1], flags[3].astype(np.int64),
+                    flags[2] != 0)

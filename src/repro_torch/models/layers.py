@@ -105,6 +105,29 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _ffn(x: torch.Tensor, w_gate, w_up: torch.Tensor, w_down: torch.Tensor,
+         mlp_type: str) -> torch.Tensor:
+    up = x @ w_up
+    if mlp_type == "swiglu":
+        h = torch.nn.functional.silu(x @ w_gate) * up
+    elif mlp_type == "relu2":
+        h = torch.square(torch.relu(up))
+    elif mlp_type == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        h = torch.nn.functional.gelu(up, approximate="tanh")
+    else:
+        raise ValueError(f"unknown mlp_type {mlp_type!r}")
+    return h @ w_down
+
+
+def apply_mlp(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    """The dense FFN over a mapping of weights (``w_gate`` for swiglu,
+    ``w_up``, ``w_down``), the reference's functional form; :class:`MLP`
+    runs the same ops on its own weights."""
+    return _ffn(x, params["w_gate"] if mlp_type == "swiglu" else None,
+                params["w_up"], params["w_down"], mlp_type)
+
+
 class MLP(nn.Module):
     """Dense FFN: ``swiglu`` (gate, up, down), ``relu2`` (squared ReLU) or
     ``gelu`` (up, down).  With ``tp`` (a placed model's ``model`` axis) the
@@ -130,16 +153,9 @@ class MLP(nn.Module):
         init_(self.w_down, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = copy_to(x, self.tp)
-        up = x @ self.w_up
-        if self.mlp_type == "swiglu":
-            h = torch.nn.functional.silu(x @ self.w_gate) * up
-        elif self.mlp_type == "relu2":
-            h = torch.square(torch.relu(up))
-        else:
-            # jax.nn.gelu defaults to the tanh approximation
-            h = torch.nn.functional.gelu(up, approximate="tanh")
-        return reduce_from(h @ self.w_down, self.tp)
+        w_gate = self.w_gate if self.mlp_type == "swiglu" else None
+        return reduce_from(_ffn(copy_to(x, self.tp), w_gate, self.w_up,
+                                self.w_down, self.mlp_type), self.tp)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

@@ -281,6 +281,41 @@ def test_gpu_solve_matches_cpu_solve(cuda, method):
             1e-10 * np.abs(rc.v).max(), rc.gap_bound)
 
 
+@pytest.mark.parametrize("method", ["vi", "mpi", "ipi_gmres"])
+def test_outer_step_on_the_card_is_the_solve(cuda, method):
+    """``outer_step`` from ``init_state`` until the lane stops: the card's
+    ``driver.solve`` bit for bit (values, policy, counts, residual trace)
+    with the same kernel launches."""
+    from repro_torch.core import ipi
+    from repro_torch.core.comm import Axes
+    from repro_torch.core.mdp import as_fleet
+
+    mdp = generators.garnet(n=3000, m=6, k=4, gamma=0.95, seed=7)
+    opts = IPIOptions(method=method, dtype="float64", atol=1e-8)
+    ops.reset_launch_counts()
+    want = driver.solve(mdp, opts, device=cuda)
+    solve_launches = ops.launch_counts()
+    dev, axes = as_fleet(mdp.to(cuda)), Axes()
+    ops.reset_launch_counts()
+    state = ipi.init_state(dev, axes, opts)
+    stop, _, _, k = ipi.stop_flags(state, axes)
+    while not stop.all() and k.max() < opts.max_outer:
+        # the step's own read gives the flags: one read a step
+        state, (stop, _, _, k) = ipi.outer_step(dev, state, opts, axes,
+                                               with_flags=True)
+    assert ops.launch_counts() == solve_launches
+    assert solve_launches["ell_backup"] > want.outer_iterations
+    assert bool(state.done[0]) and want.converged
+    assert (int(state.k[0]), int(state.inner_total[0])) == \
+        (want.outer_iterations, want.inner_iterations)
+    np.testing.assert_array_equal(state.v[0].cpu().numpy().view(np.int64),
+                                  want.v.view(np.int64))
+    np.testing.assert_array_equal(state.pi[0].cpu().numpy(), want.policy)
+    np.testing.assert_array_equal(
+        state.trace_res[0, :want.outer_iterations + 1].cpu().numpy()
+        .view(np.int64), want.trace_residual.view(np.int64))
+
+
 # the other KSPs, their preconditioners and deterministic GMRES
 NEW_PATHS = {"bicgstab": dict(method="ipi_bicgstab"),
              "bicgstab_jacobi": dict(method="ipi_bicgstab",

@@ -35,8 +35,8 @@ from repro_torch.api.fleet import bucket_indices
 from repro_torch.core import driver as tdriver
 from repro_torch.core import generators as tgen
 from repro_torch.core import methods as tmethods
-from repro_torch.core import solve as tsolve
-from repro_torch.core import solve_many as tsolve_many
+from repro_torch.core.driver import solve as tsolve
+from repro_torch.core.driver import solve_many as tsolve_many
 from repro_torch.core import stack_mdps
 from repro_torch.core.ipi import IPIOptions as TOpts
 from repro_torch.launch import solve as tcli
