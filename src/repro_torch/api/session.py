@@ -68,6 +68,7 @@ from repro_torch.core.mdp import MDP as CoreMDP, DenseMDP, EllMDP, \
     MatrixFreeMDP, stack_mdps
 from repro_torch.device import resolve_device
 from repro_torch.kernels import tuning
+from repro_torch.utils import trace
 from repro_torch.utils.lru import LRUCache
 
 __all__ = ["Session", "madupite_session"]
@@ -249,7 +250,22 @@ class Session:
 
         ``stop_criterion`` overrides ``-stop_criterion``: a registered
         name or a predicate ``fn(m: repro_torch.api.StopMetrics) -> bool``.
+
+        While a ``torch.profiler`` session is active, or inside
+        :func:`repro_torch.utils.trace.recording`, the call's run
+        statistics also carry ``"trace"``: milliseconds by span of the
+        solve path, total and self, the device time of the spans timed on
+        the card, the device reads and the wait on them by site, and the
+        kernel launches (:mod:`repro_torch.utils.trace`).
         """
+        with trace.span("session.solve") as root:
+            r, opts, entry = self._solve_one(mdp, monitor, stop_criterion,
+                                             overrides)
+        self._attach_trace(root, entry)
+        self._write_outputs([r], opts)
+        return r
+
+    def _solve_one(self, mdp, monitor, stop_criterion, overrides):
         opts, mon_cb, mon_records = self._observe(overrides, monitor,
                                                   stop_criterion)
         mdp = self._wrap(mdp, opts)
@@ -297,11 +313,10 @@ class Session:
                              device=device)
         wall = time.time() - t0
         r = _trim(r, mdp.n)
-        self._record([r], [mdp], ipi, opts, wall, fleet=None,
-                     monitor=mon_records, mesh=mesh, layout=layout,
-                     adaptive=report)
-        self._write_outputs([r], opts)
-        return r
+        entry = self._record([r], [mdp], ipi, opts, wall, fleet=None,
+                             monitor=mon_records, mesh=mesh, layout=layout,
+                             adaptive=report)
+        return r, opts, entry
 
     def solve_fleet(self, mdps: Sequence[MDP | CoreMDP], *, monitor=None,
                     stop_criterion=None, **overrides) -> list[SolveResult]:
@@ -320,10 +335,20 @@ class Session:
         ``-method auto`` is resolved once per bucket: the bucket's largest
         instance is probed and the rule table's choice runs the whole
         bucket (no mid-solve hot-swap: it would split the batch); the
-        choices land in the run statistics' ``fleet["auto"]``.
+        choices land in the run statistics' ``fleet["auto"]``.  While
+        recording (:meth:`solve`), the statistics carry ``"trace"``.
         """
         if not mdps:
             return []
+        with trace.span("session.solve_fleet") as root:
+            results, opts, entry = self._solve_fleet(mdps, monitor,
+                                                     stop_criterion,
+                                                     overrides)
+        self._attach_trace(root, entry)
+        self._write_outputs(results, opts)
+        return results
+
+    def _solve_fleet(self, mdps, monitor, stop_criterion, overrides):
         opts, mon_cb, mon_records = self._observe(overrides, monitor,
                                                   stop_criterion)
         wrapped = [self._wrap(m, opts) for m in mdps]
@@ -379,11 +404,10 @@ class Session:
         if auto_choices is not None:
             fleet_info["auto"] = auto_choices
         mesh, layout = self.placement(opts, fleet_size=len(wrapped))
-        self._record(results, wrapped, ipi, opts, wall,
-                     fleet=fleet_info, monitor=mon_records, mesh=mesh,
-                     layout=layout)
-        self._write_outputs(results, opts)
-        return results  # type: ignore[return-value]
+        entry = self._record(results, wrapped, ipi, opts, wall,
+                             fleet=fleet_info, monitor=mon_records,
+                             mesh=mesh, layout=layout)
+        return results, opts, entry
 
     # ---- internals ---------------------------------------------------------
     def _observe(self, overrides, monitor, stop_criterion):
@@ -514,7 +538,7 @@ class Session:
 
     def _record(self, results, mdps, ipi, opts: Options, wall: float, *,
                 fleet, monitor=None, mesh=None,
-                layout: str = "1d", adaptive=None) -> None:
+                layout: str = "1d", adaptive=None) -> dict:
         entry = {
             "method": ipi.method,
             "mode": ipi.mode,
@@ -551,6 +575,17 @@ class Session:
                 s["trace_inner"] = [int(x) for x in r.trace_inner]
         with self._io_lock:
             self._stats.append(entry)
+        return entry
+
+    def _attach_trace(self, root, entry: dict) -> None:
+        """The call's spans, reads and launches into its run statistics,
+        once its span (``root``; ``None`` when not recording) has
+        closed."""
+        call = None if root is None else trace.find(root.call)
+        if call is not None:
+            summary = call.summary()
+            with self._io_lock:
+                entry["trace"] = summary
 
     def _write_outputs(self, results, opts: Options) -> None:
         """``-file_stats``, then ``-file_policy`` / ``-file_cost``: one

@@ -410,7 +410,9 @@ def _fma(a: torch.Tensor, y: torch.Tensor, scale) -> torch.Tensor:
         s = scale.to(device=y.device, dtype=y.dtype).reshape(
             (-1,) + (1,) * (y.dim() - 1))
     else:
-        s = torch.tensor(scale, dtype=y.dtype, device=y.device)
+        # filled on the device: a host value copied in would make the host
+        # wait for the device's queue at every matvec
+        s = torch.full((), scale, dtype=y.dtype, device=y.device)
     return torch.addcmul(a.to(y.dtype), y, s)
 
 

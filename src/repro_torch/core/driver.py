@@ -65,7 +65,7 @@ from repro_torch.core.ipi import IPIOptions, SolveState
 from repro_torch.core.mdp import (MDP, DenseMDP, EllMDP, MatrixFreeMDP,
                                   as_fleet, gammas_of, stack_mdps)
 from repro_torch.device import resolve_device
-from repro_torch.utils import checkpoint as ckpt
+from repro_torch.utils import checkpoint as ckpt, trace
 
 # the reference SolveState's leaves, in its field order: a checkpoint holds
 # them as leaf_0 .. leaf_13
@@ -104,10 +104,11 @@ def _result(state: SolveState, b: int, opts: IPIOptions, gamma: float,
             n_orig: int | None = None) -> SolveResult:
     """The result of lane ``b`` of ``state``, with padding states past
     ``n_orig`` trimmed."""
+    read = lambda t: trace.to_host(t, "driver.results")
     k = int(state.k[b])
-    res = float(state.res[b])
-    converged = bool(state.done[b])
-    v = state.v[b, :n_orig].cpu().numpy()
+    res = float(read(state.res[b]))
+    converged = bool(read(state.done[b]))
+    v = read(state.v[b, :n_orig]).numpy()
     gap = res / (1.0 - gamma)
     if converged and opts.stop_criterion == "span" and gamma < 1.0:
         # Midpoint correction (Puterman §6.6): with d = T v - v,
@@ -115,23 +116,23 @@ def _result(state: SolveState, b: int, opts: IPIOptions, gamma: float,
         # max(d), so the midpoint-shifted T v carries the certified bound
         # gamma * sp(d) / (2 * (1-gamma)).  A constant shift: the policy is
         # untouched.
-        tv = state.tv[b, :n_orig].cpu().numpy()
+        tv = read(state.tv[b, :n_orig]).numpy()
         d = tv - v
         scale = gamma / (1.0 - gamma)
         v = tv + scale * (float(d.max()) + float(d.min())) / 2.0
-        gap = scale * float(state.span[b]) / 2.0
+        gap = scale * float(read(state.span[b])) / 2.0
     return SolveResult(
         v=v,
-        policy=state.pi[b, :n_orig].cpu().numpy(),
+        policy=read(state.pi[b, :n_orig]).numpy(),
         residual=res,
         gap_bound=gap,
         converged=converged,
         outer_iterations=k,
         inner_iterations=int(state.inner_total[b]),
-        trace_residual=state.trace_res[b, :k + 1].cpu().numpy(),
-        trace_inner=state.trace_inner[b, :k].cpu().numpy(),
-        diverged=bool(state.diverged[b]),
-        span=float(state.span[b]))
+        trace_residual=read(state.trace_res[b, :k + 1]).numpy(),
+        trace_inner=read(state.trace_inner[b, :k]).numpy(),
+        diverged=bool(read(state.diverged[b])),
+        span=float(read(state.span[b])))
 
 
 def _drain_monitor(emit, state: SolveState, done_prev: np.ndarray,
@@ -512,35 +513,39 @@ def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, mesh=None,
                          "dim, which a single solve() does not have; use "
                          "solve_many() or layout='1d'/'2d'")
     n_orig = mdp.n_global
-    if mesh is None:
-        dev = resolve_device(device)
-        axes = Axes()
-        block = mdp.to(dev)
-        if opts.halo:
-            _validate_banded(block, opts.halo, axes, None)
-    else:
-        dev = _mesh_device(mesh, device)
-        placed = partition.already_placed(mdp, mesh, layout, dev)
-        block, axes, _ = partition.shard_mdp(mdp, mesh, layout,
-                                             mode=opts.mode, device=dev)
-        if opts.halo:
-            _validate_banded(block if placed else mdp, opts.halo,
-                             axes if placed else Axes(), axes.state_size())
-    opts = _resolve_overlap(opts, block, axes, mesh is not None)
-    dev_mdp = as_fleet(partition.place_block(block, axes, halo=opts.halo,
-                                             plan=opts.overlap_plan))
+    with trace.span("driver.stack"):
+        if mesh is None:
+            dev = resolve_device(device)
+            axes = Axes()
+            block = mdp.to(dev)
+            if opts.halo:
+                _validate_banded(block, opts.halo, axes, None)
+        else:
+            dev = _mesh_device(mesh, device)
+            placed = partition.already_placed(mdp, mesh, layout, dev)
+            block, axes, _ = partition.shard_mdp(mdp, mesh, layout,
+                                                 mode=opts.mode, device=dev)
+            if opts.halo:
+                _validate_banded(block if placed else mdp, opts.halo,
+                                 axes if placed else Axes(),
+                                 axes.state_size())
+        opts = _resolve_overlap(opts, block, axes, mesh is not None)
+        dev_mdp = as_fleet(partition.place_block(
+            block, axes, halo=opts.halo, plan=opts.overlap_plan))
     lead = mesh is None or dist.get_rank() == 0
     n_pad, n_loc = block.n_global, block.n_local
     rows = slice(axes.state_index() * n_loc, (axes.state_index() + 1) * n_loc)
     if v0 is not None:
         v0 = torch.nn.functional.pad(torch.as_tensor(v0),
                                      (0, n_pad - n_orig))[rows][None]
-    state = _restore_or_init(
-        lambda: ipi.init_state(dev_mdp, axes, opts, v0, n_true=[n_orig]),
-        _state_like(n_pad, opts), dev, checkpoint_dir, verbose and lead,
-        expect=dict(n=n_orig), single=True, rows=rows)
-    state = _with_window(state, opts,
-                         n_loc + 2 * opts.halo if opts.halo else n_pad)
+    with trace.span("driver.init"):
+        state = _restore_or_init(
+            lambda: ipi.init_state(dev_mdp, axes, opts, v0,
+                                   n_true=[n_orig]),
+            _state_like(n_pad, opts), dev, checkpoint_dir, verbose and lead,
+            expect=dict(n=n_orig), single=True, rows=rows)
+        state = _with_window(state, opts,
+                             n_loc + 2 * opts.halo if opts.halo else n_pad)
     save_each = bool(checkpoint_dir) and checkpoint_mode == "chunk"
 
     def save_state(state: SolveState) -> None:
@@ -565,11 +570,12 @@ def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, mesh=None,
     emit = lambda k, res, inner, div: methods.emit_host(
         mid, np.max(k), res[0], inner[0], div[0])
     try:
-        state, (_, res, div), stopped = _drive(
-            dev_mdp, state, opts, axes, chunk=chunk, mid=mid, emit=emit,
-            report=report,
-            after_chunk=save_state if save_each else lambda state: None,
-            supervisor=supervisor)
+        with trace.span("driver.loop"):
+            state, (_, res, div), stopped = _drive(
+                dev_mdp, state, opts, axes, chunk=chunk, mid=mid, emit=emit,
+                report=report,
+                after_chunk=save_state if save_each else lambda state: None,
+                supervisor=supervisor)
         # an interrupted solve is kept for its resume; a NaN-poisoned
         # state is not worth persisting
         if (stopped or (div[0] and not np.isnan(res[0]))) \
@@ -578,7 +584,9 @@ def solve(mdp: MDP, opts: IPIOptions = IPIOptions(), *, mesh=None,
     finally:
         if mid:
             methods.monitor_release(mid)
-    return _result(_global_state(state, axes), 0, opts, mdp.gamma, n_orig)
+    with trace.span("driver.results"):
+        return _result(_global_state(state, axes), 0, opts, mdp.gamma,
+                       n_orig)
 
 
 def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
@@ -660,31 +668,33 @@ def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
                          + ("" if mesh is not None else " without a mesh"))
 
     lead = mesh is None or dist.get_rank() == 0
-    if mesh is None:
-        dev = resolve_device(device)
-        axes = Axes()
-        batched = mdps if not isinstance(mdps, list) else stack_mdps(mdps)
-        dev_mdp = batched.to(dev)
-        gammas, lane0 = gammas_of(batched), 0
-    else:
-        dev = _mesh_device(mesh, device)
-        axes = partition.mesh_axes(mesh, layout)
-        if axes.fleet is not None:
-            fb = mdps if fleet_block else partition.shard_fleet(
-                mdps, mesh, layout, mode=opts.mode, device=dev,
-                pad_fleet=pad_fleet)
-            block, gammas, lane0 = fb.block, fb.gammas, fb.lane0
-        else:
+    with trace.span("driver.stack"):
+        if mesh is None:
+            dev = resolve_device(device)
+            axes = Axes()
             batched = mdps if not isinstance(mdps, list) \
                 else stack_mdps(mdps)
-            block, _, _ = partition.shard_mdp(batched, mesh, layout,
-                                              mode=opts.mode, device=dev)
+            dev_mdp = batched.to(dev)
             gammas, lane0 = gammas_of(batched), 0
-        if opts.halo:
-            _validate_banded(block, opts.halo, axes, axes.state_size())
-        opts = _resolve_overlap(opts, block, axes, True)
-        dev_mdp = partition.place_block(block, axes, halo=opts.halo,
-                                        plan=opts.overlap_plan)
+        else:
+            dev = _mesh_device(mesh, device)
+            axes = partition.mesh_axes(mesh, layout)
+            if axes.fleet is not None:
+                fb = mdps if fleet_block else partition.shard_fleet(
+                    mdps, mesh, layout, mode=opts.mode, device=dev,
+                    pad_fleet=pad_fleet)
+                block, gammas, lane0 = fb.block, fb.gammas, fb.lane0
+            else:
+                batched = mdps if not isinstance(mdps, list) \
+                    else stack_mdps(mdps)
+                block, _, _ = partition.shard_mdp(batched, mesh, layout,
+                                                  mode=opts.mode, device=dev)
+                gammas, lane0 = gammas_of(batched), 0
+            if opts.halo:
+                _validate_banded(block, opts.halo, axes, axes.state_size())
+            opts = _resolve_overlap(opts, block, axes, True)
+            dev_mdp = partition.place_block(block, axes, halo=opts.halo,
+                                            plan=opts.overlap_plan)
     # the padded fleet's lanes and states, and the ones this rank holds
     b_pad, n_pad = len(gammas), dev_mdp.n_global
     b_loc, n_loc = dev_mdp.batch, dev_mdp.n_local
@@ -705,13 +715,14 @@ def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
     # per-lane unpadded state counts (0 for dummy lanes and the lanes past
     # origin's B)
     nt = (list(n_origs) + [0] * (b_pad - len(n_origs)))[lanes]
-    state = _restore_or_init(
-        lambda: ipi.init_state(dev_mdp, axes, opts, v0, n_true=nt),
-        _state_like(n_pad, opts, b_pad), dev, checkpoint_dir,
-        verbose and lead, expect=dict(n=n_true, batch=b_true), rows=rows,
-        lanes=lanes)
-    state = _with_window(state, opts,
-                         n_loc + 2 * opts.halo if opts.halo else n_pad)
+    with trace.span("driver.init"):
+        state = _restore_or_init(
+            lambda: ipi.init_state(dev_mdp, axes, opts, v0, n_true=nt),
+            _state_like(n_pad, opts, b_pad), dev, checkpoint_dir,
+            verbose and lead, expect=dict(n=n_true, batch=b_true),
+            rows=rows, lanes=lanes)
+        state = _with_window(state, opts,
+                             n_loc + 2 * opts.halo if opts.halo else n_pad)
 
     def report(k, res, div, done) -> None:
         if verbose and lead:
@@ -739,12 +750,14 @@ def solve_many(mdps, opts: IPIOptions = IPIOptions(), *, v0s=None,
         mid, k[:b_true] if np.ndim(k) else k, res[:b_true], inner[:b_true],
         div[:b_true])
     try:
-        state, _, _ = _drive(dev_mdp, state, opts, axes, chunk=chunk,
-                             mid=mid, emit=emit, report=report,
-                             after_chunk=save_state)
+        with trace.span("driver.loop"):
+            state, _, _ = _drive(dev_mdp, state, opts, axes, chunk=chunk,
+                                 mid=mid, emit=emit, report=report,
+                                 after_chunk=save_state)
     finally:
         if mid:
             methods.monitor_release(mid)
-    state = _global_state(state, axes)
-    return [_result(state, b, opts, gammas[b], n_origs[b])
-            for b in range(b_true)]
+    with trace.span("driver.results"):
+        state = _global_state(state, axes)
+        return [_result(state, b, opts, gammas[b], n_origs[b])
+                for b in range(b_true)]

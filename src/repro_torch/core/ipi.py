@@ -39,6 +39,7 @@ from repro_torch.core.comm import Axes
 from repro_torch.core.solvers import PC_TYPES, build_precond, lanes
 from repro_torch.core.mdp import MDP, batch_parts, gammas_of
 from repro_torch.kernels import ops
+from repro_torch.utils import trace
 
 # the built-in method names (the live registry, :mod:`.methods`, also
 # holds the user-registered ones)
@@ -261,7 +262,7 @@ def _span_of(d: torch.Tensor, axes: Axes, opts: IPIOptions,
     n_loc = d.shape[-1]
     rows = axes.state_index() * n_loc + torch.arange(n_loc, device=d.device)
     valid = rows[None, :] < n_true[:, None]
-    ninf = torch.tensor(-float("inf"), dtype=d.dtype, device=d.device)
+    ninf = torch.full((), -float("inf"), dtype=d.dtype, device=d.device)
     ext = axes.pmax_state(torch.stack([
         torch.amax(torch.where(valid, d, ninf), dim=-1),
         torch.amax(torch.where(valid, -d, ninf), dim=-1)]))
@@ -280,14 +281,15 @@ def init_state(mdp: MDP, axes: Axes, opts: IPIOptions,
     v = torch.zeros((batch, mdp.n_local), dtype=dt, device=dev) \
         if v0 is None else torch.as_tensor(v0).to(device=dev, dtype=dt)
     gamma_t = batch_parts(mdp, dt)
-    tv, pi, win = bellman.gather_backup(mdp, v, axes,
-                                        plan=opts.overlap_plan,
-                                        halo=opts.halo, mode=opts.mode,
-                                        gamma_t=gamma_t, impl=opts.impl)
+    with trace.span("ipi.backup"):
+        tv, pi, win = bellman.gather_backup(mdp, v, axes,
+                                            plan=opts.overlap_plan,
+                                            halo=opts.halo, mode=opts.mode,
+                                            gamma_t=gamma_t, impl=opts.impl)
     tv = tv.to(dt)
     res = axes.norm_inf(tv - v)
-    nt = torch.tensor([mdp.n_global] * batch if n_true is None
-                      else list(n_true), dtype=torch.int32, device=dev)
+    nt = lanes.to_device(np.asarray([mdp.n_global] * batch if n_true is None
+                                    else list(n_true), np.int32), dev)
     span = _span_of(tv - v, axes, opts, nt)
     done = methods.stop_done(
         opts, res=res, span=span, res0=res,
@@ -333,7 +335,7 @@ def _read(rows: list, k: np.ndarray, axes: Axes) -> np.ndarray:
         flags = torch.cat([flags, torch.from_numpy(k.astype(
             np.float64))[None].to(dev)])
         flags = axes.allgather_fleet(flags.T.contiguous()).T
-    return flags.cpu().numpy()
+    return trace.to_host(flags, "ipi.flags").numpy()
 
 
 def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
@@ -360,8 +362,8 @@ def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
         r, x, axes, halo=opts.halo, gather_dtype=wire, impl=opts.impl))
     matvec = mv(rows)
     tol = torch.maximum(opts.forcing_eta * state.res,
-                        torch.tensor(_TOL_FLOOR, dtype=state.res.dtype,
-                                     device=state.res.device))
+                        torch.full((), _TOL_FLOOR, dtype=state.res.dtype,
+                                   device=state.res.device))
     live = np.flatnonzero(act_h)
     lane_pcs = [None] * mdp.batch
     precond = None
@@ -382,17 +384,18 @@ def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
         return mv(rows.lane(i, gammas[i])), dict(gamma=gammas[i]), \
             lane_pcs[i]
 
-    v1, inner = methods.inner_solve(
-        opts, matvec, b, state.tv, tol, axes, live=act, live_lanes=live,
-        lane=lane, precond=precond)
+    with trace.span("ipi.inner"):
+        v1, inner = methods.inner_solve(
+            opts, matvec, b, state.tv, tol, axes, live=act, live_lanes=live,
+            lane=lane, precond=precond)
 
     def eval_at(v):
         # exact window; the overlap plan switches in the communication-
         # overlapped (result-identical) backup
-        tv, pi, _ = bellman.gather_backup(mdp, v, axes,
-                                          plan=opts.overlap_plan,
-                                          halo=opts.halo, mode=opts.mode,
-                                          gamma_t=gamma_t, impl=opts.impl)
+        with trace.span("ipi.backup"):
+            tv, pi, _ = bellman.gather_backup(
+                mdp, v, axes, plan=opts.overlap_plan, halo=opts.halo,
+                mode=opts.mode, gamma_t=gamma_t, impl=opts.impl)
         return v, tv, pi, axes.norm_inf(tv - v)
 
     cand = eval_at(v1)
@@ -404,7 +407,7 @@ def _outer_core(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
         reject = ~(cand[3] <= state.res)
         if act is not None:
             reject = reject & act
-        reject_h = reject.cpu().numpy()
+        reject_h = trace.to_host(reject, "ipi.safeguard").numpy()
         if reject_h.all():
             cand = eval_at(state.tv)
         elif reject_h.any():
@@ -504,9 +507,11 @@ def outer_step(mdp: MDP, state: SolveState, opts: IPIOptions, axes: Axes,
         mdp = dataclasses.replace(mdp, gamma=g if len(set(g)) > 1 else g[0])
     state = dataclasses.replace(state, trace_res=state.trace_res.clone(),
                                 trace_inner=state.trace_inner.clone())
-    state, flags, _ = _step(mdp, state, opts, axes,
-                            batch_parts(mdp, DTYPES[opts.dtype]),
-                            np.ones(mdp.batch, bool), _fleet_lanes(mdp, axes))
+    with trace.span("ipi.step"):
+        state, flags, _ = _step(mdp, state, opts, axes,
+                                batch_parts(mdp, DTYPES[opts.dtype]),
+                                np.ones(mdp.batch, bool),
+                                _fleet_lanes(mdp, axes))
     return (state, _stop_tuple(flags, state.k, axes)) if with_flags \
         else state
 
@@ -543,8 +548,9 @@ def solve_chunk(mdp: MDP, state: SolveState, k_hi: int,
                 on_step(int(k_g[act_g].max()), flags[1],
                         flags[3].astype(np.int64), flags[2] != 0)
             continue
-        state, flags, k_col = _step(mdp, state, opts, axes, gamma_t, act_h,
-                                    lanes_here)
+        with trace.span("ipi.step"):
+            state, flags, k_col = _step(mdp, state, opts, axes, gamma_t,
+                                        act_h, lanes_here)
         stop_g, _, _, k_g = _stop_tuple(flags, state.k, axes)
         if on_step is not None:
             on_step(k_col, flags[1], flags[3].astype(np.int64),

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.utils import trace
 
 @dataclasses.dataclass(frozen=True)
 class EllMDP:
@@ -442,7 +443,12 @@ def stack_mdps(mdps) -> MDP:
         idxs.append(hi)
         vals.append(hv)
         costs.append(hc)
-    shared = all(torch.equal(i, idxs[0]) for i in idxs[1:])
+    shared = True
+    for i in idxs[1:]:
+        with trace.reading("driver.stack"):
+            shared = torch.equal(i, idxs[0])
+        if not shared:
+            break
     idx = idxs[0].contiguous() if shared else torch.stack(idxs)
     return EllMDP(idx=idx, val=torch.stack(vals), cost=torch.stack(costs),
                   gamma=gamma, n_global=n_to, m_global=m_g)

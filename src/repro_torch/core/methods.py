@@ -424,7 +424,7 @@ def _inner_bounds(opts, spec: MethodSpec, forcing_tol, dev):
     reference's dtypes (a float32 ``0`` for sweeps, ``float32(atol) *
     0.01`` for tight)."""
     if spec.inner == "sweeps":
-        return (torch.tensor(0.0, dtype=torch.float32, device=dev),
+        return (torch.zeros((), dtype=torch.float32, device=dev),
                 max(opts.mpi_sweeps - 1, 0))
     if spec.inner == "tight":
         return (torch.tensor(np.float32(opts.atol), device=dev) * 0.01,

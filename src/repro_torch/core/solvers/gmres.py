@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.core.comm import Axes
 from repro_torch.core.solvers import lanes
+from repro_torch.utils import trace
 
 _TINY = 1e-30
 
@@ -113,56 +114,60 @@ def _arnoldi_cycle(matvec, b, x, *, restart: int, tol, axes: Axes,
         # estimate stays the true residual ||b - A x||
         w = matvec(M(V[j]))
         # CGS2: two masked classical Gram-Schmidt passes
-        mask = (row_ids <= j).to(dt)
-        if deterministic:
-            h1 = mask * _det_projections(axes, V, w)
-            w = w - _det_combine(h1, V)
-            h2 = mask * _det_projections(axes, V, w)
-            w = w - _det_combine(h2, V)
-        else:
-            h1 = mask * axes.psum_state(V @ w)
-            w = w - h1 @ V
-            h2 = mask * axes.psum_state(V @ w)
-            w = w - h2 @ V
-        h = h1 + h2
-        hnorm = norm2(w)
-        v_next = w / torch.where(hnorm > _TINY, hnorm, 1.0)
+        with trace.span("gmres.orthogonalize", device=dev):
+            mask = (row_ids <= j).to(dt)
+            if deterministic:
+                h1 = mask * _det_projections(axes, V, w)
+                w = w - _det_combine(h1, V)
+                h2 = mask * _det_projections(axes, V, w)
+                w = w - _det_combine(h2, V)
+            else:
+                h1 = mask * axes.psum_state(V @ w)
+                w = w - h1 @ V
+                h2 = mask * axes.psum_state(V @ w)
+                w = w - h2 @ V
+        with trace.span("gmres.givens"):
+            h = h1 + h2
+            hnorm = norm2(w)
+            v_next = w / torch.where(hnorm > _TINY, hnorm, 1.0)
 
-        # Apply the j previous Givens rotations to the new column; rotation
-        # i touches positions (i, i+1) <= j, so h[j+1] (== hnorm) stays.
-        h[j + 1] = hnorm
-        for i in range(j):
-            hi, hi1 = h[i].clone(), h[i + 1].clone()
-            h[i] = cs[i] * hi + sn[i] * hi1
-            h[i + 1] = -sn[i] * hi + cs[i] * hi1
-        hj, hj1 = h[j].clone(), hnorm
+            # Apply the j previous Givens rotations to the new column; rotation
+            # i touches positions (i, i+1) <= j, so h[j+1] (== hnorm) stays.
+            h[j + 1] = hnorm
+            for i in range(j):
+                hi, hi1 = h[i].clone(), h[i + 1].clone()
+                h[i] = cs[i] * hi + sn[i] * hi1
+                h[i + 1] = -sn[i] * hi + cs[i] * hi1
+            hj, hj1 = h[j].clone(), hnorm
 
-        denom = torch.sqrt(hj * hj + hj1 * hj1)
-        safe = denom > _TINY
-        safe_denom = torch.where(safe, denom, 1.0)
-        c_new = torch.where(safe, hj / safe_denom, 1.0)
-        s_new = torch.where(safe, hj1 / safe_denom, 0.0)
-        gj = g[j].clone()
-        g_new = g.clone()
-        g_new[j + 1] = -s_new * gj
-        g_new[j] = c_new * gj
-        res_new = torch.abs(-s_new * gj)
+            denom = torch.sqrt(hj * hj + hj1 * hj1)
+            safe = denom > _TINY
+            safe_denom = torch.where(safe, denom, 1.0)
+            c_new = torch.where(safe, hj / safe_denom, 1.0)
+            s_new = torch.where(safe, hj1 / safe_denom, 0.0)
+            gj = g[j].clone()
+            g_new = g.clone()
+            g_new[j + 1] = -s_new * gj
+            g_new[j] = c_new * gj
+            res_new = torch.abs(-s_new * gj)
 
-        # Column j of R: rotated h (j -> denom; the subdiagonal entry j+1
-        # is annihilated by the new rotation).  Every update is dropped
-        # once the cycle has converged.
-        col = h.clone()
-        col[j] = denom
-        col[j + 1] = 0.0
-        live = ~done
-        V[j + 1] = torch.where(live, v_next, V[j + 1])
-        R[:, j] = torch.where(live, col[:restart], R[:, j])
-        cs[j] = torch.where(live, c_new, cs[j])
-        sn[j] = torch.where(live, s_new, sn[j])
-        g = torch.where(live, g_new, g)
-        res = torch.where(live, res_new, res)
-        it = it + live.to(torch.int32)
-        done = done | (res <= tol)
+            # Column j of R: rotated h (j -> denom; the subdiagonal entry j+1
+            # is annihilated by the new rotation).  Every update is dropped
+            # once the cycle has converged.
+            col = h.clone()
+            col[j] = denom
+            # a slice, not an element: a scalar written into a 0-d view of
+            # a CUDA tensor is copied from the host and waits for the device
+            col[j + 1:j + 2] = 0.0
+            live = ~done
+            V[j + 1] = torch.where(live, v_next, V[j + 1])
+            R[:, j] = torch.where(live, col[:restart], R[:, j])
+            cs[j] = torch.where(live, c_new, cs[j])
+            sn[j] = torch.where(live, s_new, sn[j])
+            g = torch.where(live, g_new, g)
+            res = torch.where(live, res_new, res)
+            it = it + live.to(torch.int32)
+            done = done | (res <= tol)
 
     # Solve the (iters x iters) triangular system; mask out unused columns.
     active = torch.arange(restart, device=dev) < it
@@ -198,14 +203,16 @@ def gmres(matvec, b: torch.Tensor, x0: torch.Tensor, *, tol, maxiter: int,
     r0 = b - matvec(x0)
     res = _det_norm2(axes, r0) if deterministic else axes.norm2(r0)
     x, it = x0, 0
-    go = bool(res > tol)
+    go = bool(trace.to_host(res > tol, "gmres.go"))
     while go and it < maxiter:
-        x, res, done_iters = _arnoldi_cycle(
-            matvec, b, x, restart=restart, tol=tol, axes=axes,
-            deterministic=deterministic, precond=precond)
+        with trace.span("gmres.cycle"):
+            x, res, done_iters = _arnoldi_cycle(
+                matvec, b, x, restart=restart, tol=tol, axes=axes,
+                deterministic=deterministic, precond=precond)
         # one device read per cycle: the step count and the loop condition
-        more, n_it = torch.stack([(res > tol).to(torch.int64),
-                                  done_iters.to(torch.int64)]).tolist()
+        more, n_it = trace.to_host(torch.stack(
+            [(res > tol).to(torch.int64), done_iters.to(torch.int64)]),
+            "gmres.cycle").tolist()
         go, it = bool(more), it + n_it
     return x, it, res
 
@@ -272,51 +279,56 @@ def _arnoldi_cycle_fleet(matvec, b, x, *, restart: int, tol, axes: Axes,
 
     for j in range(restart):
         w = matvec(M(V[:, j]))
-        mask = (row_ids <= j).to(dt)
-        if deterministic:
-            h1 = mask * _det_projections_lanes(axes, V, w)
-            w = w - _det_combine_lanes(h1, V)
-            h2 = mask * _det_projections_lanes(axes, V, w)
-            w = w - _det_combine_lanes(h2, V)
-        else:
-            h1 = mask * axes.psum_state(torch.bmm(V, w[:, :, None])[..., 0])
-            w = w - torch.bmm(h1[:, None, :], V)[:, 0]
-            h2 = mask * axes.psum_state(torch.bmm(V, w[:, :, None])[..., 0])
-            w = w - torch.bmm(h2[:, None, :], V)[:, 0]
-        h = h1 + h2
-        hnorm = norm2(w)
-        v_next = w / torch.where(hnorm > _TINY, hnorm, 1.0)[:, None]
+        with trace.span("gmres.orthogonalize", device=dev):
+            mask = (row_ids <= j).to(dt)
+            if deterministic:
+                h1 = mask * _det_projections_lanes(axes, V, w)
+                w = w - _det_combine_lanes(h1, V)
+                h2 = mask * _det_projections_lanes(axes, V, w)
+                w = w - _det_combine_lanes(h2, V)
+            else:
+                h1 = mask * axes.psum_state(
+                    torch.bmm(V, w[:, :, None])[..., 0])
+                w = w - torch.bmm(h1[:, None, :], V)[:, 0]
+                h2 = mask * axes.psum_state(
+                    torch.bmm(V, w[:, :, None])[..., 0])
+                w = w - torch.bmm(h2[:, None, :], V)[:, 0]
+        with trace.span("gmres.givens"):
+            h = h1 + h2
+            hnorm = norm2(w)
+            v_next = w / torch.where(hnorm > _TINY, hnorm, 1.0)[:, None]
 
-        h[:, j + 1] = hnorm
-        for i in range(j):
-            hi, hi1 = h[:, i].clone(), h[:, i + 1].clone()
-            h[:, i] = cs[:, i] * hi + sn[:, i] * hi1
-            h[:, i + 1] = -sn[:, i] * hi + cs[:, i] * hi1
-        hj, hj1 = h[:, j].clone(), hnorm
+            h[:, j + 1] = hnorm
+            for i in range(j):
+                hi, hi1 = h[:, i].clone(), h[:, i + 1].clone()
+                h[:, i] = cs[:, i] * hi + sn[:, i] * hi1
+                h[:, i + 1] = -sn[:, i] * hi + cs[:, i] * hi1
+            hj, hj1 = h[:, j].clone(), hnorm
 
-        denom = torch.sqrt(hj * hj + hj1 * hj1)
-        safe = denom > _TINY
-        safe_denom = torch.where(safe, denom, 1.0)
-        c_new = torch.where(safe, hj / safe_denom, 1.0)
-        s_new = torch.where(safe, hj1 / safe_denom, 0.0)
-        gj = g[:, j].clone()
-        g_new = g.clone()
-        g_new[:, j + 1] = -s_new * gj
-        g_new[:, j] = c_new * gj
-        res_new = torch.abs(-s_new * gj)
+            denom = torch.sqrt(hj * hj + hj1 * hj1)
+            safe = denom > _TINY
+            safe_denom = torch.where(safe, denom, 1.0)
+            c_new = torch.where(safe, hj / safe_denom, 1.0)
+            s_new = torch.where(safe, hj1 / safe_denom, 0.0)
+            gj = g[:, j].clone()
+            g_new = g.clone()
+            g_new[:, j + 1] = -s_new * gj
+            g_new[:, j] = c_new * gj
+            res_new = torch.abs(-s_new * gj)
 
-        col = h.clone()
-        col[:, j] = denom
-        col[:, j + 1] = 0.0
-        live = ~done
-        V[:, j + 1] = torch.where(live[:, None], v_next, V[:, j + 1])
-        R[:, :, j] = torch.where(live[:, None], col[:, :restart], R[:, :, j])
-        cs[:, j] = torch.where(live, c_new, cs[:, j])
-        sn[:, j] = torch.where(live, s_new, sn[:, j])
-        g = torch.where(live[:, None], g_new, g)
-        res = torch.where(live, res_new, res)
-        it = it + live.to(torch.int32)
-        done = done | (res <= tol)
+            col = h.clone()
+            col[:, j] = denom
+            col[:, j + 1] = 0.0
+            live = ~done
+            V[:, j + 1] = torch.where(live[:, None], v_next, V[:, j + 1])
+            R[:, :, j] = torch.where(live[:, None], col[:, :restart],
+                                     R[:, :, j])
+            cs[:, j] = torch.where(live, c_new, cs[:, j])
+            sn[:, j] = torch.where(live, s_new, sn[:, j])
+            g = torch.where(live[:, None], g_new, g)
+            res = torch.where(live, res_new, res)
+            it = it + live.to(torch.int32)
+            done = done | (res <= tol)
 
     active = torch.arange(restart, device=dev)[None, :] < it[:, None]
     diag_fix = torch.diag_embed(torch.where(active, 0.0, 1.0).to(dt))
@@ -360,15 +372,17 @@ def gmres_fleet(matvec, b: torch.Tensor, x0: torch.Tensor, *, tol,
     run_h = [r and maxiter > 0 for r in run_h]
     while any(run_h):
         all_run = all(run_h)
-        x1, res1, n1 = _arnoldi_cycle_fleet(
-            matvec, b, x, restart=restart, tol=tol, axes=axes,
-            deterministic=deterministic, precond=precond)
+        with trace.span("gmres.cycle"):
+            x1, res1, n1 = _arnoldi_cycle_fleet(
+                matvec, b, x, restart=restart, tol=tol, axes=axes,
+                deterministic=deterministic, precond=precond)
         x = lanes.keep(run, all_run, x1, x)
         res = lanes.keep(run, all_run, res1, res)
         # one device read per cycle: the lanes' step counts and residual
         # tests
-        more, n_it = torch.stack([(res > tol).to(torch.int64),
-                                  n1.to(torch.int64)]).tolist()
+        more, n_it = trace.to_host(torch.stack(
+            [(res > tol).to(torch.int64), n1.to(torch.int64)]),
+            "gmres.cycle").tolist()
         it = lanes.advance(it, run_h, n_it)
         run_h = [r and bool(m) and i < maxiter
                  for r, m, i in zip(run_h, more, it)]

@@ -16,6 +16,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.utils import trace
+
 
 def one_lane(fleet):
     """The unbatched form of the batched KSP body ``fleet``: its B = 1
@@ -54,7 +56,7 @@ def start(run: torch.Tensor, live: torch.Tensor | None):
     one entry a lane."""
     if live is not None:
         run = run & live
-    run_h = run.tolist()
+    run_h = trace.to_host(run, "lanes.start").tolist()
     return run, run_h, [0] * len(run_h)
 
 

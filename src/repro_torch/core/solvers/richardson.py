@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.comm import Axes
 from repro_torch.core.solvers import lanes
+from repro_torch.utils import trace
 
 
 def richardson_fleet(matvec, b: torch.Tensor, x0: torch.Tensor, *, tol,
@@ -48,7 +49,7 @@ def richardson_fleet(matvec, b: torch.Tensor, x0: torch.Tensor, *, tol,
         norm = lanes.keep(run, all_run, norm1, norm)
         it = lanes.advance(it, run_h)
         run = (norm > tol) if all_run else run & (norm > tol)
-        run_h = run.tolist()
+        run_h = trace.to_host(run, "richardson.sweep").tolist()
     return x, lanes.counts(it, x0.device), norm
 
 

@@ -1,1 +1,2 @@
-"""Utilities of the torch port (checkpoint files)."""
+"""Utilities of the torch port (checkpoint files, the solve path's spans and
+reads)."""

@@ -1325,3 +1325,91 @@ def test_placed_serving_on_the_card_is_the_one_device_serving(cuda, arch):
     for a, b in zip(got[1], want[1]):
         assert torch.equal(a, b)
     assert got[2] == want[2] and (want[2] > 0) == (cfg.family != "ssm")
+
+
+# --------------------------------------------------------------------------- #
+# Spans and reads of the solve path on the card (repro_torch.utils.trace)     #
+# --------------------------------------------------------------------------- #
+
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cuLaunchKernelEx")
+
+
+def _card_fleet(cuda, count=3, n=20_000):
+    return [generators.garnet(n=n, m=6, k=4, gamma=0.95, seed=20 + i)
+            .to(cuda) for i in range(count)]
+
+
+@pytest.mark.parametrize("method", ["ipi_gmres", "mpi"])
+def test_every_sync_of_a_fleet_solve_is_a_counted_read(cuda, method):
+    """Under the sync debug mode every synchronising call of a fleet solve
+    on the card is one the read funnel counted: no read, and no other
+    wait on the device, is left outside it."""
+    import warnings
+
+    from repro_torch.api import Session
+    from repro_torch.utils import trace
+    session = Session({"-device": "cuda", "-method": method,
+                       "-dtype": "float64", "-atol": 1e-8})
+    mdps = _card_fleet(cuda)
+    session.solve_fleet(mdps)
+    torch.cuda.synchronize()
+    trace.clear()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                trace.recording():
+            warnings.simplefilter("always")
+            session.solve_fleet(mdps)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    call, = trace.calls()
+    reads = call.summary()["reads"]
+    assert len(syncs) == sum(reads.values()) > 0, \
+        sorted({f"{w.filename}:{w.lineno}" for w in syncs})
+
+
+def test_launch_records_fall_inside_the_spans_that_issued_them(cuda):
+    """Spans and the profiler's records share one clock on the card:
+    launches issued inside a span are recorded inside its interval, and a
+    fleet solve's launches inside its root span, each Arnoldi step's
+    orthogonalization issuing as many as every other."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Session
+    from repro_torch.utils import trace
+    x = torch.ones(1 << 16, device=cuda)
+    session = Session({"-device": "cuda", "-method": "ipi_gmres",
+                       "-dtype": "float64", "-atol": 1e-8})
+    mdps = _card_fleet(cuda)
+    session.solve_fleet(mdps)
+    torch.cuda.synchronize()
+    trace.clear()
+    spans = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(4):
+            with trace.span(f"probe{i}") as sp:
+                for _ in range(3):
+                    x = x * 1.0 + 1.0
+            spans.append(sp)
+            time.sleep(0.002)
+        session.solve_fleet(mdps)
+        torch.cuda.synchronize()
+    launches = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in prof.profiler.kineto_results.events()
+                if e.name() in LAUNCHES]
+    inside = lambda s, lo, hi: s.start_ns <= lo and hi <= s.end_ns
+    for sp in spans:
+        assert sum(inside(sp, lo, hi) for lo, hi in launches) == 6
+    call = [c for c in trace.calls() if c.root.name == "session.solve_fleet"]
+    root = call[0].root
+    rest = [(lo, hi) for lo, hi in launches
+            if not any(inside(sp, lo, hi) for sp in spans)]
+    assert rest and all(inside(root, lo, hi) for lo, hi in rest)
+    per_step = {sum(inside(s, lo, hi) for lo, hi in rest)
+                for s in call[0].spans if s.name == "gmres.orthogonalize"}
+    assert len(per_step) == 1 and per_step.pop() > 0
